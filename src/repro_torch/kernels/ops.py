@@ -1,0 +1,81 @@
+"""Dispatch of the paged-attention kernels.
+
+A tensor on the CPU goes to the kernel's plain torch version; a CUDA
+tensor launches the CUDA kernel, which raises when it cannot run — there
+is no fallback. ``use_kernels(False)`` forces the plain versions (tests
+and ``chip_smoke.py`` compare the two), mirroring ``repro.kernels.ops``.
+The model path (``models.layers._paged_attention``) asks ``kernels_active``
+once and calls the kernel wrappers itself; the functions below route a
+direct call of one kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from . import _build
+from . import paged_decode as _pd
+from . import paged_prefill as _pp
+
+_FORCE_REF = False
+
+
+def use_kernels(enable: bool) -> None:
+    global _FORCE_REF
+    _FORCE_REF = not enable
+
+
+def kernels_active(t: torch.Tensor) -> bool:
+    """True when a call on ``t`` launches the CUDA kernel."""
+    return not _FORCE_REF and t.device.type == "cuda"
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last reset, one plain integer each."""
+    return dict(_build.LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
+
+
+def paged_verify(q, k_pages, v_pages, table, kv_len, *,
+                 window: Optional[int] = None):
+    if not kernels_active(q):
+        return _pd.paged_verify_ref(q, k_pages, v_pages, table, kv_len,
+                                    window=window)
+    return _pd.paged_verify(q, k_pages, v_pages, table, kv_len,
+                            window=window)
+
+
+def paged_decode(q, k_pages, v_pages, table, kv_len, *,
+                 window: Optional[int] = None):
+    return paged_verify(q[:, None], k_pages, v_pages, table, kv_len,
+                        window=window)[:, 0]
+
+
+def paged_prefill(q, k_pages, v_pages, table, kv_len, *,
+                  window: Optional[int] = None):
+    if not kernels_active(q):
+        return _pp.paged_prefill_ref(q, k_pages, v_pages, table, kv_len,
+                                     window=window)
+    return _pp.paged_prefill(q, k_pages, v_pages, table, kv_len,
+                             window=window)
+
+
+def paged_verify_quant(q, k_pages, v_pages, k_scale, v_scale, table, kv_len,
+                       *, window: Optional[int] = None):
+    if not kernels_active(q):
+        return _pd.paged_verify_quant_ref(q, k_pages, v_pages, k_scale,
+                                          v_scale, table, kv_len,
+                                          window=window)
+    return _pd.paged_verify_quant(q, k_pages, v_pages, k_scale, v_scale,
+                                  table, kv_len, window=window)
+
+
+def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, table,
+                       kv_len, *, window: Optional[int] = None):
+    return paged_verify_quant(q[:, None], k_pages, v_pages, k_scale,
+                              v_scale, table, kv_len, window=window)[:, 0]

@@ -1,0 +1,429 @@
+"""Layer library of the port: the dense GQA and paged-cache subset of
+``repro.models.layers``, in PyTorch.
+
+Functions over tensors and parameter modules (``models.model``), at the
+JAX package's layouts so the tests compare like with like:
+
+  x          : (B, S, d) activations
+  attn cache : k/v (B, S_max, h_kv, hd)  [+ int8 scales if quantized]
+  page pool  : k/v (P, bs, h_kv, hd)     [+ (P, bs, h_kv) scales]
+  positions  : (B, S) int absolute positions
+
+Cache writes are in place (the JAX package's ``.at[].set`` returns a new
+array): at full width a functional copy of a (P, bs, 8, 128) page pool per
+layer per step would cost more than the step itself. Weights keep JAX's
+(in, out) layout, so ``x @ w`` is the same product.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+
+Pages = Dict[str, torch.Tensor]
+
+
+# --------------------------------------------------------------------------- #
+#  basics
+# --------------------------------------------------------------------------- #
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    """RMSNorm with f32 statistics, result in x.dtype."""
+    var = x.float().square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * scale.to(x.dtype)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, h, d); positions: (B, S). Trig in f32, rotation in
+    x.dtype."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                   # (d/2,)
+    ang = positions[..., None].float() * freqs               # (B, S, d/2)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+
+# --------------------------------------------------------------------------- #
+#  attention — chunked causal (prefill) and cached decode/verify
+# --------------------------------------------------------------------------- #
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, h_kv, d) -> (B, S, h_kv*n_rep, d) (GQA broadcast)."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *,
+                             window: Optional[int] = None,
+                             q_offset: int = 0,
+                             chunk: int = 512) -> torch.Tensor:
+    """Flash-style double-chunked causal attention (plain torch).
+
+    q: (B, Sq, H, D); k, v: (B, Sk, h_kv, D). Online softmax over KV
+    chunks, as the JAX function scans them. ``window``: sliding-window
+    size (None = full causal); ``q_offset``: absolute position of q[0]
+    relative to k[0].
+    """
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    n_rep = H // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = 1.0 / math.sqrt(D)
+    qc = kc = chunk
+    n_q = -(-Sq // qc)
+    n_k = -(-Sk // kc)
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, n_q * qc - Sq))
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, n_k * kc - Sk))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n_k * kc - Sk))
+    # (B, H, n, c, D)
+    qb = q.reshape(B, n_q, qc, H, D).permute(0, 3, 1, 2, 4) * scale
+    kb = k.reshape(B, n_k, kc, H, D).permute(0, 3, 1, 2, 4)
+    vb = v.reshape(B, n_k, kc, H, D).permute(0, 3, 1, 2, 4)
+    dev = q.device
+    q_pos = q_offset + torch.arange(n_q * qc, device=dev)
+    k_pos = torch.arange(n_k * kc, device=dev)
+    outs = []
+    for qi in range(n_q):
+        q_tile = qb[:, :, qi]
+        acc = torch.zeros((B, H, qc, D), dtype=torch.float32, device=dev)
+        m = torch.full((B, H, qc), -math.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, H, qc), dtype=torch.float32, device=dev)
+        qp = q_pos[qi * qc:(qi + 1) * qc]
+        for ki in range(n_k):
+            s = torch.einsum("bhqd,bhkd->bhqk", q_tile,
+                             kb[:, :, ki]).float()
+            kp = k_pos[ki * kc:(ki + 1) * kc]
+            mask = qp[:, None] >= kp[None, :]
+            if window is not None:
+                mask &= (qp[:, None] - kp[None, :]) < window
+            mask &= kp[None, :] < Sk
+            s = torch.where(mask, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(mask, p, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                               0.0)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p, vb[:, :, ki].float())
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.stack(outs, 0)                          # (nq, B, H, qc, D)
+    out = out.permute(1, 0, 3, 2, 4).reshape(B, n_q * qc, H, D)
+    return out[:, :Sq].to(q.dtype)
+
+
+def verify_attention_stats(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, kv_len: torch.Tensor,
+                           *, window: Optional[int] = None, pos_offset=0
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Multi-query attention stats against a cache.
+
+    q: (B, T, H, D); query t sits at ``kv_len - T + t`` and attends
+    causally. k_cache/v_cache: (B, S, h_kv, D). Returns acc (B, H, T, D)
+    [unnormalized], m (B, H, T), l (B, H, T).
+    """
+    B, T, H, D = q.shape
+    S = k_cache.shape[1]
+    n_rep = H // k_cache.shape[2]
+    k = _repeat_kv(k_cache, n_rep)
+    v = _repeat_kv(v_cache, n_rep)
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bthd,bshd->bhts", q.float() * scale, k.float())
+    dev = q.device
+    pos = torch.arange(S, device=dev) + pos_offset                # (S,)
+    qpos = kv_len.long()[:, None] - T + torch.arange(T, device=dev)[None]
+    mask = pos[None, None, :] <= qpos[:, :, None]                 # (B,T,S)
+    if window is not None:
+        mask &= pos[None, None, :] > (qpos[:, :, None] - window)
+    s = torch.where(mask[:, None], s, -math.inf)
+    m = s.amax(-1)                                                # (B,H,T)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(mask[:, None], torch.exp(s - m_safe[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bhts,bshd->bhtd", p, v.float())
+    return acc, m, l
+
+
+def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len: torch.Tensor,
+                     *, window: Optional[int] = None) -> torch.Tensor:
+    """Multi-position attention against a cache: (B, T, H, D) -> same."""
+    acc, m, l = verify_attention_stats(q, k_cache, v_cache, kv_len,
+                                       window=window)
+    out = acc / torch.clamp(l[..., None], min=1e-30)              # (B,H,T,D)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+# --------------------------------------------------------------------------- #
+#  attention block (GQA, optional QKV bias)
+# --------------------------------------------------------------------------- #
+
+def attn_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    H, hk, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if cfg.qkv_bias:
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, hk, hd)
+    v = v.reshape(B, S, hk, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8: (B,S,h,d) -> int8 + f32 scale."""
+    tf = t.float()
+    amax = tf.abs().amax(-1)
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127).to(
+        torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype
+                  ) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
+               *, cache: Optional[Dict] = None, decode: bool = False
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full attention block: qkv -> attention -> o-proj.
+
+    ``cache``: {"k": (B,Smax,hk,hd), "v": ..., "len": (B,)} (+ int8
+    ``k_scale``/``v_scale``). Decode writes the S new lines in place at
+    ``len`` (rolling for a window-sized buffer) and attends over the
+    cache; prefill runs causal attention over ``x`` and fills the cache in
+    place. Returns (out, cache) with the cache's ``len`` advanced.
+    """
+    B, S, _ = x.shape
+    q, k, v = attn_qkv(p, cfg, x, positions)
+    window = cfg.attn_window
+    quantized = cache is not None and "k_scale" in cache
+    new_cache = cache
+    if decode:
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        kc, vc, ln = cache["k"], cache["v"], cache["len"]
+        Smax = kc.shape[1]
+        rolling = window is not None and Smax == window
+        if S > 1 and rolling:
+            raise ValueError("multi-token decode needs Smax > window")
+        if quantized:
+            k_wr, ksc = quantize_kv(k)
+            v_wr, vsc = quantize_kv(v)
+        else:
+            k_wr, v_wr = k.to(kc.dtype), v.to(vc.dtype)
+        bidx = torch.arange(B, device=x.device)
+        for t in range(S):                       # small (draft block)
+            slot = (ln + t) % window if rolling \
+                else torch.clamp(ln + t, max=Smax - 1)
+            slot = slot.long()
+            kc[bidx, slot] = k_wr[:, t]
+            vc[bidx, slot] = v_wr[:, t]
+            if quantized:
+                cache["k_scale"][bidx, slot] = ksc[:, t].to(
+                    cache["k_scale"].dtype)
+                cache["v_scale"][bidx, slot] = vsc[:, t].to(
+                    cache["v_scale"].dtype)
+        new_cache = {**cache, "len": ln + S}
+        if quantized:
+            k_at = dequantize_kv(kc, cache["k_scale"], q.dtype)
+            v_at = dequantize_kv(vc, cache["v_scale"], q.dtype)
+        else:
+            k_at, v_at = kc.to(q.dtype), vc.to(q.dtype)
+        kv_len = torch.clamp(ln + S, max=Smax) if window is not None \
+            else ln + S
+        out = verify_attention(q, k_at, v_at, kv_len, window=window)
+    else:
+        out = chunked_causal_attention(q, k, v, window=window)
+        if cache is not None:
+            Smax = cache["k"].shape[1]
+            if window is not None and Smax <= S:
+                # rolling buffer: token t lives at slot t % Smax
+                kk = torch.roll(k[:, -Smax:], S % Smax, dims=1)
+                vv = torch.roll(v[:, -Smax:], S % Smax, dims=1)
+            else:
+                kk, vv = k[:, :Smax], v[:, :Smax]
+            n = kk.shape[1]
+            if quantized:
+                kq, ksc = quantize_kv(kk)
+                vq, vsc = quantize_kv(vv)
+                cache["k"][:, :n] = kq
+                cache["v"][:, :n] = vq
+                cache["k_scale"][:, :n] = ksc.to(cache["k_scale"].dtype)
+                cache["v_scale"][:, :n] = vsc.to(cache["v_scale"].dtype)
+            else:
+                cache["k"][:, :n] = kk.to(cache["k"].dtype)
+                cache["v"][:, :n] = vv.to(cache["v"].dtype)
+            new_cache = {**cache, "len": cache["len"] + S}
+    o = out.reshape(B, S, -1) @ p.wo
+    return o, new_cache
+
+
+# --------------------------------------------------------------------------- #
+#  paged KV cache: block-table gather / scatter + paged attention
+# --------------------------------------------------------------------------- #
+
+def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(P, bs, ...) page pool + (B, nb) block table -> (B, nb*bs, ...).
+
+    Table entry ``j`` covers absolute positions ``j*bs .. (j+1)*bs - 1``;
+    entries past a sequence's length may point anywhere valid (sink or
+    stale page) — the caller masks those positions.
+    """
+    g = pages[table.long()]                          # (B, nb, bs, ...)
+    B, nb, bs = g.shape[:3]
+    return g.reshape(B, nb * bs, *g.shape[3:])
+
+
+def write_pages(pages: torch.Tensor, table: torch.Tensor, ln: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """Write T new cache lines at positions ``ln .. ln+T-1`` through the
+    block table, in place. pages: (P, bs, ...); vals: (B, T, ...); ln: (B,).
+
+    Distinct live slots own distinct pages, so the write indices never
+    collide except on the sink page (freed slots), whose content is never
+    read unmasked. Returns ``pages``.
+    """
+    B, T = vals.shape[:2]
+    bs, nb = pages.shape[1], table.shape[1]
+    pos = ln.long()[:, None] + torch.arange(T, device=vals.device)[None]
+    blk = torch.clamp(pos // bs, max=nb - 1)
+    pid = table.long().gather(1, blk)
+    pages[pid.reshape(-1), (pos % bs).reshape(-1)] = vals.reshape(
+        B * T, *vals.shape[2:]).to(pages.dtype)
+    return pages
+
+
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, table: torch.Tensor,
+                           kv_len: torch.Tensor, *,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """Multi-position attention against a paged cache (plain version of
+    the ``paged_verify`` kernel): gather through the table, then
+    ``verify_attention``. q: (B, T, H, D); kv_len includes the T tokens."""
+    k = gather_pages(k_pages, table)
+    v = gather_pages(v_pages, table)
+    return verify_attention(q, k, v, kv_len, window=window)
+
+
+def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, table: torch.Tensor,
+                            kv_len: torch.Tensor, *,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """Chunk-vs-pages causal attention with the dense-prefill math
+    (``chunked_causal_attention``), so a chunk-prefilled slot is
+    byte-identical to one-shot dense prefill. Chunked admission runs one
+    slot at a time, so every row uses ``kv_len[0]``."""
+    S = q.shape[1]
+    k = gather_pages(k_pages, table).to(q.dtype)
+    v = gather_pages(v_pages, table).to(q.dtype)
+    return chunked_causal_attention(q, k, v, window=window,
+                                    q_offset=int(kv_len[0]) - S)
+
+
+def _paged_attention(q: torch.Tensor, pages: Pages, table: torch.Tensor,
+                     kv_len: torch.Tensor, *, window: Optional[int],
+                     prefill: bool) -> torch.Tensor:
+    """Dispatch paged attention: the CUDA kernel for tensors on the card
+    (unless ``ops.use_kernels(False)``), the plain torch path otherwise.
+    int8 pools go through the fused-dequant kernel for decode and chunked
+    admission alike, as in the reference: chunk row t sits at
+    ``kv_len - S + t``, which is the prefill geometry at B = 1."""
+    from ..kernels import ops, paged_decode, paged_prefill
+    if ops.kernels_active(q):
+        if "k_scale" in pages:
+            return paged_decode.paged_verify_quant(
+                q, pages["k"], pages["v"], pages["k_scale"],
+                pages["v_scale"], table, kv_len, window=window)
+        kern = paged_prefill.paged_prefill if prefill \
+            else paged_decode.paged_verify
+        return kern(q, pages["k"], pages["v"], table, kv_len, window=window)
+    if "k_scale" in pages:
+        k = dequantize_kv(gather_pages(pages["k"], table),
+                          gather_pages(pages["k_scale"], table), q.dtype)
+        v = dequantize_kv(gather_pages(pages["v"], table),
+                          gather_pages(pages["v_scale"], table), q.dtype)
+        if prefill:
+            S = q.shape[1]
+            return chunked_causal_attention(q, k, v, window=window,
+                                            q_offset=int(kv_len[0]) - S)
+        return verify_attention(q, k, v, kv_len, window=window)
+    if prefill:
+        return paged_prefill_attention(q, pages["k"], pages["v"], table,
+                                       kv_len, window=window)
+    return paged_verify_attention(q, pages["k"], pages["v"], table, kv_len,
+                                  window=window)
+
+
+def attn_block_paged(p, cfg: ModelConfig, x: torch.Tensor, positions,
+                     pages: Pages, table: torch.Tensor, ln: torch.Tensor,
+                     *, prefill: bool = False, write: bool = True
+                     ) -> torch.Tensor:
+    """Attention block over one layer's page pool.
+
+    ``pages``: {"k": (P, bs, h_kv, hd), "v": ...} plus ``k_scale``/
+    ``v_scale`` (P, bs, h_kv) for int8 pools (new lines quantize on
+    write). ``ln``: (B,) valid lengths BEFORE this step. Writes the S new
+    lines through the table in place, then attends. ``prefill``: chunked
+    admission (dense-prefill math); ``write=False`` skips the writes (a
+    fully prefix-shared prompt re-derives its last logits read-only).
+    """
+    B, S, _ = x.shape
+    q, k, v = attn_qkv(p, cfg, x, positions)
+    if write:
+        if "k_scale" in pages:
+            kq, ksc = quantize_kv(k)
+            vq, vsc = quantize_kv(v)
+            write_pages(pages["k"], table, ln, kq)
+            write_pages(pages["v"], table, ln, vq)
+            write_pages(pages["k_scale"], table, ln, ksc)
+            write_pages(pages["v_scale"], table, ln, vsc)
+        else:
+            write_pages(pages["k"], table, ln, k)
+            write_pages(pages["v"], table, ln, v)
+    out = _paged_attention(q, pages, table, ln + S,
+                           window=cfg.attn_window, prefill=prefill)
+    return out.reshape(B, S, -1) @ p.wo
+
+
+# --------------------------------------------------------------------------- #
+#  FFN
+# --------------------------------------------------------------------------- #
+
+def glu_ffn(p, x: torch.Tensor) -> torch.Tensor:
+    return (swish(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down

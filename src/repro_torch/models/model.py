@@ -1,0 +1,251 @@
+"""Model assembly of the port: dense GQA decoder, init / prefill / decode
+over a dense or paged KV cache.
+
+Counterpart of ``repro.models.model`` for the dense family. Parameters are
+``nn.Module``s (``DenseModel`` > ``DenseBlock`` > ``Attention``/``GLU``)
+whose tensors keep the JAX pytree's names and (in, out) layouts; a Python
+loop over ``blocks`` takes the place of ``lax.scan``.
+
+Caches (device tensors, written in place):
+
+  dense : {"len": (B,), "layers": {"k"/"v": (L, B, S_max, h_kv, hd)
+           [+ "k_scale"/"v_scale": (L, B, S_max, h_kv)]}}
+  paged : {"pages": {leaf: (L, P, bs, ...)}, "block_table": (B, nb),
+           "len": (B,)}  (built by ``runtime.kvcache.PagedKVCache``)
+
+Every function returns a new cache dict (``len`` advanced) over the same
+tensors, so callers keep the JAX package's ``cache = f(cache, ...)`` flow.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from . import layers as ll
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Attention(nn.Module):
+    def __init__(self, wq, wk, wv, wo, bq=None, bk=None, bv=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = map(_param, (wq, wk, wv, wo))
+        if bq is not None:
+            self.bq, self.bk, self.bv = map(_param, (bq, bk, bv))
+
+
+class GLU(nn.Module):
+    def __init__(self, w_gate, w_up, w_down):
+        super().__init__()
+        self.w_gate, self.w_up, self.w_down = map(_param,
+                                                  (w_gate, w_up, w_down))
+
+
+class DenseBlock(nn.Module):
+    def __init__(self, attn_norm, attn: Attention, ffn_norm, ffn: GLU):
+        super().__init__()
+        self.attn_norm = _param(attn_norm)
+        self.attn = attn
+        self.ffn_norm = _param(ffn_norm)
+        self.ffn = ffn
+
+
+class DenseModel(nn.Module):
+    """Embedding, a stack of dense blocks, final norm and (untied)
+    unembedding."""
+
+    def __init__(self, embed, final_norm, blocks, unembed=None):
+        super().__init__()
+        self.embed = _param(embed)
+        self.final_norm = _param(final_norm)
+        self.blocks = nn.ModuleList(blocks)
+        if unembed is not None:
+            self.unembed = _param(unembed)
+
+
+# --------------------------------------------------------------------------- #
+#  init
+# --------------------------------------------------------------------------- #
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.float32, device="cuda") -> DenseModel:
+    """Random weights with the JAX package's distributions (normal scaled
+    by 1/sqrt(fan-in), embed x0.02, zero biases, unit norms), drawn from
+    ``generator`` (which must live on ``device``)."""
+    if cfg.family != "dense" or cfg.mla:
+        raise NotImplementedError(
+            f"the port serves the dense GQA family only (got {cfg.name})")
+    d, H, hk, hd, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+
+    def normal(shape, scale):
+        t = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=device)
+        return t.mul_(scale)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype, device=device)
+
+    blocks = []
+    for _ in range(cfg.n_layers):
+        s = 1.0 / math.sqrt(d)
+        bias = (zeros(H * hd), zeros(hk * hd), zeros(hk * hd)) \
+            if cfg.qkv_bias else ()
+        attn = Attention(normal((d, H * hd), s), normal((d, hk * hd), s),
+                         normal((d, hk * hd), s), normal((H * hd, d), s),
+                         *bias)
+        ffn = GLU(normal((d, f), s), normal((d, f), s),
+                  normal((f, d), 1.0 / math.sqrt(f)))
+        blocks.append(DenseBlock(ones(d), attn, ones(d), ffn))
+    unembed = None if cfg.tie_embeddings \
+        else normal((d, cfg.vocab), 1.0 / math.sqrt(d))
+    return DenseModel(normal((cfg.vocab, d), 0.02), ones(d), blocks, unembed)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device="cuda") -> Dict:
+    """The dense (L, B, max_len, ...) cache (int8 K/V + bf16 scales when
+    ``cfg.kv_dtype == "int8"``)."""
+    L, hk, hd = cfg.n_layers, max(cfg.kv_heads, 1), cfg.head_dim
+    S = min(max_len, cfg.attn_window) if cfg.attn_window else max_len
+    shape = (L, batch, S, hk, hd)
+    if cfg.kv_dtype == "int8":
+        layers = {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                  "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                  "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                         device=device),
+                  "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                         device=device)}
+    else:
+        layers = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                  "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"len": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "layers": layers}
+
+
+# --------------------------------------------------------------------------- #
+#  embeddings / forward paths
+# --------------------------------------------------------------------------- #
+
+def embed_tokens(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    return params.embed[tokens.long()]
+
+
+def unembed(params: DenseModel, cfg: ModelConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    if hasattr(params, "unembed"):
+        return x @ params.unembed
+    return x @ params.embed.T
+
+
+def _positions(ln: torch.Tensor, T: int) -> torch.Tensor:
+    return ln[:, None] + torch.arange(T, dtype=ln.dtype,
+                                      device=ln.device)[None]
+
+
+def _dense_backbone(params: DenseModel, cfg: ModelConfig, x, positions,
+                    cache: Dict, *, decode: bool):
+    ln = cache["len"]
+    layers = cache["layers"]
+    for i, p in enumerate(params.blocks):
+        c = {name: arr[i] for name, arr in layers.items()}
+        c["len"] = ln
+        h, _ = ll.attn_block(p.attn, cfg, ll.rms_norm(x, p.attn_norm,
+                                                      cfg.norm_eps),
+                             positions, cache=c, decode=decode)
+        x = x + h
+        x = x + ll.glu_ffn(p.ffn, ll.rms_norm(x, p.ffn_norm, cfg.norm_eps))
+    return x, {**cache, "len": ln + x.shape[1]}
+
+
+@torch.no_grad()
+def prefill(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Process the prompt, fill the cache, return last-position logits."""
+    x = embed_tokens(params, cfg, tokens)
+    B, S, _ = x.shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
+        B, S)
+    x, new_cache = _dense_backbone(params, cfg, x, pos, cache, decode=False)
+    x = ll.rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
+    return unembed(params, cfg, x), new_cache
+
+
+@torch.no_grad()
+def decode_step(params: DenseModel, cfg: ModelConfig, cache: Dict,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """One decode step over the dense cache. tokens: (B, T); T > 1 is the
+    speculative verify pass (causal among the T tokens; roll rejected
+    positions back with ``rollback_cache``)."""
+    T = tokens.shape[1]
+    x = embed_tokens(params, cfg, tokens)
+    pos = _positions(cache["len"], T)
+    x, new_cache = _dense_backbone(params, cfg, x, pos, cache, decode=True)
+    x = ll.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(params, cfg, x), new_cache
+
+
+def _paged_backbone(params: DenseModel, cfg: ModelConfig, x, positions,
+                    cache: Dict, *, prefill: bool = False,
+                    write: bool = True):
+    ln = cache["len"]
+    table = cache["block_table"]
+    pages = cache["pages"]
+    for i, p in enumerate(params.blocks):
+        pg = {name: arr[i] for name, arr in pages.items()}
+        h_in = ll.rms_norm(x, p.attn_norm, cfg.norm_eps)
+        x = x + ll.attn_block_paged(p.attn, cfg, h_in, positions, pg, table,
+                                    ln, prefill=prefill, write=write)
+        x = x + ll.glu_ffn(p.ffn, ll.rms_norm(x, p.ffn_norm, cfg.norm_eps))
+    return x, {**cache, "len": ln + x.shape[1]}
+
+
+@torch.no_grad()
+def decode_step_paged(params: DenseModel, cfg: ModelConfig, cache: Dict,
+                      tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """``decode_step`` against a paged KV cache. tokens: (B, T)."""
+    T = tokens.shape[1]
+    x = embed_tokens(params, cfg, tokens)
+    x, new_cache = _paged_backbone(params, cfg, x,
+                                   _positions(cache["len"], T), cache)
+    x = ll.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(params, cfg, x), new_cache
+
+
+@torch.no_grad()
+def prefill_chunk_paged(params: DenseModel, cfg: ModelConfig, cache: Dict,
+                        tokens: torch.Tensor, *, write: bool = True
+                        ) -> Tuple[torch.Tensor, Dict]:
+    """One chunk of a chunked (paged) prefill. tokens: (B, S).
+
+    ``cache`` is a per-slot view ({"pages", "block_table", "len"}) whose
+    ``len`` counts the prompt positions already in pages; the chunk's KV
+    is written through the table and attention runs with the dense-prefill
+    math. Returns full (B, S, V) logits. ``write=False`` re-derives logits
+    without touching pages (a whole-prompt prefix hit).
+    """
+    S = tokens.shape[1]
+    x = embed_tokens(params, cfg, tokens)
+    x, new_cache = _paged_backbone(params, cfg, x,
+                                   _positions(cache["len"], S), cache,
+                                   prefill=True, write=write)
+    x = ll.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(params, cfg, x), new_cache
+
+
+def rollback_cache(cache: Dict, new_len) -> Dict:
+    """Roll rejected speculative positions out of a KV cache: entries past
+    ``len`` are never attended, so this resets the counter."""
+    ln = cache["len"]
+    return {**cache, "len": torch.as_tensor(new_len, device=ln.device).to(
+        ln.dtype)}
