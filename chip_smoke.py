@@ -3,16 +3,24 @@
 
 Phase 0  the card (name, power limit), TF32 off.
 Phase 1  build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-         nvcc (sm_90a) and print the build time and ptxas summary.
-Phase 2  hold each kernel (B1 paged_verify, B2 paged_prefill, B4
-         paged_verify_quant) against its plain torch version at the main
-         path's head shapes (H 40, h_kv 8, D 128, 16-token pages), B4 at
-         decode and at int8 admission's chunk shapes, in f32 (atol 2e-5)
-         and bf16 (per element 1e-5 + 2^-7 |ref|, under a 1e-2 ceiling),
-         and show that the same check rejects a swapped page; time the
-         kernel, the plain version and SDPA on pre-gathered pages
-         (``library_ms``, a yardstick the port never calls), beside the
-         least time the card could take.
+         nvcc (sm_90a), one process per source started together, and print
+         the build time and ptxas summary.
+Phase 2  hold each kernel against its plain torch version on the card and
+         time the kernel, the plain version and one library call that the
+         port never calls (``library_ms``), beside the least time the card
+         could take:
+         * B1 paged_verify, B2 paged_prefill, B4 paged_verify_quant at the
+           main path's head shapes (H 40, h_kv 8, D 128, 16-token pages),
+           B4 at decode and at int8 admission's chunk shapes, in f32 (atol
+           2e-5) and bf16 (per element 1e-5 + 2^-7 |ref|, under a 1e-2
+           ceiling); the check must reject a swapped page; the library
+           call is SDPA on pre-gathered pages;
+         * B3 q4_matmul at every projection shape of qwen2.5-14b (K, N) and
+           M in {1, 8, 37, 256, 512}, f32 and bf16 x, both against the
+           plain version's f32 output to 1e-5 of max|ref| + 1e-5 |ref| (f32
+           sums in another order over K <= 13824); the check must reject
+           a weight with one group's scale doubled; the library call is
+           cuBLAS ``x @ w`` on the weight dequantized beforehand.
 Phase 3  serve 16 requests (prompts 256-1024, up to 32 new tokens) through
          the paged engine with chunked admission at qwen2.5-14b's full
          width, 48 layers, bf16, random weights from a seed — then the same
@@ -23,6 +31,23 @@ Phase 4  a 4-layer full-width f32 copy: the paged engine (chunked, f32
          every launch agrees with its plain version on the same inputs;
          with f32 pages logits agree to 2e-4 of max|ref| and tokens are
          equal; the dense engine's tokens equal the paged engine's.
+Phase 5  the streamed q4 path at full width, all 48 layers, bf16: build
+         qwen2.5-14b on the card one layer at a time from a seed, quantize
+         each layer there as the serve driver does (and hold layer 0's
+         packed bytes against the CPU's), write the ~10 GB q4 layer store
+         to a temporary directory (free space checked first, deleted at
+         the end), then serve 8 requests (prompts 128-512, 8-16 new tokens:
+         sized to keep the phase near a minute) through the layer-wise
+         engine twice — q4 weights resident on the card, then streamed
+         from the store with a window of 4 layers — and show 336 B3
+         launches a pass (7 projections x 48 layers), peak resident
+         weights <= 4 layers, and equal tokens. The store was just
+         written, so its reads likely come from the page cache, not the
+         disk.
+Phase 6  the same path at 4 layers, full width, f32: every B3 launch agrees
+         with its plain version on the same inputs (1e-5 of max|ref|),
+         streamed and resident tokens are equal, and kernel and
+         plain-version logits agree to 2e-4 of max|ref|.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
 last line. Any failure raises and the script exits nonzero without it; it
@@ -35,8 +60,10 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,9 +73,11 @@ HBM_BYTES_S = 3.35e12                       # H100 SXM, data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # bf16 tensor / f32 SIMT
 H, H_KV, D, BS = 40, 8, 128, 16             # qwen2.5-14b attention heads
 SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+Q4_SOURCE = "src/repro_torch/kernels/csrc/q4_matmul.cu"
 REPLACES = {"paged_verify": "src/repro/kernels/paged_decode.py:89",
             "paged_prefill": "src/repro/kernels/paged_prefill.py:99",
-            "paged_verify_quant": "src/repro/kernels/paged_decode.py:214"}
+            "paged_verify_quant": "src/repro/kernels/paged_decode.py:214",
+            "q4_matmul": "src/repro/kernels/q4_matmul.py:67"}
 
 
 def log(msg: str) -> None:
@@ -281,6 +310,95 @@ def check_kernels(torch, timer, rng):
     return rows
 
 
+#: B3 at every projection shape of qwen2.5-14b, (K, N): wq and wo, wk and
+#: wv, w_gate and w_up, w_down; M: decode batches, a ragged tile, prefills
+Q4_SHAPES = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120))
+Q4_MS = (1, 8, 37, 256, 512)
+Q4_GROUP = 64
+#: the JSON row: a decode step of 8 slots at w_gate / w_up, bf16 x
+Q4_ROW = (8, 5120, 13824)
+Q4_TOL = 1e-5
+
+
+def q4_within(out, want) -> float:
+    """Worst ratio of |out - want| to 1e-5 max|want| + 1e-5 |want| (f32
+    sums in another order over K <= 13824)."""
+    err = (out - want).abs()
+    allowed = Q4_TOL * float(want.abs().max()) + Q4_TOL * want.abs()
+    return float((err / allowed).max())
+
+
+def q4_bound_ms(M, K, N, x_elt):
+    """x read once, packed and scales read once, the f32 output written
+    once, against 2*M*K*N operations at the bf16 tensor-core peak."""
+    nbytes = M * K * x_elt + K // 2 * N + K // Q4_GROUP * N * 2 + M * N * 4
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 2 * M * K * N / PEAK_OPS["bfloat16"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_q4(torch, timer, rng):
+    """Phase 2, B3; returns its JSON row (the bf16 decode measurement)."""
+    from repro_torch.kernels import q4_matmul as q4
+    from repro_torch.quant import dequantize_q4, quantize_q4
+
+    row = None
+    for K, N in Q4_SHAPES:
+        w = torch.from_numpy(rng.standard_normal(
+            (K, N), dtype=np.float32)).cuda() / np.sqrt(K)
+        qt = quantize_q4(w, Q4_GROUP)
+        del w
+        lib_w = {"float32": dequantize_q4(qt, torch.float32),
+                 "bfloat16": dequantize_q4(qt, torch.bfloat16)}
+        # negative control: one group of one column with its scale doubled
+        bad = qt.scale.clone()
+        bad[K // Q4_GROUP // 2, N // 2] *= 2
+        for M in Q4_MS:
+            x32 = torch.from_numpy(rng.standard_normal(
+                (M, K), dtype=np.float32)).cuda()
+            for dtype in ("float32", "bfloat16"):
+                x = x32.to(getattr(torch, dtype))
+                label = f"B3 M={M} K={K} N={N} {dtype}"
+                kern = lambda: q4.q4_matmul(x, qt.packed, qt.scale,
+                                            group=Q4_GROUP)
+                plain = lambda s=qt.scale: q4.q4_matmul_ref(
+                    x, qt.packed, s, group=Q4_GROUP)
+                lib = lambda: x @ lib_w[dtype]
+                out = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"{label}: non-finite kernel out")
+                err = float((out - want).abs().max())
+                ratio = q4_within(out, want)
+                if ratio > 1.0:
+                    raise AssertionError(f"{label}: max|err| {err}, "
+                                         f"{ratio:.3g}x the tolerance")
+                control = q4_within(out, plain(bad))
+                if control <= 1.0:
+                    raise AssertionError(f"{label}: the check does not see "
+                                         f"a doubled group scale "
+                                         f"({control:.3g}x the tolerance)")
+                ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
+                bms, by = q4_bound_ms(M, K, N, x.element_size())
+                log(f"  {label}: max|err| {err:.3g} (max|ref| "
+                    f"{float(want.abs().max()):.3g}), {ratio:.3g}x the "
+                    f"tolerance (a doubled group scale: {control:.3g}x); "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS "
+                    f"on the dequantized weight (library_ms) {lib_ms:.4f} "
+                    f"ms, bound {bms * 1e3:.2f} us ({by})")
+                if dtype == "bfloat16" and (M, K, N) == Q4_ROW:
+                    row = {"name": "q4_matmul", "route": "cuda",
+                           "source": Q4_SOURCE,
+                           "replaces": REPLACES["q4_matmul"],
+                           "launches": 0, "max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bms,
+                           "bound_by": by, "library_ms": lib_ms}
+        del qt, lib_w, bad
+    return row
+
+
 # --------------------------------------------------------------------------- #
 #  phases 3 and 4
 # --------------------------------------------------------------------------- #
@@ -292,9 +410,9 @@ SERVE_ARGS = ["--arch", "qwen2.5-14b", "--batch", "8", "--ctx", "2048",
 
 
 def check_served(res) -> None:
-    fin = res["finished"]
-    if res["rejected"] or len(fin) != 16:
-        raise AssertionError(f"{len(fin)} of 16 requests finished, "
+    fin, n = res["finished"], len(res["requests"])
+    if res["rejected"] or len(fin) != n:
+        raise AssertionError(f"{len(fin)} of {n} requests finished, "
                              f"{len(res['rejected'])} shed")
     want = {r.uid: r.max_new_tokens for r in res["requests"]}
     for f in fin:
@@ -423,23 +541,28 @@ def compare_runs(kern, plain):
 
 @contextlib.contextmanager
 def substituted(ops, mode, errs=None):
-    """Phase-4 stand-ins for the kernel wrappers the model path calls.
-    ``"shadow"``: each launch also runs the plain version on the same
-    inputs, and ``errs`` keeps the largest max|d| by kernel. ``"plain"``:
+    """Phase-4 and phase-6 stand-ins for the kernel wrappers the model
+    path calls. ``"shadow"``: each launch also runs the plain version on
+    the same inputs, and ``errs`` keeps the largest max|d| by kernel (for
+    B3 divided by the launch's max|ref|). ``"plain"``:
     the model takes the card's route (kernels reported active) with each
     wrapper replaced by its plain version: one more plain run, summing in
     another order than ``use_kernels(False)``'s."""
-    from repro_torch.kernels import paged_decode, paged_prefill
+    from repro_torch.kernels import paged_decode, paged_prefill, q4_matmul
 
     saved = []
     for mod, name in ((paged_decode, "paged_verify"),
                       (paged_prefill, "paged_prefill"),
-                      (paged_decode, "paged_verify_quant")):
+                      (paged_decode, "paged_verify_quant"),
+                      (q4_matmul, "q4_matmul")):
         kern, ref = getattr(mod, name), getattr(mod, name + "_ref")
 
         def shadow(*a, kern=kern, ref=ref, name=name, **k):
             out = kern(*a, **k)
-            d = float((out.float() - ref(*a, **k).float()).abs().max())
+            want = ref(*a, **k).float()
+            d = float((out.float() - want).abs().max())
+            if name == "q4_matmul":          # relative to max|ref|
+                d /= float(want.abs().max())
             errs[name] = max(errs.get(name, 0.0), d)
             return out
 
@@ -533,6 +656,301 @@ def parity(torch, ops, serve) -> None:
 
 
 # --------------------------------------------------------------------------- #
+#  phases 5 and 6: the streamed q4 path
+# --------------------------------------------------------------------------- #
+
+STREAM_ARGS = ["--arch", "qwen2.5-14b", "--batch", "8", "--ctx", "640",
+               "--requests", "8", "--prompt-len", "128", "--prompt-len-max",
+               "513", "--new-tokens", "16", "--seed", "0",
+               "--stream-window", "4", "--store-quant", "q4"]
+PROJECTIONS = 7          # wq, wk, wv, wo, w_gate, w_up, w_down per layer
+
+
+def same_quant_on_cpu(torch, tree, qtree) -> int:
+    """Quantize layer 0's matmul weights again on the CPU: the packed
+    bytes and scale bits must equal the card's. Returns the leaves held."""
+    from repro_torch.quant import QuantizedTensor, quantize_q4
+
+    n = 0
+    for sub in ("attn", "ffn"):
+        for key, q in qtree[sub].items():
+            if not isinstance(q, QuantizedTensor):
+                continue
+            cpu = quantize_q4(tree[sub][key].cpu(), q.group)
+            n_packed = int((cpu.packed != q.packed.cpu()).sum())
+            n_scale = int((cpu.scale.view(torch.int16)
+                           != q.scale.cpu().view(torch.int16)).sum())
+            if n_packed or n_scale:
+                raise AssertionError(
+                    f"layer 0 {sub}/{key}: the card's quantize_q4 differs "
+                    f"from the CPU's in {n_packed} packed bytes and "
+                    f"{n_scale} scales")
+            n += 1
+    if n != PROJECTIONS:
+        raise AssertionError(f"layer 0: {n} quantized projections, wanted "
+                             f"{PROJECTIONS}")
+    return n
+
+
+def q4_model(torch, cfg, dtype, seed):
+    """(head, per-layer q4 trees, layer(i)): ``layer(i)`` draws block i on
+    the card (``init_block``), quantizes it there as the serve driver
+    does (``quantize_ring_params`` at tp=1), keeps it and returns it —
+    so ``write_param_store`` builds the store one layer at a time and no
+    full-precision model is ever held."""
+    from repro_torch import bridge
+    from repro_torch.models import model as M
+    from repro_torch.quant import map_tree
+    from repro_torch.runtime.serve import quantize_ring_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    head = M.init_head(cfg, gen, dtype, "cuda")
+    layers = []
+
+    def layer(i):
+        tree = bridge.tree_from_block(M.init_block(cfg, gen, dtype, "cuda"))
+        q, skipped = quantize_ring_params(
+            {"blocks": map_tree(lambda t: t[None], tree)}, cfg, tp=1)
+        if skipped:
+            raise AssertionError(f"layer {i}: left unquantized: {skipped}")
+        qtree = map_tree(lambda t: t[0], q["blocks"])
+        if i == 0:
+            n = same_quant_on_cpu(torch, tree, qtree)
+            log(f"  layer 0: the card's packed bytes and scale bits equal "
+                f"the CPU's for all {n} projections")
+        layers.append(qtree)
+        return qtree
+
+    return head, layers, layer
+
+
+def layer_params(cfg):
+    """(matmul weights, other parameters) of one block."""
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hk = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    bias = hq + 2 * hk if cfg.qkv_bias else 0
+    return d * (2 * hq + 2 * hk) + 3 * d * f, bias + 2 * d
+
+
+def write_store(torch, cfg, dtype, seed):
+    """Build the q4 model layer by layer and write its store to a new
+    temporary directory; returns (dir, the resident stacked tree)."""
+    from repro_torch.runtime.paramstore import stack_layers, write_param_store
+
+    weights, others = layer_params(cfg)
+    elt = torch.empty((), dtype=dtype).element_size()
+    # packed q4 (1/2 B) + bf16 scales per 64 weights, the rest as is, head
+    need = cfg.n_layers * (weights * 9 // 16 + others * elt) \
+        + 2 * cfg.vocab * cfg.d_model * elt
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    if free < need + (4 << 30):
+        raise AssertionError(f"{tmp}: {free / 1e9:.1f} GB free, the store "
+                             f"needs about {need / 1e9:.1f} GB + 4 GB")
+    sdir = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        head, layers, layer = q4_model(torch, cfg, dtype, seed)
+        t0 = time.perf_counter()
+        write_param_store(layer, head, cfg, sdir)
+        torch.cuda.synchronize()
+        tree = dict(head, blocks=stack_layers(layers))
+    except BaseException:
+        shutil.rmtree(sdir, ignore_errors=True)
+        raise
+    layers.clear()
+    torch.cuda.empty_cache()
+    log(f"  store of {cfg.n_layers} layers built, quantized and written in "
+        f"{time.perf_counter() - t0:.1f} s to {sdir} ({free / 1e9:.1f} GB "
+        f"free before, about {need / 1e9:.2f} GB needed)")
+    return sdir, tree
+
+
+def stream_summary(name, res, resident_bytes):
+    st, summ = res["stats"], res["summary"]
+    peak = resident_bytes if st is None else st.peak_resident_bytes
+    stall = 0.0 if st is None else st.stall_s
+    read = 0 if st is None else st.total_bytes_read
+    log(f"  {name}: {summ['requests']} requests, {res['steps']} decode "
+        f"steps, wall {res['wall_s']:.3f} s, TTFT p50 "
+        f"{summ['ttft_p50_s'] * 1e3:.2f} ms, TPOT p50 "
+        f"{summ['tpot_p50_s'] * 1e3:.2f} ms, {summ['tokens_per_s']:.2f} "
+        f"tokens/s; peak resident weights {peak / 1e6:.1f} MB, prefetch "
+        f"stall {stall * 1e3:.1f} ms, {read / 1e6:.1f} MB read")
+
+
+def serve_streamed_full(torch, ops, serve):
+    """Phase 5; returns the streamed run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.paramstore import ParamStore, ResidentSource
+    from repro_torch.runtime.streaming import StreamingParamSource
+
+    args = serve.parse_args(STREAM_ARGS + ["--dtype", "bf16"])
+    cfg = get_config(args.arch)                # full width, all 48 layers
+    sdir, tree = write_store(torch, cfg, torch.bfloat16, seed=0)
+    try:
+        store = ParamStore(sdir)
+        nbytes = store.layer_nbytes
+        raw = sum(layer_params(cfg))           # parameters of a layer
+        log(f"  store: {store.quant_format}, manifest v{store.version}, "
+            f"{nbytes / 1e6:.2f} MB/layer (the bf16 layer: "
+            f"{2 * raw / 1e6:.2f} MB, ratio {nbytes / (2 * raw):.3f}); "
+            f"{store.n_layers} layers, "
+            f"{nbytes * store.n_layers / 1e9:.2f} GB")
+        store.close()
+        reqs = serve.make_requests(cfg, args)
+        streams, counts = {}, {}
+        for name in ("resident", "streamed"):
+            src = ResidentSource(tree) if name == "resident" else \
+                StreamingParamSource(ParamStore(sdir),
+                                     window=args.stream_window)
+            ops.reset_launch_counts()
+            try:
+                res = serve.serve_layerwise(src, cfg, reqs, args)
+            finally:
+                src.close()
+            counts[name] = ops.launch_counts()
+            res["requests"] = reqs
+            check_served(res)
+            stream_summary(f"{name} q4 weights", res,
+                           nbytes * cfg.n_layers)
+            passes = len(reqs) + res["steps"]
+            want = PROJECTIONS * cfg.n_layers * passes
+            if counts[name]["q4_matmul"] != want or \
+                    sum(counts[name].values()) != want:
+                raise AssertionError(
+                    f"{name}: launches {counts[name]}, wanted {want} of "
+                    f"q4_matmul alone ({passes} passes x {cfg.n_layers} "
+                    f"layers x {PROJECTIONS})")
+            log(f"  {name}: {want} q4_matmul launches = {passes} passes "
+                f"x {cfg.n_layers} layers x {PROJECTIONS} projections")
+            streams[name] = {f.uid: f.tokens for f in res["finished"]}
+            if name == "streamed":
+                st = res["stats"]
+                if st.peak_resident_bytes > args.stream_window * nbytes:
+                    raise AssertionError(
+                        f"streamed: peak resident {st.peak_resident_bytes}"
+                        f" B > {args.stream_window} layers of {nbytes} B")
+                if st.layers_served != cfg.n_layers * passes:
+                    raise AssertionError(f"streamed: {st.layers_served} "
+                                         f"layers served")
+                log(f"  streamed: peak resident weights "
+                    f"{st.peak_resident_bytes / nbytes:.2f} layers of "
+                    f"{args.stream_window} allowed; {len(st.events)} "
+                    f"layer reads, median "
+                    f"{st.median_layer_read_s * 1e3:.2f} ms each (mmap to "
+                    f"pinned staging; the store was just written, so "
+                    f"likely from the page cache); the resident run held "
+                    f"all {cfg.n_layers} layers "
+                    f"({nbytes * cfg.n_layers / 1e9:.2f} GB)")
+            else:
+                del tree
+                gc.collect()
+                torch.cuda.empty_cache()
+        if streams["streamed"] != streams["resident"]:
+            bad = [u for u, t in streams["resident"].items()
+                   if streams["streamed"].get(u) != t]
+            raise AssertionError(f"streamed tokens differ from the "
+                                 f"resident run's for uids {bad}")
+        log(f"  streamed and resident tokens equal for {len(reqs)} "
+            f"requests")
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    return counts["streamed"]
+
+
+def traced_stream_run(torch, source, cfg, reqs, args):
+    """The layer-wise engine as ``serve.serve_layerwise`` builds it, keeping
+    the logits behind every greedy token by (uid, token index): the
+    prefill's last row for token 0, the decode step's row after that."""
+    from repro_torch.models import init_cache
+    from repro_torch.models import model as M
+    from repro_torch.runtime.streaming import make_streaming_engine
+
+    eng = make_streaming_engine(source, cfg, args.batch, args.ctx,
+                                cache_dtype=torch.float32,
+                                device=args.device)
+    logits, admitting = {}, []
+    admit, decode, prefill = eng.admit, eng.decode, M.prefill_layerwise
+
+    def admit_(cache, tokens, uid, *a, **k):
+        admitting.append(uid)
+        return admit(cache, tokens, uid, *a, **k)
+
+    def prefill_(*a, **k):
+        out = prefill(*a, **k)
+        logits[(admitting[-1], 0)] = out[0][0, -1].float().clone()
+        return out
+
+    def decode_(cache, tokens):
+        out = decode(cache, tokens)
+        for i in eng.active():
+            st = eng.slots[i]
+            logits[(st.uid, len(st.generated))] = out[0][i, 0].float().clone()
+        return out
+
+    eng.admit, eng.decode, M.prefill_layerwise = admit_, decode_, prefill_
+    try:
+        fin, _ = eng.run(init_cache(cfg, args.batch, args.ctx,
+                                    dtype=torch.float32, device=args.device),
+                         reqs)
+    finally:
+        M.prefill_layerwise = prefill
+        source.close()
+    check_served({"finished": fin, "rejected": eng.rejected,
+                  "requests": reqs})
+    return {f.uid: f.tokens for f in fin}, logits
+
+
+def q4_parity(torch, ops, serve) -> None:
+    """Phase 6, 4 layers at full width, f32: B3 against its plain version
+    on the same inputs, streamed against resident tokens, kernel against
+    plain-version logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.paramstore import ParamStore, ResidentSource
+    from repro_torch.runtime.streaming import StreamingParamSource
+
+    args = serve.parse_args(STREAM_ARGS + ["--dtype", "f32"])
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=4)
+    log(f"  depth cut: 4 of 48 layers")
+    sdir, tree = write_store(torch, cfg, torch.float32, seed=1)
+    try:
+        reqs = serve.make_requests(cfg, args)
+        errs = {}
+        with substituted(ops, "shadow", errs):
+            streamed = traced_stream_run(
+                torch, StreamingParamSource(ParamStore(sdir), window=2),
+                cfg, reqs, args)
+            resident = traced_stream_run(torch, ResidentSource(tree), cfg,
+                                         reqs, args)
+        ops.use_kernels(False)
+        try:
+            plain = traced_stream_run(torch, ResidentSource(tree), cfg,
+                                      reqs, args)
+        finally:
+            ops.use_kernels(True)
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    if sorted(errs) != ["q4_matmul"] or errs["q4_matmul"] > Q4_TOL:
+        raise AssertionError(f"B3 launches against their plain version on "
+                             f"the same inputs: {errs} (max|d|/max|ref|, "
+                             f"bound {Q4_TOL})")
+    if streamed[0] != resident[0]:
+        raise AssertionError("streamed and resident tokens differ")
+    worst, n_equal, splits = compare_runs(streamed, plain)
+    log(f"  every B3 launch within {errs['q4_matmul']:.3g} of max|ref| of "
+        f"its plain version on the same inputs; streamed and resident "
+        f"tokens equal for {len(reqs)} requests; kernel vs plain-version "
+        f"logits within {worst:.3g} of max|ref|, streams equal for "
+        f"{n_equal} of {len(reqs)}; splits: {splits}")
+    if worst >= LOGIT_REL or n_equal != len(reqs):
+        raise AssertionError(f"kernel and plain-version runs disagree "
+                             f"(bound {LOGIT_REL}, streams all equal)")
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
 
 def main() -> int:
     import torch
@@ -557,16 +975,21 @@ def main() -> int:
 
     log("== phase 1: build")
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.load()
-    log(f"  {lib_path.name} ready in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    paths = _build.build()
+    for name in paths:
+        _build.load(name)
+    log(f"  {', '.join(p.name for p in paths.values())} ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, out in _build.build_log.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
     log("== phase 2: kernels against their plain versions "
         f"(H {H}, h_kv {H_KV}, D {D}, pages of {BS})")
-    rows = check_kernels(torch, Timer(torch), np.random.default_rng(0))
+    timer = Timer(torch)
+    rows = check_kernels(torch, timer, np.random.default_rng(0))
+    rows["q4_matmul"] = check_q4(torch, timer, np.random.default_rng(1))
     log(f"  phase 2 done at {time.perf_counter() - t_start:.0f} s")
 
     log("== phase 3: serve qwen2.5-14b at full width, 48 layers, bf16")
@@ -578,6 +1001,17 @@ def main() -> int:
     parity(torch, ops, serve)
     log(f"  phase 4 done at {time.perf_counter() - t_start:.0f} s")
 
+    log("== phase 5: streamed q4 serve of qwen2.5-14b at full width, 48 "
+        "layers, bf16")
+    stream_counts = serve_streamed_full(torch, ops, serve)
+    log(f"  main-path launches: {stream_counts}")
+    log(f"  phase 5 done at {time.perf_counter() - t_start:.0f} s")
+
+    log("== phase 6: q4 parity, 4 layers full width f32")
+    q4_parity(torch, ops, serve)
+    log(f"  phase 6 done at {time.perf_counter() - t_start:.0f} s")
+
+    counts["q4_matmul"] = stream_counts["q4_matmul"]
     for name, row in rows.items():
         row["launches"] = counts[name]
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))

@@ -1,11 +1,19 @@
-"""Carry the JAX package's parameter pytree into the port's modules.
+"""Carry the JAX package's parameter trees into the port, and the port's
+model into the same tree layout.
 
-The caller converts the JAX tree to numpy first
+The caller converts a JAX tree to numpy first
 (``jax.tree.map(np.asarray, params)``), so this module never imports JAX.
 The tree is ``embed``, ``final_norm``, optional ``unembed`` and
 ``blocks.{attn_norm, attn.{wq,wk,wv,wo[,bq,bk,bv]}, ffn_norm,
 ffn.{w_gate,w_up,w_down}}``, each block leaf stacked over the L layers.
 Weights keep their (in, out) layout, so ``x @ w`` is the same product.
+
+A quantized leaf (the JAX ``QuantizedTensor`` with numpy ``packed`` int8
+and ``scale`` bf16 children, as ``quant.quantize_tree`` or
+``runtime.serve.quantize_ring_params`` make it) becomes the port's
+``QuantizedTensor``; its bf16 scale bits are carried as raw 16-bit words.
+``block_from_tree`` builds one ``DenseBlock`` from a per-layer tree, the
+form ``ParamSource.layer(i)`` returns.
 """
 from __future__ import annotations
 
@@ -15,27 +23,82 @@ import numpy as np
 import torch
 
 from .models.model import GLU, Attention, DenseBlock, DenseModel
+from .quant.grouped import QuantizedTensor, map_tree
+from .runtime.paramstore import stack_layers
+
+_BLOCK_KEYS = {"attn": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
+               "ffn": ("w_gate", "w_up", "w_down")}
+
+
+def _is_quantized(a) -> bool:
+    return all(hasattr(a, k) for k in ("packed", "scale", "bits", "group",
+                                       "shape"))
+
+
+def _bf16(a) -> torch.Tensor:
+    """A numpy bf16 array (ml_dtypes) as a torch bf16 tensor, bit-exact."""
+    return torch.tensor(np.asarray(a).view(np.int16)).view(torch.bfloat16)
+
+
+def tree_from_numpy(tree: Dict[str, Any], device="cuda",
+                    dtype=torch.float32) -> Dict[str, Any]:
+    """The same nested-dict tree with torch leaves on ``device``: float
+    leaves in ``dtype``, quantized leaves as the port's
+    ``QuantizedTensor`` (packed int8, scale bf16, bit-exact)."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if _is_quantized(tree):
+        return QuantizedTensor(
+            packed=torch.tensor(np.asarray(tree.packed, np.int8),
+                                device=device),
+            scale=_bf16(tree.scale).to(device), bits=int(tree.bits),
+            group=int(tree.group), shape=tuple(int(d) for d in tree.shape))
+    return torch.tensor(np.asarray(tree, np.float32), dtype=dtype,
+                        device=device)
+
+
+def block_from_tree(p: Dict[str, Any]) -> DenseBlock:
+    """One ``DenseBlock`` from a per-layer tree (no layer axis); leaves
+    are used as they are, views included."""
+    attn, ffn = p["attn"], p["ffn"]
+    bias = [attn[k] for k in ("bq", "bk", "bv")] if "bq" in attn else []
+    return DenseBlock(
+        p["attn_norm"],
+        Attention(attn["wq"], attn["wk"], attn["wv"], attn["wo"], *bias),
+        p["ffn_norm"],
+        GLU(ffn["w_gate"], ffn["w_up"], ffn["w_down"]))
 
 
 def params_from_numpy(tree: Dict[str, Any], device="cuda",
                       dtype=torch.float32) -> DenseModel:
-    def t(a) -> torch.Tensor:
-        return torch.tensor(np.asarray(a, np.float32), dtype=dtype,
-                            device=device)
+    t = tree_from_numpy(tree, device, dtype)
+    blocks = t["blocks"]
+    n_layers = blocks["attn_norm"].shape[0]
+    layers = [block_from_tree(map_tree(lambda a: a[i], blocks))
+              for i in range(n_layers)]
+    return DenseModel(t["embed"], t["final_norm"], layers, t.get("unembed"))
 
-    blocks = tree["blocks"]
-    attn, ffn = blocks["attn"], blocks["ffn"]
-    n_layers = np.asarray(blocks["attn_norm"]).shape[0]
-    layers = []
-    for i in range(n_layers):
-        bias = [t(attn[k][i]) for k in ("bq", "bk", "bv")] \
-            if "bq" in attn else []
-        layers.append(DenseBlock(
-            t(blocks["attn_norm"][i]),
-            Attention(*(t(attn[k][i]) for k in ("wq", "wk", "wv", "wo")),
-                      *bias),
-            t(blocks["ffn_norm"][i]),
-            GLU(*(t(ffn[k][i]) for k in ("w_gate", "w_up", "w_down")))))
-    unembed = t(tree["unembed"]) if "unembed" in tree else None
-    return DenseModel(t(tree["embed"]), t(tree["final_norm"]), layers,
-                      unembed)
+
+def tree_from_block(block: DenseBlock) -> Dict[str, Any]:
+    """One block as its per-layer tree (the inverse of
+    ``block_from_tree``)."""
+    out = {"attn_norm": block.attn_norm.detach(),
+           "ffn_norm": block.ffn_norm.detach()}
+    for sub, keys in _BLOCK_KEYS.items():
+        mod = getattr(block, sub)
+        out[sub] = {k: getattr(mod, k).detach() for k in keys
+                    if hasattr(mod, k)}
+    return out
+
+
+def tree_from_params(params: DenseModel) -> Dict[str, Any]:
+    """The model as the JAX package's stacked tree (block leaves stacked
+    over the layers on their device): the layout
+    ``runtime.paramstore.save_param_store`` and ``ResidentSource`` take."""
+    out = {"embed": params.embed.detach(),
+           "final_norm": params.final_norm.detach(),
+           "blocks": stack_layers([tree_from_block(b)
+                                   for b in params.blocks])}
+    if hasattr(params, "unembed"):
+        out["unembed"] = params.unembed.detach()
+    return out

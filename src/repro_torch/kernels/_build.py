@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/paged_attention.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``. The library lands
-in ``build/kernels/`` at the repository root (git-ignored), under a name
-keyed by a hash of the source and flags, so an edit rebuilds it. Nothing is
-built at import: the first launch builds. A missing ``nvcc`` or a failed
-build raises — there is no fallback.
+``nvcc`` compiles each source under ``csrc/`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``. The
+libraries land in ``build/kernels/`` at the repository root (git-ignored),
+each under a name keyed by a hash of all sources and the flags, so an edit
+rebuilds them. Nothing is built at import: the first launch of any kernel
+builds every library, one ``nvcc`` process per source, all started
+together. A missing ``nvcc`` or a failed build raises — there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -16,23 +18,25 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = _CSRC / "paged_attention.cu"
+#: library name -> CUDA source
+SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
+           "q4_matmul": _CSRC / "q4_matmul.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES: Dict[str, int] = {"paged_verify": 0, "paged_prefill": 0,
-                            "paged_verify_quant": 0}
+                            "paged_verify_quant": 0, "q4_matmul": 0}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-#: compiler output of the build this process loaded (ptxas register and
-#: shared-memory lines), or "" when the library was already built
-build_log = ""
+_libs: Dict[str, ctypes.CDLL] = {}
+#: compiler output (ptxas register and shared-memory lines) of the builds
+#: this process ran, by library; empty when the libraries already existed
+build_log: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -45,34 +49,67 @@ def find_nvcc() -> str:
         "the port's CUDA kernels cannot be built on this machine")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+def _key() -> str:
+    h = hashlib.sha256()
+    for name in sorted(SOURCES):
+        h.update(name.encode())
+        h.update(SOURCES[name].read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"paged_attention_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the source unless the hashed library already exists."""
-    global build_log
-    out = library_path()
-    if out.exists():
-        return out
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}_{_key()}.so"
+
+
+def build() -> Dict[str, Path]:
+    """Compile every source whose hashed library does not exist yet, all
+    ``nvcc`` processes at once; returns the library path by name."""
+    paths = {name: library_path(name) for name in SOURCES}
+    todo = [name for name, p in paths.items() if not p.exists()]
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    build_log = res.stdout + res.stderr
-    return out
+    nvcc = find_nvcc()
+    procs = {}
+    try:
+        for name in todo:
+            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+            procs[name] = (cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (cmd, tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+            else:
+                os.replace(tmp, paths[name])
+                build_log[name] = out
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+    return paths
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [I]
+    err.restype = ctypes.c_char_p
+    if name == "q4_matmul":
+        lib.q4_matmul.argtypes = [P, P, P, P, I, I, I, I, I, P]
+        lib.q4_matmul.restype = I
+        return
     common = [I, I, I, I, I, I, I, I, I, I, F, L, L, L, L, L, L]
     lib.paged_verify.argtypes = [P] * 6 + common + [P]
     lib.paged_prefill.argtypes = [P] * 6 + common + [P]
@@ -81,23 +118,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = I
     lib.paged_attention_smem_bytes.argtypes = [I, I, I, I, I]
     lib.paged_attention_smem_bytes.restype = L
-    lib.paged_attention_error_string.argtypes = [I]
-    lib.paged_attention_error_string.restype = ctypes.c_char_p
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    global _lib
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (every library is built on first use)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            _declare(lib)
-            _lib = lib
-        return _lib
+        if not _libs:
+            for lib_name, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                _declare(lib_name, lib)
+                _libs[lib_name] = lib
+        return _libs[name]
 
 
-def check(code: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def check(code: int, what: str, name: str) -> None:
+    """Raise if a launch from library ``name`` returned a CUDA error."""
     if code != 0:
-        msg = load().paged_attention_error_string(code).decode()
+        msg = getattr(load(name), f"{name}_error_string")(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,4 +1,4 @@
-"""Dispatch of the paged-attention kernels.
+"""Dispatch of the port's kernels (paged attention, q4 matmul).
 
 A tensor on the CPU goes to the kernel's plain torch version; a CUDA
 tensor launches the CUDA kernel, which raises when it cannot run — there
@@ -17,6 +17,7 @@ import torch
 from . import _build
 from . import paged_decode as _pd
 from . import paged_prefill as _pp
+from . import q4_matmul as _q4
 
 _FORCE_REF = False
 
@@ -39,6 +40,12 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _build.LAUNCHES:
         _build.LAUNCHES[name] = 0
+
+
+def q4_matmul(x, packed, scale, *, group: int = 64):
+    if not kernels_active(x):
+        return _q4.q4_matmul_ref(x, packed, scale, group=group)
+    return _q4.q4_matmul(x, packed, scale, group=group)
 
 
 def paged_verify(q, k_pages, v_pages, table, kv_len, *,

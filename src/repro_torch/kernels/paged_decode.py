@@ -56,7 +56,7 @@ def _check_common(q, k_pages, v_pages, table, kv_len, name: str):
         raise ValueError(f"{name}: kv_len must be contiguous (B,)")
     if B == 0 or T == 0:
         raise ValueError(f"{name}: empty batch or query block")
-    lib = _build.load()
+    lib = _build.load("paged_attention")
     smem = lib.paged_attention_smem_bytes(T, H, h_kv, D, bs)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory per "
@@ -79,14 +79,14 @@ def _launch_float(fn_name: str, q, k_pages, v_pages, table, kv_len,
     qc = _code(q, floats, f"{fn_name} q")
     kc = _code(k_pages, floats, f"{fn_name} pages")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    lib = _build.load()
+    lib = _build.load("paged_attention")
     code = getattr(lib, fn_name)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), qc, kc,
         B, T, H, h_kv, D, bs, nb, _window(window), 1.0 / math.sqrt(D),
         *q.stride()[:3], *k_pages.stride()[:3],
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, fn_name)
+    _build.check(code, fn_name, "paged_attention")
     _build.LAUNCHES[fn_name] += 1
     return out
 
@@ -133,7 +133,7 @@ def paged_verify_quant(q: torch.Tensor, k_pages: torch.Tensor,
             raise ValueError(f"{name}: scales on {t.device}, q on "
                              f"{q.device}")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    lib = _build.load()
+    lib = _build.load("paged_attention")
     code = lib.paged_verify_quant(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
@@ -141,7 +141,7 @@ def paged_verify_quant(q: torch.Tensor, k_pages: torch.Tensor,
         _window(window), 1.0 / math.sqrt(D), *q.stride()[:3],
         *k_pages.stride()[:3], *k_scale.stride(),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, name)
+    _build.check(code, name, "paged_attention")
     _build.LAUNCHES[name] += 1
     return out
 

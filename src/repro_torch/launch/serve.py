@@ -1,18 +1,32 @@
-"""Paged serving driver of the port: ``python -m repro_torch.launch.serve``.
+"""Serving driver of the port: ``python -m repro_torch.launch.serve``.
 
 Builds a dense model with random weights from ``--seed`` (``--smoke``: the
-reduced config), serves ``RequestGenerator`` requests through the paged
-continuous batcher (``runtime.kvcache.make_paged_engine``) and prints TTFT,
-TPOT, tokens/s, the KV high-water mark and the kernel launch counts.
-``--check-dense`` also runs the dense-cache engine on the same requests and
-exits nonzero on any token mismatch. Runs on the card unless
+reduced config) and serves ``RequestGenerator`` requests, printing TTFT,
+TPOT, tokens/s and the kernel launch counts. Runs on the card unless
 ``--device cpu``.
+
+Paged (the default): the paged continuous batcher
+(``runtime.kvcache.make_paged_engine``), with the KV high-water mark;
+``--check-dense`` also runs the dense-cache engine on the same requests and
+exits nonzero on any token mismatch.
+
+Streamed (``--stream-window W``, W > 0): the weights go to a layer store
+in a temporary directory (packed q4 with ``--store-quant q4``, deleted at
+exit) and the requests are served through the layer-wise engine
+(``runtime.streaming.make_streaming_engine``) over a dense cache, with
+``W`` layers staged ahead of the compute front; prints the store's
+bytes per layer, the peak resident weight bytes, the prefetch stall and
+the bytes read. ``--check-resident`` also serves the same requests with
+the same (quantized) weights resident and exits nonzero on any token
+mismatch.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import shutil
 import sys
+import tempfile
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -21,9 +35,14 @@ import torch
 from ..configs import get_config
 from ..data import RequestGenerator
 from ..kernels import ops
+from ..bridge import tree_from_params
 from ..models import init_cache, init_params
+from ..quant.grouped import tree_tensors
 from ..runtime.engine import make_dense_engine
 from ..runtime.kvcache import make_paged_engine
+from ..runtime.paramstore import ParamStore, ResidentSource, save_param_store
+from ..runtime.serve import quantize_ring_params
+from ..runtime.streaming import StreamingParamSource, make_streaming_engine
 from ..runtime.telemetry import clock
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -57,7 +76,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--check-dense", action="store_true",
                     help="also run the dense-cache engine on the same "
                          "requests; exit nonzero on any token mismatch")
-    return ap.parse_args(argv)
+    ap.add_argument("--stream-window", type=int, default=0,
+                    help="W>0: serve from a layer store in a temporary "
+                         "directory through the layer-wise engine, W "
+                         "layers staged ahead of the compute front")
+    ap.add_argument("--store-quant", choices=("none", "q4"), default="none",
+                    help="q4: the store holds the matmul weights as packed "
+                         "int4 + bf16 group scales, run through kernel B3")
+    ap.add_argument("--check-resident", action="store_true",
+                    help="with --stream-window: also serve the same "
+                         "requests with the same weights resident; exit "
+                         "nonzero on any token mismatch")
+    args = ap.parse_args(argv)
+    if args.stream_window < 0:
+        ap.error("--stream-window must be >= 0")
+    if args.stream_window and (args.check_dense or args.prefill_chunk
+                               or args.kv_quant_kernel):
+        ap.error("--stream-window serves over a dense cache: it takes "
+                 "neither --check-dense, --prefill-chunk nor "
+                 "--kv-quant-kernel")
+    if not args.stream_window and (args.check_resident
+                                   or args.store_quant != "none"):
+        ap.error("--check-resident and --store-quant need --stream-window")
+    return args
 
 
 def build_model(args: argparse.Namespace):
@@ -114,16 +155,20 @@ def serve_paged(params, cfg, reqs, args: argparse.Namespace) -> Dict:
             "wall_s": wall, "kv": kv.stats()}
 
 
+def _p50_summary(fin, wall_s: float) -> Dict[str, float]:
+    tpots = [f.tpot_s for f in fin if len(f.tokens) > 1]
+    return {"requests": len(fin),
+            "ttft_p50_s": float(np.median([f.ttft_s for f in fin])),
+            "tpot_p50_s": float(np.median(tpots)) if tpots else 0.0,
+            "tokens_per_s": sum(len(f.tokens) for f in fin) / wall_s}
+
+
 def report(res: Dict, args: argparse.Namespace) -> Dict[str, float]:
     fin = res["finished"]
     n_tok = sum(len(f.tokens) for f in fin)
-    tpots = [f.tpot_s for f in fin if len(f.tokens) > 1]
     st = res["kv"]
-    out = {"requests": len(fin),
-           "ttft_p50_s": float(np.median([f.ttft_s for f in fin])),
-           "tpot_p50_s": float(np.median(tpots)) if tpots else 0.0,
-           "tokens_per_s": n_tok / res["wall_s"],
-           "kv_highwater_bytes": st.highwater_bytes}
+    out = dict(_p50_summary(fin, res["wall_s"]),
+               kv_highwater_bytes=st.highwater_bytes)
     mode = ["int8 KV pages"] if args.kv_quant_kernel else []
     if args.prefill_chunk:
         mode.append(f"chunked prefill ({args.prefill_chunk} tokens)")
@@ -141,10 +186,96 @@ def report(res: Dict, args: argparse.Namespace) -> Dict[str, float]:
     return out
 
 
+def store_tree(params, cfg, args: argparse.Namespace):
+    """(the model as a stacked tree for the store, its unquantized block
+    bytes per layer): packed q4 (every matmul weight,
+    ``quantize_ring_params`` at tp=1) with ``--store-quant q4``."""
+    tree = tree_from_params(params)
+    raw = sum(t.numel() * t.element_size()
+              for t in tree_tensors(tree["blocks"])) // cfg.n_layers
+    if args.store_quant == "q4":
+        tree, skipped = quantize_ring_params(tree, cfg, tp=1)
+        if skipped:
+            print(f"store-quant q4: {len(skipped)} leaves left "
+                  f"unquantized: {', '.join(skipped)}")
+    return tree, raw
+
+
+def serve_layerwise(source, cfg, reqs, args: argparse.Namespace) -> Dict:
+    """Serve ``reqs`` through the layer-wise engine over ``source`` on a
+    dense cache; returns the streams and what was measured."""
+    device = torch.device(args.device)
+    dtype = DTYPES[args.dtype]
+    eng = make_streaming_engine(source, cfg, args.batch, args.ctx,
+                                cache_dtype=dtype, device=device)
+    cache = init_cache(cfg, args.batch, args.ctx, dtype=dtype, device=device)
+    _sync(device)
+    t0 = clock()
+    fin, steps = eng.run(cache, reqs)
+    _sync(device)
+    wall = clock() - t0
+    return {"finished": fin, "rejected": eng.rejected, "steps": steps,
+            "wall_s": wall, "stats": eng.streaming_stats(),
+            "summary": _p50_summary(fin, wall)}
+
+
+def serve_streamed(params, cfg, reqs, args: argparse.Namespace) -> Dict:
+    """Write the store, serve from it with ``--stream-window`` layers
+    staged ahead, and (``--check-resident``) serve again resident."""
+    W = args.stream_window
+    tree, raw = store_tree(params, cfg, args)
+    sdir = tempfile.mkdtemp(prefix="paramstore_")
+    try:
+        save_param_store(tree, cfg, sdir)
+        store = ParamStore(sdir)
+        total = store.layer_nbytes * cfg.n_layers
+        print(f"store: {store.quant_format or 'unquantized'} manifest "
+              f"v{store.version}, {store.layer_nbytes / 1e6:.3f} MB/layer "
+              f"packed vs {raw / 1e6:.3f} MB/layer unquantized "
+              f"({store.layer_nbytes / raw:.3f}x)")
+        with StreamingParamSource(store, window=W,
+                                  device=args.device) as src:
+            res = serve_layerwise(src, cfg, reqs, args)
+        st, summ = res["stats"], res["summary"]
+        print(f"streamed serve on {args.device} ({args.dtype}, window "
+              f"{W}/{cfg.n_layers} layers): {summ['requests']} requests "
+              f"through {args.batch} slots in {res['wall_s']:.3f} s "
+              f"({res['steps']} steps)")
+        print(f"  TTFT p50 {summ['ttft_p50_s'] * 1e3:.2f} ms, TPOT p50 "
+              f"{summ['tpot_p50_s'] * 1e3:.2f} ms, "
+              f"{summ['tokens_per_s']:.1f} tokens/s")
+        print(f"  peak resident weights {st.peak_resident_bytes / 1e6:.3f} "
+              f"MB of {total / 1e6:.3f} MB in the store; prefetch stall "
+              f"{st.stall_s * 1e3:.1f} ms; {st.total_bytes_read / 1e6:.3f} "
+              f"MB read in {len(st.events)} layer reads")
+        print(f"  kernel launches {ops.launch_counts()}")
+        res["store_layer_nbytes"] = store.layer_nbytes
+        if args.check_resident:
+            fin_r = serve_layerwise(ResidentSource(tree), cfg, reqs,
+                                    args)["finished"]
+            resident = {f.uid: f.tokens for f in fin_r}
+            streamed = {f.uid: f.tokens for f in res["finished"]}
+            if resident != streamed:
+                bad = [u for u in resident if resident[u] != streamed.get(u)]
+                raise SystemExit(f"streamed vs resident parity FAILED for "
+                                 f"uids {bad}")
+            print(f"  resident weights: tokens identical for "
+                  f"{len(resident)} requests")
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    return res
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
     cfg, params = build_model(args)
     reqs = make_requests(cfg, args)
+    if args.stream_window:
+        res = serve_streamed(params, cfg, reqs, args)
+        if res["rejected"]:
+            raise SystemExit(f"{len(res['rejected'])} requests shed: "
+                             f"{res['rejected'][0].reason}")
+        return res
     res = serve_paged(params, cfg, reqs, args)
     res["summary"] = report(res, args)
     if res["rejected"]:

@@ -12,7 +12,9 @@ JAX package's layouts so the tests compare like with like:
 Cache writes are in place (the JAX package's ``.at[].set`` returns a new
 array): at full width a functional copy of a (P, bs, 8, 128) page pool per
 layer per step would cost more than the step itself. Weights keep JAX's
-(in, out) layout, so ``x @ w`` is the same product.
+(in, out) layout, so ``x @ w`` is the same product; every projection
+goes through ``qmm``, so a weight may also be a packed q4
+``QuantizedTensor`` (the streamed layer-wise path).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..quant.grouped import QuantizedTensor, dequantize_leaf
 
 Pages = Dict[str, torch.Tensor]
 
@@ -29,6 +32,39 @@ Pages = Dict[str, torch.Tensor]
 # --------------------------------------------------------------------------- #
 #  basics
 # --------------------------------------------------------------------------- #
+
+def q4_kernel_eligible(w) -> bool:
+    """Whether a ``QuantizedTensor`` goes to the Hopper kernel B3: 2-D q4
+    packing with K even and a multiple of the group. The kernel masks
+    ragged M and N edges, so any M and N go (the JAX package's
+    ``q4_fused_eligible`` adds the TPU's tile rules, which do not apply
+    here)."""
+    if w.bits != 4 or w.packed.dim() != 2:
+        return False
+    K = w.packed.shape[0] * 2
+    return w.group >= 1 and K % w.group == 0
+
+
+def qmm(x: torch.Tensor, w) -> torch.Tensor:
+    """Matmul against a weight that may still be packed.
+
+    A plain tensor takes ``@``. A ``QuantizedTensor`` that
+    ``q4_kernel_eligible`` accepts goes to ``kernels.ops.q4_matmul``
+    (kernel B3 on the card, its plain version on the CPU) for any number
+    of rows; anything else (q2, stacked 3-D leaves) dequantizes at use.
+    Either way the result comes back in ``x.dtype``.
+    """
+    if not isinstance(w, QuantizedTensor):
+        return x @ w
+    *lead, K = x.shape
+    if q4_kernel_eligible(w):
+        from ..kernels import ops
+
+        out = ops.q4_matmul(x.reshape(-1, K).contiguous(), w.packed,
+                            w.scale, group=w.group)
+        return out.reshape(*lead, out.shape[-1]).to(x.dtype)
+    return x @ dequantize_leaf(w, torch.float32).to(x.dtype)
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
@@ -188,9 +224,9 @@ def attn_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
     H, hk, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    q = qmm(x, p.wq)
+    k = qmm(x, p.wk)
+    v = qmm(x, p.wv)
     if cfg.qkv_bias:
         q = q + p.bq
         k = k + p.bk
@@ -290,7 +326,7 @@ def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
                 cache["k"][:, :n] = kk.to(cache["k"].dtype)
                 cache["v"][:, :n] = vv.to(cache["v"].dtype)
             new_cache = {**cache, "len": cache["len"] + S}
-    o = out.reshape(B, S, -1) @ p.wo
+    o = qmm(out.reshape(B, S, -1), p.wo)
     return o, new_cache
 
 
@@ -418,7 +454,7 @@ def attn_block_paged(p, cfg: ModelConfig, x: torch.Tensor, positions,
             write_pages(pages["v"], table, ln, v)
     out = _paged_attention(q, pages, table, ln + S,
                            window=cfg.attn_window, prefill=prefill)
-    return out.reshape(B, S, -1) @ p.wo
+    return qmm(out.reshape(B, S, -1), p.wo)
 
 
 # --------------------------------------------------------------------------- #
@@ -426,4 +462,4 @@ def attn_block_paged(p, cfg: ModelConfig, x: torch.Tensor, positions,
 # --------------------------------------------------------------------------- #
 
 def glu_ffn(p, x: torch.Tensor) -> torch.Tensor:
-    return (swish(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    return qmm(swish(qmm(x, p.w_gate)) * qmm(x, p.w_up), p.w_down)

@@ -1,5 +1,6 @@
-"""Model assembly of the port: dense GQA decoder, init / prefill / decode
-over a dense or paged KV cache.
+"""Model assembly of the port: dense GQA decoder, init / forward / prefill /
+decode over a dense or paged KV cache, with resident weights or layer by
+layer from a ``ParamSource`` (the streamed path).
 
 Counterpart of ``repro.models.model`` for the dense family. Parameters are
 ``nn.Module``s (``DenseModel`` > ``DenseBlock`` > ``Attention``/``GLU``)
@@ -15,20 +16,33 @@ Caches (device tensors, written in place):
 
 Every function returns a new cache dict (``len`` advanced) over the same
 tensors, so callers keep the JAX package's ``cache = f(cache, ...)`` flow.
+
+The layer-wise paths (``forward_layerwise``, ``prefill_layerwise``,
+``decode_step_layerwise``) pull each layer's tree from
+``source.layer(i)`` (``runtime.paramstore`` / ``runtime.streaming``). A
+q4 ``QuantizedTensor`` under a projection key stays packed and goes
+through ``layers.qmm`` (kernel B3 on the card); any other quantized leaf
+is dequantized when its layer is pulled.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+import types
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..quant.grouped import QuantizedTensor, dequantize_leaf, dequantize_tree
 from . import layers as ll
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
+def _param(t):
+    """A frozen parameter; a packed ``QuantizedTensor`` stays a plain
+    attribute (``layers.qmm`` consumes it)."""
+    if isinstance(t, QuantizedTensor):
+        return t
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -73,17 +87,7 @@ class DenseModel(nn.Module):
 #  init
 # --------------------------------------------------------------------------- #
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.float32, device="cuda") -> DenseModel:
-    """Random weights with the JAX package's distributions (normal scaled
-    by 1/sqrt(fan-in), embed x0.02, zero biases, unit norms), drawn from
-    ``generator`` (which must live on ``device``)."""
-    if cfg.family != "dense" or cfg.mla:
-        raise NotImplementedError(
-            f"the port serves the dense GQA family only (got {cfg.name})")
-    d, H, hk, hd, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads,
-                       cfg.head_dim, cfg.d_ff)
-
+def _draws(generator: torch.Generator, dtype, device):
     def normal(shape, scale):
         t = torch.randn(shape, generator=generator, dtype=dtype,
                         device=device)
@@ -94,21 +98,60 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     def zeros(n):
         return torch.zeros(n, dtype=dtype, device=device)
+    return normal, ones, zeros
 
-    blocks = []
-    for _ in range(cfg.n_layers):
-        s = 1.0 / math.sqrt(d)
-        bias = (zeros(H * hd), zeros(hk * hd), zeros(hk * hd)) \
-            if cfg.qkv_bias else ()
-        attn = Attention(normal((d, H * hd), s), normal((d, hk * hd), s),
-                         normal((d, hk * hd), s), normal((H * hd, d), s),
-                         *bias)
-        ffn = GLU(normal((d, f), s), normal((d, f), s),
-                  normal((f, d), 1.0 / math.sqrt(f)))
-        blocks.append(DenseBlock(ones(d), attn, ones(d), ffn))
-    unembed = None if cfg.tie_embeddings \
-        else normal((d, cfg.vocab), 1.0 / math.sqrt(d))
-    return DenseModel(normal((cfg.vocab, d), 0.02), ones(d), blocks, unembed)
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.mla:
+        raise NotImplementedError(
+            f"the port serves the dense GQA family only (got {cfg.name})")
+
+
+def init_block(cfg: ModelConfig, generator: torch.Generator,
+               dtype=torch.float32, device="cuda") -> DenseBlock:
+    """One dense block's random weights (normal scaled by 1/sqrt(fan-in),
+    zero biases, unit norms), drawn from ``generator``."""
+    _check_dense(cfg)
+    normal, ones, zeros = _draws(generator, dtype, device)
+    d, H, hk, hd, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    s = 1.0 / math.sqrt(d)
+    bias = (zeros(H * hd), zeros(hk * hd), zeros(hk * hd)) \
+        if cfg.qkv_bias else ()
+    attn = Attention(normal((d, H * hd), s), normal((d, hk * hd), s),
+                     normal((d, hk * hd), s), normal((H * hd, d), s), *bias)
+    ffn = GLU(normal((d, f), s), normal((d, f), s),
+              normal((f, d), 1.0 / math.sqrt(f)))
+    return DenseBlock(ones(d), attn, ones(d), ffn)
+
+
+def init_head(cfg: ModelConfig, generator: torch.Generator,
+              dtype=torch.float32, device="cuda") -> Dict[str, torch.Tensor]:
+    """The non-block weights: {"embed" (x0.02), "final_norm" (ones)[,
+    "unembed" (1/sqrt(d)) unless tied]}."""
+    _check_dense(cfg)
+    normal, ones, _ = _draws(generator, dtype, device)
+    head = {}
+    if not cfg.tie_embeddings:
+        head["unembed"] = normal((cfg.d_model, cfg.vocab),
+                                 1.0 / math.sqrt(cfg.d_model))
+    head["embed"] = normal((cfg.vocab, cfg.d_model), 0.02)
+    head["final_norm"] = ones(cfg.d_model)
+    return head
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.float32, device="cuda") -> DenseModel:
+    """Random weights with the JAX package's distributions (normal scaled
+    by 1/sqrt(fan-in), embed x0.02, zero biases, unit norms), drawn from
+    ``generator`` (which must live on ``device``): the blocks in order,
+    then the head."""
+    _check_dense(cfg)
+    blocks = [init_block(cfg, generator, dtype, device)
+              for _ in range(cfg.n_layers)]
+    head = init_head(cfg, generator, dtype, device)
+    return DenseModel(head["embed"], head["final_norm"], blocks,
+                      head.get("unembed"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -153,19 +196,52 @@ def _positions(ln: torch.Tensor, T: int) -> torch.Tensor:
                                       device=ln.device)[None]
 
 
+def _layer_cache(cache: Optional[Dict], i: int) -> Optional[Dict]:
+    """Layer ``i``'s views of a dense cache (written in place)."""
+    if cache is None:
+        return None
+    c = {name: arr[i] for name, arr in cache["layers"].items()}
+    c["len"] = cache["len"]
+    return c
+
+
+def _advance(cache: Optional[Dict], n: int) -> Optional[Dict]:
+    return None if cache is None else {**cache, "len": cache["len"] + n}
+
+
+def _dense_layer(p, cfg: ModelConfig, x, positions, c: Optional[Dict], *,
+                 decode: bool):
+    h, _ = ll.attn_block(p.attn, cfg, ll.rms_norm(x, p.attn_norm,
+                                                  cfg.norm_eps),
+                         positions, cache=c, decode=decode)
+    x = x + h
+    return x + ll.glu_ffn(p.ffn, ll.rms_norm(x, p.ffn_norm, cfg.norm_eps))
+
+
 def _dense_backbone(params: DenseModel, cfg: ModelConfig, x, positions,
-                    cache: Dict, *, decode: bool):
-    ln = cache["len"]
-    layers = cache["layers"]
+                    cache: Optional[Dict], *, decode: bool):
     for i, p in enumerate(params.blocks):
-        c = {name: arr[i] for name, arr in layers.items()}
-        c["len"] = ln
-        h, _ = ll.attn_block(p.attn, cfg, ll.rms_norm(x, p.attn_norm,
-                                                      cfg.norm_eps),
-                             positions, cache=c, decode=decode)
-        x = x + h
-        x = x + ll.glu_ffn(p.ffn, ll.rms_norm(x, p.ffn_norm, cfg.norm_eps))
-    return x, {**cache, "len": ln + x.shape[1]}
+        x = _dense_layer(p, cfg, x, positions, _layer_cache(cache, i),
+                         decode=decode)
+    return x, _advance(cache, x.shape[1])
+
+
+def _prefill_positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(
+        B, S)
+
+
+@torch.no_grad()
+def forward(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """Full-sequence logits (B, S, V), no cache."""
+    x = embed_tokens(params, cfg, tokens)
+    B, S, _ = x.shape
+    x, _ = _dense_backbone(params, cfg, x,
+                           _prefill_positions(B, S, x.device), None,
+                           decode=False)
+    x = ll.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(params, cfg, x)
 
 
 @torch.no_grad()
@@ -174,9 +250,9 @@ def prefill(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor,
     """Process the prompt, fill the cache, return last-position logits."""
     x = embed_tokens(params, cfg, tokens)
     B, S, _ = x.shape
-    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
-        B, S)
-    x, new_cache = _dense_backbone(params, cfg, x, pos, cache, decode=False)
+    x, new_cache = _dense_backbone(params, cfg, x,
+                                   _prefill_positions(B, S, x.device), cache,
+                                   decode=False)
     x = ll.rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x), new_cache
 
@@ -193,6 +269,98 @@ def decode_step(params: DenseModel, cfg: ModelConfig, cache: Dict,
     x, new_cache = _dense_backbone(params, cfg, x, pos, cache, decode=True)
     x = ll.rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x), new_cache
+
+
+# --------------------------------------------------------------------------- #
+#  layer-wise paths: weights pulled from a ParamSource one layer at a time
+# --------------------------------------------------------------------------- #
+
+#: leaf names whose consumers route through ``layers.qmm``: the only sites
+#: where a packed weight may survive into the block functions
+_FUSED_Q4_KEYS = frozenset((
+    "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+
+
+def _dequant_params(p: Dict) -> types.SimpleNamespace:
+    """The head tree (embed, final_norm[, unembed]) with any quantized
+    leaf dequantized to f32, as attributes."""
+    return types.SimpleNamespace(**dequantize_tree(p, torch.float32))
+
+
+def _prepare_layer_params(p: Dict) -> Dict:
+    """Selective dequantization for the layer-wise path: quantized
+    projection weights stay packed for ``layers.qmm`` (which sends each
+    to kernel B3 or dequantizes it at use); any other quantized leaf
+    dequantizes to f32 here."""
+    out = {}
+    for k, v in p.items():
+        if isinstance(v, dict):
+            out[k] = _prepare_layer_params(v)
+        elif isinstance(v, QuantizedTensor) and k not in _FUSED_Q4_KEYS:
+            out[k] = dequantize_leaf(v, torch.float32)
+        else:
+            out[k] = v
+    return out
+
+
+def _layerwise_backbone(source, cfg: ModelConfig, x, positions,
+                        cache: Optional[Dict], *, decode: bool):
+    """The stack one layer at a time, weights pulled from ``source``; the
+    dense cache's layer ``i`` is written in place."""
+    if cfg.family != "dense" or cfg.mla:
+        raise ValueError(f"layer-wise streaming unsupported for family "
+                         f"{cfg.family} (the port streams dense models)")
+    from ..bridge import block_from_tree
+
+    for i in range(cfg.n_layers):
+        p = block_from_tree(_prepare_layer_params(source.layer(i)))
+        x = _dense_layer(p, cfg, x, positions, _layer_cache(cache, i),
+                         decode=decode)
+    return x, _advance(cache, x.shape[1])
+
+
+@torch.no_grad()
+def forward_layerwise(source, cfg: ModelConfig, tokens: torch.Tensor
+                      ) -> torch.Tensor:
+    """``forward`` with weights pulled from a ParamSource."""
+    head = _dequant_params(source.head())
+    x = embed_tokens(head, cfg, tokens)
+    B, S, _ = x.shape
+    x, _ = _layerwise_backbone(source, cfg, x,
+                               _prefill_positions(B, S, x.device), None,
+                               decode=False)
+    x = ll.rms_norm(x, head.final_norm, cfg.norm_eps)
+    return unembed(head, cfg, x)
+
+
+@torch.no_grad()
+def prefill_layerwise(source, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """``prefill`` with weights pulled from a ParamSource."""
+    head = _dequant_params(source.head())
+    x = embed_tokens(head, cfg, tokens)
+    B, S, _ = x.shape
+    x, new_cache = _layerwise_backbone(source, cfg, x,
+                                       _prefill_positions(B, S, x.device),
+                                       cache, decode=False)
+    x = ll.rms_norm(x[:, -1:], head.final_norm, cfg.norm_eps)
+    return unembed(head, cfg, x), new_cache
+
+
+@torch.no_grad()
+def decode_step_layerwise(source, cfg: ModelConfig, cache: Dict,
+                          tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """``decode_step`` with weights pulled from a ParamSource. tokens:
+    (B, T); T > 1 is a verify pass that reads each layer once for the
+    whole block."""
+    T = tokens.shape[1]
+    head = _dequant_params(source.head())
+    x = embed_tokens(head, cfg, tokens)
+    x, new_cache = _layerwise_backbone(source, cfg, x,
+                                       _positions(cache["len"], T), cache,
+                                       decode=True)
+    x = ll.rms_norm(x, head.final_norm, cfg.norm_eps)
+    return unembed(head, cfg, x), new_cache
 
 
 def _paged_backbone(params: DenseModel, cfg: ModelConfig, x, positions,

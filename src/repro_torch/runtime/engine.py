@@ -8,11 +8,14 @@ copy-on-writes the write range first, and ``prefill_chunk`` admits a
 prompt chunk by chunk with one decode step for the active slots between
 chunks.
 
-Speculative decoding (``spec``), weight streaming (``source``), session
-parking, the span tracer and serving metrics are later slices; passing
-any of them raises ``NotImplementedError``. In their place the engine
-stamps each request's first-token and finish times on ``clock`` (TTFT
-and TPOT on ``FinishedRequest``).
+A ``source`` (``runtime.paramstore.ParamSource``, set by
+``runtime.streaming.make_streaming_engine``) is the weight source the
+layer-wise prefill and decode pull from; the engine keeps it for
+``streaming_stats()``. Speculative decoding (``spec``), session parking,
+the span tracer and serving metrics are later slices; passing any of them
+raises ``NotImplementedError``. In their place the engine stamps each
+request's first-token and finish times on ``clock`` (TTFT and TPOT on
+``FinishedRequest``).
 """
 from __future__ import annotations
 
@@ -25,7 +28,6 @@ import torch
 from .telemetry import clock
 
 _LATER = {"spec": "speculative decoding (ROADMAP Queue A item 9)",
-          "source": "weight streaming (ROADMAP Queue A item 6)",
           "session": "session parking (ROADMAP Queue A item 8)",
           "tracer": "the span tracer (ROADMAP Queue A item 7)",
           "metrics": "serving metrics (ROADMAP Queue A item 7)"}
@@ -69,7 +71,9 @@ class ContinuousBatcher:
     write_slot(cache, slot_cache, slot_idx, length) -> cache
     decode(cache, tokens (B,1)) -> (logits (B,1,V), cache)
 
-    ``ctx``: the dense cache's ``max_len`` (admit rejects a request whose
+    ``source``: the ``ParamSource`` the callables pull weights from
+    (kept for ``streaming_stats()``). ``ctx``: the dense cache's
+    ``max_len`` (admit rejects a request whose
     ``len(prompt) + max_new`` cannot fit). ``kv``: a
     ``runtime.kvcache.PagedKVCache``; ``decode`` is then the paged step.
     ``prefill_chunk``/``chunk_step(view, tokens, write)``: chunked paged
@@ -82,8 +86,8 @@ class ContinuousBatcher:
                  ctx: Optional[int] = None, kv=None, tracer=None,
                  metrics=None, prefill_chunk: Optional[int] = None,
                  chunk_step: Optional[Callable] = None, device="cuda"):
-        for name, val in (("spec", spec), ("source", source),
-                          ("tracer", tracer), ("metrics", metrics)):
+        for name, val in (("spec", spec), ("tracer", tracer),
+                          ("metrics", metrics)):
             if val is not None:
                 raise _not_ported(name)
         self.B = batch
@@ -91,6 +95,7 @@ class ContinuousBatcher:
         self.write_slot = write_slot
         self.decode = decode
         self.eos_id = eos_id
+        self.source = source
         self.ctx = ctx
         self.kv = kv
         self.prefill_chunk = prefill_chunk
@@ -105,6 +110,13 @@ class ContinuousBatcher:
         self._t_start = clock()
 
     # ------------------------------------------------------------------ #
+
+    def streaming_stats(self):
+        """Prefetch statistics of the attached streaming source (or
+        None)."""
+        if self.source is not None and hasattr(self.source, "stats"):
+            return self.source.stats()
+        return None
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s.uid is None]
@@ -280,6 +292,15 @@ class ContinuousBatcher:
                                              code=code))
 
 
+def write_dense_slot(cache, slot_cache, slot: int, length: int):
+    """Copy a one-sequence dense cache (a prefill's) into ``slot`` of the
+    batch cache, in place."""
+    for name, dst in cache["layers"].items():
+        dst[:, slot] = slot_cache["layers"][name][:, 0]
+    cache["len"][slot] = slot_cache["len"][0]
+    return cache
+
+
 def make_dense_engine(params, cfg, batch: int, ctx: int, *,
                       eos_id: Optional[int] = None,
                       cache_dtype=torch.float32,
@@ -294,14 +315,8 @@ def make_dense_engine(params, cfg, batch: int, ctx: int, *,
         logits, c1 = M.prefill(params, cfg, prompt, c1)
         return int(torch.argmax(logits[0, -1])), c1
 
-    def write_slot(cache, slot_cache, slot, length):
-        for name, dst in cache["layers"].items():
-            dst[:, slot] = slot_cache["layers"][name][:, 0]
-        cache["len"][slot] = slot_cache["len"][0]
-        return cache
-
     def decode(cache, tokens):
         return M.decode_step(params, cfg, cache, tokens)
 
-    return ContinuousBatcher(batch, prefill_one, write_slot, decode,
+    return ContinuousBatcher(batch, prefill_one, write_dense_slot, decode,
                              eos_id=eos_id, ctx=ctx, device=device)

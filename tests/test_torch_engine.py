@@ -155,9 +155,13 @@ def test_deferred_features_raise():
 
     tcfg = _cfg(t_get_config)
     for kw in ({"spec": object()}, {"tracer": object()},
-               {"metrics": object()}, {"source": object()}):
+               {"metrics": object()}):
         with pytest.raises(NotImplementedError, match="not ported"):
             ContinuousBatcher(2, None, None, None, device=CPU, **kw)
+    # weight streaming is ported: a source is kept for streaming_stats()
+    src = type("Src", (), {"stats": lambda self: "stats"})()
+    assert ContinuousBatcher(2, None, None, None, device=CPU,
+                             source=src).streaming_stats() == "stats"
     with pytest.raises(NotImplementedError, match="item 8"):
         PagedKVCache(tcfg, batch=2, ctx=64, n_pages=8, offload=True,
                      device=CPU)

@@ -40,3 +40,15 @@ def test_serve_entry_point_leaves_jax_unloaded():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_walk_covers_every_port_module():
+    """The import check above walks every module of the port, the q4
+    streaming slice's (quant, store, prefetcher, kernel B3) included."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in FILES if p.name != "chip_smoke.py"}
+    for want in ("quant/__init__.py", "quant/grouped.py",
+                 "kernels/q4_matmul.py", "runtime/paramstore.py",
+                 "runtime/streaming.py", "runtime/iopolicy.py",
+                 "runtime/memory.py", "runtime/serve.py"):
+        assert want in names

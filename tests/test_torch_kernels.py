@@ -19,6 +19,8 @@ from repro.kernels.paged_decode import paged_verify as j_paged_verify
 from repro.kernels.paged_decode import \
     paged_verify_quant as j_paged_verify_quant
 from repro.kernels.paged_prefill import paged_prefill as j_paged_prefill
+from repro.kernels.q4_matmul import q4_matmul as j_q4_matmul
+from repro.quant import grouped as JQ
 from repro_torch.kernels import ops
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -157,19 +159,138 @@ def test_use_kernels_false_and_cuda_tensor_without_card():
 
 
 def test_build_is_keyed_by_source_and_needs_nvcc(monkeypatch):
-    """The library lands in the git-ignored build/kernels/ under a name
-    keyed by the source hash; without nvcc the build raises."""
+    """One library per source under csrc/ lands in the git-ignored
+    build/kernels/ under a name keyed by the sources' hash; without nvcc
+    the build raises."""
     from pathlib import Path
 
     from repro_torch.kernels import _build
 
     root = Path(__file__).resolve().parents[1]
-    lib = _build.library_path()
-    assert lib.parent == root / "build" / "kernels"
-    assert lib.name.startswith("paged_attention_") and lib.suffix == ".so"
+    assert set(_build.SOURCES) == {p.stem for p in (
+        root / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu")}
+    for name in _build.SOURCES:
+        lib = _build.library_path(name)
+        assert lib.parent == root / "build" / "kernels"
+        assert lib.name.startswith(f"{name}_") and lib.suffix == ".so"
     assert "build/" in (root / ".gitignore").read_text().split()
     monkeypatch.setenv("NVCC", "/nonexistent/nvcc")
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setattr(_build.os.path, "isfile", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+# --------------------------------------------------------------------------- #
+#  B3: W4A16 grouped matmul
+# --------------------------------------------------------------------------- #
+
+def _q4_case(seed, M, K, N, group):
+    """x and a JAX-quantized weight (packed int8, bf16 scales) from a
+    seed; the port gets the same bytes (the scale as raw bf16 bits)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = rng.standard_normal((K, N)).astype(np.float32) / np.sqrt(K)
+    qt = JQ.quantize_q4(jnp.asarray(w), group)
+    packed = np.asarray(qt.packed)
+    scale_bits = np.asarray(qt.scale).view(np.int16)
+    tp = torch.tensor(packed)
+    ts = torch.tensor(scale_bits).view(torch.bfloat16)
+    return x, qt, tp, ts
+
+
+#: shapes the Pallas kernel takes (M, N, K divide its 256/512/256 tiles)
+Q4_PALLAS = [(8, 512, 1024, 64), (256, 256, 512, 64), (16, 512, 512, 128),
+             (1, 256, 256, 32)]
+
+
+@pytest.mark.parametrize("case", range(len(Q4_PALLAS)))
+def test_q4_matmul_matches_pallas(case):
+    """The port's dispatch on CPU tensors (the plain version) against the
+    Pallas kernel in interpret mode and the JAX oracle, f32 x: atol 1e-5
+    (every side sums f32 products in another order)."""
+    M, K, N, group = Q4_PALLAS[case]
+    x, qt, tp, ts = _q4_case(40 + case, M, K, N, group)
+    before = ops.launch_counts()
+    out = ops.q4_matmul(_t(x), tp, ts, group=group)
+    assert ops.launch_counts() == before          # CPU: plain version
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    pallas = j_q4_matmul(jnp.asarray(x), qt.packed, qt.scale, group=group,
+                         interpret=True)
+    oracle = ref.q4_matmul_ref(jnp.asarray(x), qt.packed, qt.scale,
+                               group=group)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(oracle), **TOL)
+
+
+#: ragged shapes the Hopper kernel takes and the Pallas kernel does not
+Q4_RAGGED = [(1, 128, 24, 64), (3, 192, 40, 64), (37, 256, 33, 32),
+             (17, 64, 1000, 16), (5, 96, 7, 48)]
+
+
+@pytest.mark.parametrize("case", range(len(Q4_RAGGED)))
+def test_q4_matmul_ragged_matches_oracle(case):
+    M, K, N, group = Q4_RAGGED[case]
+    x, qt, tp, ts = _q4_case(50 + case, M, K, N, group)
+    out = ops.q4_matmul(_t(x), tp, ts, group=group)
+    oracle = ref.q4_matmul_ref(jnp.asarray(x), qt.packed, qt.scale,
+                               group=group)
+    np.testing.assert_allclose(out.numpy(), np.asarray(oracle), **TOL)
+    # bf16 x: the same product of the bf16-rounded x, in f32
+    xb = _t(x).to(torch.bfloat16)
+    outb = ops.q4_matmul(xb, tp, ts, group=group)
+    oracle_b = ref.q4_matmul_ref(jnp.asarray(x, jnp.bfloat16), qt.packed,
+                                 qt.scale, group=group)
+    np.testing.assert_allclose(outb.numpy(), np.asarray(oracle_b), **TOL)
+
+
+def test_q4_kernel_wrapper_checks_its_inputs():
+    """The kernel wrapper takes CUDA tensors only and checks shapes and
+    types before anything is built or launched."""
+    from repro_torch.kernels import q4_matmul as q4
+
+    x, qt, tp, ts = _q4_case(60, 4, 128, 16, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        q4.q4_matmul(_t(x), tp, ts, group=64)
+    ops.use_kernels(False)
+    try:
+        forced = ops.q4_matmul(_t(x), tp, ts, group=64)
+    finally:
+        ops.use_kernels(True)
+    torch.testing.assert_close(forced, q4.q4_matmul_ref(_t(x), tp, ts,
+                                                        group=64))
+    assert ops.launch_counts()["q4_matmul"] == 0
+
+
+def test_qmm_routes_eligible_q4_to_the_kernel(monkeypatch):
+    """``layers.qmm``: plain weights take ``@``; a 2-D q4 leaf with K even
+    and a multiple of its group goes to ``ops.q4_matmul`` at any M and N
+    (the card's rule, not the TPU's tile rule); q2 and 3-D stacks
+    dequantize at use. The result comes back in x's dtype."""
+    from repro_torch.kernels import ops as tops
+    from repro_torch.models import layers as ll
+    from repro_torch.quant import grouped as TQ
+
+    calls = []
+    real = tops.q4_matmul
+
+    def spy(x, packed, scale, *, group):
+        calls.append((tuple(x.shape), group))
+        return real(x, packed, scale, group=group)
+
+    monkeypatch.setattr(tops, "q4_matmul", spy)
+    rng = np.random.default_rng(70)
+    x = torch.as_tensor(rng.standard_normal((2, 3, 96)).astype(np.float32))
+    w = torch.as_tensor(rng.standard_normal((96, 40)).astype(np.float32))
+    q4, q2 = TQ.quantize_q4(w, 32), TQ.quantize_q2(w, 32)
+    assert ll.q4_kernel_eligible(q4) and not ll.q4_kernel_eligible(q2)
+    stacked = TQ.quantize_q4(w[None].expand(2, 96, 40), 32)
+    assert not ll.q4_kernel_eligible(stacked)
+    out = ll.qmm(x, q4)
+    assert calls == [((6, 96), 32)] and out.shape == (2, 3, 40)
+    want = x @ TQ.dequantize_q4(q4)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ll.qmm(x, q2), x @ TQ.dequantize_q2(q2))
+    torch.testing.assert_close(ll.qmm(x, w), x @ w)
+    assert ll.qmm(x.to(torch.bfloat16), q4).dtype == torch.bfloat16
+    assert len(calls) == 2
