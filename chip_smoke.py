@@ -20,12 +20,23 @@ Phase 2  hold each kernel against its plain torch version on the card and
            plain version's f32 output to 1e-5 of max|ref| + 1e-5 |ref| (f32
            sums in another order over K <= 13824); the check must reject
            a weight with one group's scale doubled; the library call is
-           cuBLAS ``x @ w`` on the weight dequantized beforehand.
+           cuBLAS ``x @ w`` on the weight dequantized beforehand; also at
+           qwen1.5-32b's projection shapes at M = 2 and 10 (its verify);
+         * B5 flash_verify at qwen1.5-32b's verify (T 5, 40 heads MHA, D
+           128, kv_len 128-1024), its draft's decode (T 1, 16 heads, D 64),
+           qwen2.5-14b's dense decode (T 1, 40 over 8 heads, S 640), a
+           window with kv_len past S and fully masked rows, f32 and bf16,
+           against the plain version as B1 is; the check must reject a
+           cache whose newest line was overwritten; the library call is
+           SDPA on the contiguous cache with the causal-among-drafts mask;
+         * B1 also at T = 5 (the paged verify pass).
 Phase 3  serve 16 requests (prompts 256-1024, up to 32 new tokens) through
          the paged engine with chunked admission at qwen2.5-14b's full
          width, 48 layers, bf16, random weights from a seed — then the same
          with int8 pages — and show that every chunk and decode step of
-         every layer launched its kernel.
+         every layer launched its kernel; then the dense-cache engine on
+         the same requests (the ``--check-dense`` path), 48 B5 launches a
+         decode step.
 Phase 4  a 4-layer full-width f32 copy: the paged engine (chunked, f32
          and int8 pages) with kernels against ``use_kernels(False)``:
          every launch agrees with its plain version on the same inputs;
@@ -40,18 +51,49 @@ Phase 5  the streamed q4 path at full width, all 48 layers, bf16: build
          sized to keep the phase near a minute) through the layer-wise
          engine twice — q4 weights resident on the card, then streamed
          from the store with a window of 4 layers — and show 336 B3
-         launches a pass (7 projections x 48 layers), peak resident
+         launches a pass (7 projections x 48 layers) and 48 B5 launches a
+         decode step, peak resident
          weights <= 4 layers, and equal tokens. The store was just
          written, so its reads likely come from the page cache, not the
          disk.
 Phase 6  the same path at 4 layers, full width, f32: every B3 launch agrees
          with its plain version on the same inputs (1e-5 of max|ref|),
-         streamed and resident tokens are equal, and kernel and
-         plain-version logits agree to 2e-4 of max|ref|.
+         every B5 launch too (atol 2e-5), streamed and resident tokens are
+         equal, and kernel and plain-version logits agree to 2e-4 of
+         max|ref|.
+Phase 7  speculative serve of qwen1.5-32b at full width and depth (64
+         layers, 40 heads MHA, d_ff 27392, int8 dense cache): built and
+         quantized on the card one layer at a time into a ~18 GB q4 layer
+         store (phase 5's store is gone; free space checked first; deleted
+         at the end), with a resident bf16 qwen1.5-0.5b draft (24 layers,
+         tied embeddings), gamma 4, 2 slots (the verify runs B3 at M = 10,
+         its decode kernel), ctx 1024; 4 requests (seed 7), prompts
+         128-512, 16 new tokens. Spec streamed (window 4), then spec with
+         the q4 weights resident (equal streams), then vanilla greedy
+         resident and streamed (equal streams). The spec streams must
+         equal the vanilla ones but at a near-tie: where they split, the
+         vanilla top-2 logit gap must be under twice the two runs' logit
+         difference there (no flip is possible otherwise), and before any
+         split the logits agree to 5e-2 of max|ref| (bf16, 64 layers).
+         Asserts per cycle 64 B5 launches at T = 5, 120 at T = 1 (5
+         draft steps x 24 layers) and 448 B3 launches.
+         With random weights the draft and target rarely agree: the phase
+         shows cost and correctness, not acceptance.
+Phase 8  spec parity at 4 layers, full width, f32 and an f32 cache: (a)
+         qwen1.5-32b's dense engine with a distinct draft and with a
+         perturbed self-draft (the target plus seeded noise, its size
+         raised until the acceptance lands in 0.2-0.9); (b) qwen2.5-14b's
+         paged engine with chunked admission and spec (B1 at T = 5); (c)
+         the streamed q4 engine with spec. Kernels against
+         ``use_kernels(False)``: every B5/B1/B2/B3 launch agrees with its
+         plain version on the same inputs, verify logits agree to 2e-4 of
+         max|ref|, per-request accepted counts are equal, and every spec
+         stream equals the vanilla greedy stream.
 
-Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
-last line. Any failure raises and the script exits nonzero without it; it
-also refuses to run without a CUDA device.
+Prints the card's name and power limit again, the kernels' JSON line, then
+``{"ok": true, "device": ...}`` as the last line. Any failure raises and
+the script exits nonzero without it; it also refuses to run without a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -74,10 +116,12 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # bf16 tensor / f32 SIMT
 H, H_KV, D, BS = 40, 8, 128, 16             # qwen2.5-14b attention heads
 SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 Q4_SOURCE = "src/repro_torch/kernels/csrc/q4_matmul.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
 REPLACES = {"paged_verify": "src/repro/kernels/paged_decode.py:89",
             "paged_prefill": "src/repro/kernels/paged_prefill.py:99",
             "paged_verify_quant": "src/repro/kernels/paged_decode.py:214",
-            "q4_matmul": "src/repro/kernels/q4_matmul.py:67"}
+            "q4_matmul": "src/repro/kernels/q4_matmul.py:67",
+            "flash_verify": "src/repro/kernels/flash_decode.py:89"}
 
 
 def log(msg: str) -> None:
@@ -134,57 +178,68 @@ def make_pages(torch, rng, *, B, nb, kv_len, sink_rows=()):
             torch.from_numpy(table.astype(np.int32)).to(dev))
 
 
-def visible(kv_len, T, window):
-    """Per sequence: (positions any row sees, sum over rows of keys seen)."""
+def visible(kv_len, T, window, S=None):
+    """Per sequence: (cache positions any row sees, sum over rows of the
+    keys each row sees), among the first S positions when S is given."""
     pos, keys = [], []
     for n in kv_len:
-        n = int(n)
-        qpos = np.arange(n - T, n)
-        lo = np.maximum(qpos - (window - 1), 0) if window else \
+        qpos = np.arange(int(n) - T, int(n))
+        lo = np.maximum(qpos - window + 1, 0) if window else \
             np.zeros_like(qpos)
-        pos.append(n - int(lo[0]))
-        keys.append(int((qpos + 1 - lo).sum()))
+        hi = qpos + 1 if S is None else np.minimum(qpos + 1, S)
+        seen = np.maximum(hi - lo, 0)
+        keys.append(int(seen.sum()))
+        live = seen > 0
+        pos.append(int(hi[live].max() - lo[live].min()) if live.any()
+                   else 0)
     return pos, keys
 
 
-def bound_ms(*, q_elems, elt, kv_pos, keys, quant, scale_elt, dtype):
-    """Least time for the work: each input byte read once, each output
-    byte written once (live K/V positions only), against the operations
-    (QK and PV multiply-adds over the keys each row sees)."""
-    kv_elt = 1 if quant else elt
-    kv = sum(kv_pos) * H_KV * D * kv_elt * 2
-    if quant:
-        kv += sum(kv_pos) * H_KV * scale_elt * 2
-    nbytes = 2 * q_elems * elt + kv
-    flops = 4 * D * H * sum(keys)
+def bound_ms(*, q_elems, elt, kv_pos, keys, dtype, kv_elt=None,
+             scale_elt=0, h_kv=H_KV, head_dim=D, heads=H):
+    """Least time for the work: q read once and the output written once
+    (q's dtype), the live K/V positions read once (with their int8 scales
+    when ``scale_elt``), against the operations (QK and PV multiply-adds
+    over the keys each row sees)."""
+    kv_elt = elt if kv_elt is None else kv_elt
+    nbytes = 2 * q_elems * elt + \
+        sum(kv_pos) * h_kv * (head_dim * kv_elt + scale_elt) * 2
+    flops = 4 * head_dim * heads * sum(keys)
     t_bytes = nbytes / HBM_BYTES_S
     t_ops = flops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def sdpa_on_gathered(torch, q, k, v, table, kv_len, window):
-    """The library yardstick: SDPA over pages gathered beforehand."""
+def sdpa_on_cache(torch, q, k, v, kv_len, window):
+    """The library yardstick: SDPA on a contiguous cache k/v (B, S, h_kv,
+    D), heads expanded beforehand, with the causal-among-drafts (and
+    window) mask."""
     import torch.nn.functional as F
 
-    B, T = q.shape[:2]
-    kg = k[table.long()].flatten(1, 2).permute(0, 2, 1, 3)    # (B,hk,S,D)
-    vg = v[table.long()].flatten(1, 2).permute(0, 2, 1, 3)
-    S = kg.shape[2]
+    B, T, H_q = q.shape[:3]
+    S = k.shape[1]
     pos = torch.arange(S, device=q.device)
     qpos = kv_len.long()[:, None] - T + torch.arange(T, device=q.device)
     mask = pos[None, None] <= qpos[..., None]
     if window:
         mask &= pos[None, None] > qpos[..., None] - window
     mask = mask[:, None]                                      # (B,1,T,S)
-    n_rep = q.shape[2] // kg.shape[1]
-    kg = kg.repeat_interleave(n_rep, dim=1)                   # (B,H,S,D)
-    vg = vg.repeat_interleave(n_rep, dim=1)
+    n_rep = H_q // k.shape[2]
+    kt = k.permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)  # (B,H,S,D)
+    vt = v.permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
     qt = q.permute(0, 2, 1, 3)
 
     def call():
-        return F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     return call
+
+
+def sdpa_on_gathered(torch, q, k, v, table, kv_len, window):
+    """The library yardstick of the paged kernels: SDPA over pages
+    gathered beforehand."""
+    return sdpa_on_cache(torch, q, k[table.long()].flatten(1, 2),
+                         v[table.long()].flatten(1, 2), kv_len, window)
 
 
 def within(out, want, dtype):
@@ -210,7 +265,7 @@ def check_kernels(torch, timer, rng):
     B, nb = 8, 2048 // BS
     kv_len_np = rng.integers(64, 2049, B)
     cases = []
-    for T in (1, 4):
+    for T in (1, 4, 5):
         kvl = kv_len_np.copy()
         kvl[0] = T                               # inactive slot, sink table
         cases.append(("paged_verify", f"B1 T={T} B={B}", T, kvl, None, (0,)))
@@ -288,10 +343,11 @@ def check_kernels(torch, timer, rng):
             plain_ms = timer(plain)
             lib_ms = timer(lib)
             kv_pos, keys = visible(kvl, T, window)
+            quant = name == "paged_verify_quant"
             bms, by = bound_ms(q_elems=q.numel(), elt=q.element_size(),
-                               kv_pos=kv_pos, keys=keys,
-                               quant=name == "paged_verify_quant",
-                               scale_elt=q.element_size(), dtype=dtype)
+                               kv_pos=kv_pos, keys=keys, dtype=dtype,
+                               kv_elt=1 if quant else None,
+                               scale_elt=q.element_size() if quant else 0)
             log(f"  {label} {dtype}: max|err| {err:.3g}, {ratio:.3g}x the "
                 f"tolerance (a swapped page: {control:.3g}x); "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on "
@@ -314,6 +370,10 @@ def check_kernels(torch, timer, rng):
 #: wv, w_gate and w_up, w_down; M: decode batches, a ragged tile, prefills
 Q4_SHAPES = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120))
 Q4_MS = (1, 8, 37, 256, 512)
+#: B3 at qwen1.5-32b's projection shapes (wq/wk/wv/wo, w_gate/w_up,
+#: w_down) at its decode (M = 2) and its verify pass (M = 10, 2 slots x 5)
+Q4_SHAPES_32B = ((5120, 5120), (5120, 27392), (27392, 5120))
+Q4_MS_32B = (2, 10)
 Q4_GROUP = 64
 #: the JSON row: a decode step of 8 slots at w_gate / w_up, bf16 x
 Q4_ROW = (8, 5120, 13824)
@@ -344,7 +404,9 @@ def check_q4(torch, timer, rng):
     from repro_torch.quant import dequantize_q4, quantize_q4
 
     row = None
-    for K, N in Q4_SHAPES:
+    cases = [(K, N, Q4_MS) for K, N in Q4_SHAPES] + \
+        [(K, N, Q4_MS_32B) for K, N in Q4_SHAPES_32B]
+    for K, N, m_list in cases:
         w = torch.from_numpy(rng.standard_normal(
             (K, N), dtype=np.float32)).cuda() / np.sqrt(K)
         qt = quantize_q4(w, Q4_GROUP)
@@ -354,7 +416,7 @@ def check_q4(torch, timer, rng):
         # negative control: one group of one column with its scale doubled
         bad = qt.scale.clone()
         bad[K // Q4_GROUP // 2, N // 2] *= 2
-        for M in Q4_MS:
+        for M in m_list:
             x32 = torch.from_numpy(rng.standard_normal(
                 (M, K), dtype=np.float32)).cuda()
             for dtype in ("float32", "bfloat16"):
@@ -396,6 +458,108 @@ def check_q4(torch, timer, rng):
                            "plain_ms": plain_ms, "bound_ms": bms,
                            "bound_by": by, "library_ms": lib_ms}
         del qt, lib_w, bad
+    return row
+
+
+#: B5 cases: (label, B, T, H, h_kv, D, S, kv_len or None (drawn from
+#: [lo, S]), lo, window). The JSON row: qwen1.5-32b's verify at kv_len
+#: 1024 in bf16, 64 launches of every cycle of phase 7.
+FLASH_CASES = (
+    ("B5 32B verify T=5 kv_len=1024", 2, 5, 40, 40, 128, 1024, (1024, 1024),
+     0, None),
+    ("B5 32B verify T=5", 2, 5, 40, 40, 128, 1024, None, 128, None),
+    ("B5 draft decode T=1", 2, 1, 16, 16, 64, 1024, None, 128, None),
+    ("B5 14B decode T=1", 8, 1, 40, 8, 128, 640, None, 64, None),
+    # rows of sequence 0 sit before position 0, sequence 3's past the
+    # window's reach of the cache: fully masked; kv_len 700 > S
+    ("B5 window=64 T=5", 4, 5, 40, 8, 128, 640, (3, 300, 700, 800), 0, 64),
+)
+FLASH_ROW = "B5 32B verify T=5 kv_len=1024"
+
+
+def fully_masked(kv_len, T, S, window):
+    """(sequence, row) pairs that see no cache line at all."""
+    out = []
+    for b, n in enumerate(kv_len):
+        for t in range(T):
+            qpos = int(n) - T + t
+            lo = max(qpos - window + 1, 0) if window else 0
+            if min(qpos + 1, S) <= lo:
+                out.append((b, t))
+    return out
+
+
+def check_flash(torch, timer, rng):
+    """Phase 2, B5; returns its JSON row (the bf16 32B verify)."""
+    from repro_torch.kernels import flash_decode as fd
+
+    row = None
+    for label, B, T, Hh, hk, Dd, S, kvl, lo, window in FLASH_CASES:
+        if kvl is None:
+            kvl = rng.integers(lo, S + 1, B)
+        kvl = np.asarray(kvl)
+        k32 = torch.from_numpy(rng.standard_normal(
+            (B, S, hk, Dd), dtype=np.float32) * 0.5).cuda()
+        v32 = torch.from_numpy(rng.standard_normal(
+            (B, S, hk, Dd), dtype=np.float32) * 0.5).cuda()
+        q32 = torch.from_numpy(rng.standard_normal(
+            (B, T, Hh, Dd), dtype=np.float32)).cuda()
+        kv_len = torch.from_numpy(kvl.astype(np.int32)).cuda()
+        # negative control: sequence 1's newest line, which all of its
+        # rows see, overwritten with its line 0
+        newest = min(int(kvl[1]), S) - 1
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            bad_k, bad_v = k.clone(), v.clone()
+            bad_k[1, newest] = k[1, 0]
+            bad_v[1, newest] = v[1, 0]
+            kern = lambda: fd.flash_verify(q, k, v, kv_len, window=window)
+            plain32 = lambda kk=k, vv=v: fd.flash_verify_ref(
+                q.float(), kk.float(), vv.float(), kv_len, window=window)
+            plain = lambda: fd.flash_verify_ref(q, k, v, kv_len,
+                                                window=window)
+            lib = sdpa_on_cache(torch, q, k, v, kv_len, window)
+            out = kern()
+            torch.cuda.synchronize()
+            want = plain32()
+            if torch.isnan(out).any():
+                raise AssertionError(f"{label} {dtype}: NaN in kernel out")
+            err = float((out.float() - want.float()).abs().max())
+            ratio = within(out, want, dtype)
+            if ratio > 1.0:
+                raise AssertionError(f"{label} {dtype}: max|err| {err}, "
+                                     f"{ratio:.3g}x the tolerance")
+            control = within(plain32(bad_k, bad_v).to(dt), want, dtype)
+            if control <= 1.0:
+                raise AssertionError(f"{label} {dtype}: the check does not "
+                                     f"see an overwritten line "
+                                     f"({control:.3g}x the tolerance)")
+            for b, t in fully_masked(kvl, T, S, window):
+                if float(out[b, t].float().abs().max()) != 0.0:
+                    raise AssertionError(f"{label}: fully masked row "
+                                         f"({b}, {t}) is not 0")
+            ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
+            kv_pos, keys = visible(kvl, T, window, S)
+            bms, by = bound_ms(q_elems=q.numel(), elt=q.element_size(),
+                               kv_pos=kv_pos, keys=keys, dtype=dtype,
+                               h_kv=hk, head_dim=Dd, heads=Hh)
+            n_masked = len(fully_masked(kvl, T, S, window))
+            log(f"  {label} B={B} H={Hh} h_kv={hk} D={Dd} S={S} kv_len="
+                f"{kvl.tolist()} {dtype} ({n_masked} fully masked rows, "
+                f"0 as required): max|err| {err:.3g}, {ratio:.3g}x "
+                f"the tolerance (an overwritten line: {control:.3g}x); "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
+                f"cache (library_ms) {lib_ms:.4f} ms, bound "
+                f"{bms * 1e3:.2f} us ({by})")
+            if dtype == "bfloat16" and label == FLASH_ROW:
+                row = {"name": "flash_verify", "route": "cuda",
+                       "source": FLASH_SOURCE,
+                       "replaces": REPLACES["flash_verify"],
+                       "launches": 0, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": lib_ms}
+        del k32, v32, q32
     return row
 
 
@@ -469,10 +633,55 @@ def serve_full(torch, ops, serve):
             raise AssertionError("bf16 run: paged_verify never launched")
         deltas[quant] = delta
         log(f"  launches in this run: {delta} ({chunks} layer-chunks)")
+        if not quant:
+            check_dense_bf16(torch, ops, serve, params, cfg, reqs, args, res)
         del params, res
         gc.collect()
         torch.cuda.empty_cache()
     return ops.launch_counts()
+
+
+def check_dense_bf16(torch, ops, serve, params, cfg, reqs, args, res):
+    """Phase 3, the ``--check-dense`` path: the dense-cache engine on the
+    same requests and weights, 48 B5 launches a decode step and no other
+    attention kernel. bf16 streams are compared, not asserted: the dense
+    prefill sums its bf16 scores in another order than B2 (phase 4
+    asserts dense-vs-paged equality in f32)."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.engine import make_dense_engine
+
+    eng = make_dense_engine(params, cfg, args.batch, args.ctx,
+                            cache_dtype=torch.bfloat16, device=args.device)
+    cache = init_cache(cfg, args.batch, args.ctx, dtype=torch.bfloat16,
+                       device=args.device)
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin, steps = eng.run(cache, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_served({"finished": fin, "rejected": eng.rejected,
+                  "requests": reqs})
+    after = ops.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    want = {k: 0 for k in delta}
+    want["flash_verify"] = cfg.n_layers * steps
+    if delta != want:
+        raise AssertionError(f"dense engine: launches {delta}, wanted "
+                             f"{want} ({steps} decode steps x "
+                             f"{cfg.n_layers} layers of B5)")
+    paged = {f.uid: f.tokens for f in res["finished"]}
+    n_equal = sum(f.tokens == paged[f.uid] for f in fin)
+    summ = serve._p50_summary(fin, wall)
+    log(f"  dense engine (bf16 cache): {len(fin)} requests, {steps} decode "
+        f"steps, wall {wall:.3f} s, TTFT p50 {summ['ttft_p50_s'] * 1e3:.2f}"
+        f" ms, TPOT p50 {summ['tpot_p50_s'] * 1e3:.2f} ms, "
+        f"{summ['tokens_per_s']:.2f} tokens/s; {delta['flash_verify']} B5 "
+        f"launches = {steps} steps x {cfg.n_layers} layers; streams equal "
+        f"to the paged run's for {n_equal} of {len(fin)}")
+    del cache, eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 LOGIT_REL = 2e-4      # the repo's logit bound (tests/test_torch_model.py)
@@ -548,13 +757,15 @@ def substituted(ops, mode, errs=None):
     the model takes the card's route (kernels reported active) with each
     wrapper replaced by its plain version: one more plain run, summing in
     another order than ``use_kernels(False)``'s."""
-    from repro_torch.kernels import paged_decode, paged_prefill, q4_matmul
+    from repro_torch.kernels import (flash_decode, paged_decode,
+                                     paged_prefill, q4_matmul)
 
     saved = []
     for mod, name in ((paged_decode, "paged_verify"),
                       (paged_prefill, "paged_prefill"),
                       (paged_decode, "paged_verify_quant"),
-                      (q4_matmul, "q4_matmul")):
+                      (q4_matmul, "q4_matmul"),
+                      (flash_decode, "flash_verify")):
         kern, ref = getattr(mod, name), getattr(mod, name + "_ref")
 
         def shadow(*a, kern=kern, ref=ref, name=name, **k):
@@ -640,16 +851,27 @@ def parity(torch, ops, serve) -> None:
         del kern, plain
     eng = make_dense_engine(params, cfg, args.batch, args.ctx,
                             cache_dtype=torch.float32, device=args.device)
-    fin, _ = eng.run(init_cache(cfg, args.batch, args.ctx,
-                                dtype=torch.float32, device=args.device),
-                     reqs)
+    errs = {}
+    before = ops.launch_counts()["flash_verify"]
+    with substituted(ops, "shadow", errs):
+        fin, steps = eng.run(init_cache(cfg, args.batch, args.ctx,
+                                        dtype=torch.float32,
+                                        device=args.device), reqs)
+    n_b5 = ops.launch_counts()["flash_verify"] - before
+    if sorted(errs) != ["flash_verify"] or errs["flash_verify"] > 2e-5 \
+            or n_b5 != cfg.n_layers * steps:
+        raise AssertionError(f"dense engine: B5 launches {n_b5} (wanted "
+                             f"{cfg.n_layers} x {steps} steps), against "
+                             f"their plain versions: {errs} (atol 2e-5)")
     dense = {f.uid: f.tokens for f in fin}
     if dense != streams[False]:
         bad = [u for u, t in dense.items() if streams[False].get(u) != t]
         raise AssertionError(f"dense engine tokens differ from the paged "
                              f"engine's for uids {bad}")
     log(f"  dense engine: tokens equal to the paged engine's for "
-        f"{len(reqs)} requests")
+        f"{len(reqs)} requests; {n_b5} B5 launches ({steps} steps x "
+        f"{cfg.n_layers} layers), each within "
+        f"{errs['flash_verify']:.3g} of its plain version")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -814,15 +1036,20 @@ def serve_streamed_full(torch, ops, serve):
             stream_summary(f"{name} q4 weights", res,
                            nbytes * cfg.n_layers)
             passes = len(reqs) + res["steps"]
-            want = PROJECTIONS * cfg.n_layers * passes
-            if counts[name]["q4_matmul"] != want or \
-                    sum(counts[name].values()) != want:
+            want = {k: 0 for k in counts[name]}
+            want["q4_matmul"] = PROJECTIONS * cfg.n_layers * passes
+            want["flash_verify"] = cfg.n_layers * res["steps"]
+            if counts[name] != want:
                 raise AssertionError(
-                    f"{name}: launches {counts[name]}, wanted {want} of "
-                    f"q4_matmul alone ({passes} passes x {cfg.n_layers} "
-                    f"layers x {PROJECTIONS})")
-            log(f"  {name}: {want} q4_matmul launches = {passes} passes "
-                f"x {cfg.n_layers} layers x {PROJECTIONS} projections")
+                    f"{name}: launches {counts[name]}, wanted {want} "
+                    f"({passes} passes x {cfg.n_layers} layers x "
+                    f"{PROJECTIONS} of B3, {res['steps']} decode steps x "
+                    f"{cfg.n_layers} layers of B5)")
+            log(f"  {name}: {want['q4_matmul']} q4_matmul launches = "
+                f"{passes} passes x {cfg.n_layers} layers x {PROJECTIONS} "
+                f"projections; {want['flash_verify']} flash_verify "
+                f"launches = {res['steps']} decode steps x {cfg.n_layers} "
+                f"layers")
             streams[name] = {f.uid: f.tokens for f in res["finished"]}
             if name == "streamed":
                 st = res["stats"]
@@ -930,15 +1157,18 @@ def q4_parity(torch, ops, serve) -> None:
             ops.use_kernels(True)
     finally:
         shutil.rmtree(sdir, ignore_errors=True)
-    if sorted(errs) != ["q4_matmul"] or errs["q4_matmul"] > Q4_TOL:
-        raise AssertionError(f"B3 launches against their plain version on "
-                             f"the same inputs: {errs} (max|d|/max|ref|, "
-                             f"bound {Q4_TOL})")
+    if sorted(errs) != ["flash_verify", "q4_matmul"] \
+            or errs["q4_matmul"] > Q4_TOL or errs["flash_verify"] > 2e-5:
+        raise AssertionError(f"B3 and B5 launches against their plain "
+                             f"versions on the same inputs: {errs} (B3 "
+                             f"max|d|/max|ref| bound {Q4_TOL}, B5 atol "
+                             f"2e-5)")
     if streamed[0] != resident[0]:
         raise AssertionError("streamed and resident tokens differ")
     worst, n_equal, splits = compare_runs(streamed, plain)
     log(f"  every B3 launch within {errs['q4_matmul']:.3g} of max|ref| of "
-        f"its plain version on the same inputs; streamed and resident "
+        f"its plain version on the same inputs, every B5 launch within "
+        f"{errs['flash_verify']:.3g}; streamed and resident "
         f"tokens equal for {len(reqs)} requests; kernel vs plain-version "
         f"logits within {worst:.3g} of max|ref|, streams equal for "
         f"{n_equal} of {len(reqs)}; splits: {splits}")
@@ -951,6 +1181,529 @@ def q4_parity(torch, ops, serve) -> None:
 
 
 # --------------------------------------------------------------------------- #
+#  phases 7 and 8: speculative decoding
+# --------------------------------------------------------------------------- #
+
+SPEC_GAMMA = 4
+DRAFT_ARCH = "qwen1.5-0.5b"
+SPEC_ARGS = ["--arch", "qwen1.5-32b", "--batch", "2", "--ctx", "1024",
+             "--requests", "4", "--prompt-len", "128", "--prompt-len-max",
+             "513", "--new-tokens", "16", "--seed", "0", "--stream-window",
+             "4", "--store-quant", "q4", "--dtype", "bf16"]
+#: bf16 spec against vanilla at full depth: the worst logit difference
+#: before any split, as a fraction of max|logit| (about 13 bf16 ulps,
+#: 2^-8 each, of the largest logit)
+SPEC_BF16_REL = 5e-2
+PARITY_ARGS = ["--batch", "4", "--ctx", "1024", "--requests", "8",
+               "--prompt-len", "128", "--prompt-len-max", "513",
+               "--new-tokens", "16", "--seed", "0", "--dtype", "f32",
+               "--layers", "4"]
+#: perturbed self-draft: noise std as a fraction of each weight's std,
+#: raised until the acceptance lands in ACCEPT_RANGE
+EPS_LADDER = (0.01, 0.02, 0.05, 0.1, 0.2, 0.5, 1.0)
+#: B3 launches in phase 8 against their plain version, max|d|/max|ref|:
+#: qwen1.5-32b's w_down sums K = 27392 f32 products, twice phase 6's
+#: K = 13824 (Q4_TOL there), and rounding error grows with the terms
+Q4_TOL_32B = 2e-5
+ACCEPT_RANGE = (0.2, 0.9)
+ATTN_KERNELS = ("flash_verify", "paged_verify", "paged_prefill",
+                "paged_verify_quant")
+
+
+class CallTimer:
+    """Host time of each call of ``fn`` between two device syncs (smoke
+    instrumentation; the engine syncs once a step anyway)."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.times = torch, fn, []
+
+    def __call__(self, *a, **k):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **k)
+        self.torch.cuda.synchronize()
+        self.times.append(time.perf_counter() - t0)
+        return out
+
+
+@contextlib.contextmanager
+def rows_by_T(counts):
+    """Count the B5 and B1 wrapper calls by query rows a sequence (T);
+    each call goes on to the wrapper in place (kernel or stand-in)."""
+    from repro_torch.kernels import flash_decode, paged_decode
+
+    saved = []
+    for mod, name in ((flash_decode, "flash_verify"),
+                      (paged_decode, "paged_verify")):
+        fn = getattr(mod, name)
+
+        def spy(q, *a, fn=fn, name=name, **k):
+            counts[(name, q.shape[1])] = counts.get((name, q.shape[1]),
+                                                    0) + 1
+            return fn(q, *a, **k)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, spy)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def make_spec(torch, dparams, dcfg, batch, ctx, dtype, verify=None):
+    """A ``SpeculativeDecoder`` over a resident draft with its own dense
+    cache (``verify`` may be set later, as the paged engine needs)."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import write_dense_slot
+    from repro_torch.runtime.speculative import SpeculativeDecoder
+
+    def draft_decode(c, t):
+        return M.decode_step(dparams, dcfg, c, t)
+
+    def draft_prefill_one(prompt):
+        c1 = M.init_cache(dcfg, 1, ctx, dtype=dtype, device="cuda")
+        logits, c1 = M.prefill(dparams, dcfg, prompt, c1)
+        return int(torch.argmax(logits[0, -1])), c1
+
+    return SpeculativeDecoder(
+        draft_decode, verify, gamma=SPEC_GAMMA,
+        draft_cache=M.init_cache(dcfg, batch, ctx, dtype=dtype,
+                                 device="cuda"),
+        draft_prefill_one=draft_prefill_one,
+        draft_write_slot=write_dense_slot)
+
+
+def traced(torch, eng, cache, reqs, spec=None):
+    """Run an engine, keeping the logits behind every token after the
+    first by (uid, token index): each verify row of a spec run (row j of
+    a slot that has emitted g tokens gives token g + j; the last cycle to
+    write an index saw the accepted context), each decode row of a
+    vanilla run."""
+    logits = {}
+
+    def keep(lg, rows):
+        for i in eng.active():
+            st = eng.slots[i]
+            for j in range(rows):
+                logits[(st.uid, len(st.generated) + j)] = \
+                    lg[i, j].float().clone()
+
+    if spec is not None:
+        verify = spec.verify
+
+        def verify_(c, t):
+            lg, c = verify(c, t)
+            keep(lg, t.shape[1])
+            return lg, c
+        spec.verify = verify_
+    else:
+        decode = eng.decode
+
+        def decode_(c, t):
+            lg, c = decode(c, t)
+            keep(lg, 1)
+            return lg, c
+        eng.decode = decode_
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin, steps = eng.run(cache, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if spec is not None:
+        spec.verify = verify
+    else:
+        eng.decode = decode
+    check_served({"finished": fin, "rejected": eng.rejected,
+                  "requests": reqs})
+    return {"streams": {f.uid: f.tokens for f in fin},
+            "counts": {f.uid: (f.proposed, f.accepted) for f in fin},
+            "logits": logits, "finished": fin, "steps": steps,
+            "wall": wall}
+
+
+def compare_traced(a, b):
+    """Run ``a`` against run ``b``, token by token up to each stream's
+    first difference, logits wherever both kept them. Returns (worst
+    max|d|/max|ref of b|, streams equal, [(uid, token, b's gap between
+    its token and a's there / max|ref|, max|d|/max|ref| there)])."""
+    worst, n_equal, splits = 0.0, 0, []
+    for uid, toks in b["streams"].items():
+        other = a["streams"][uid]
+        n_equal += other == toks
+        for n, tok in enumerate(toks):
+            x, y = a["logits"].get((uid, n)), b["logits"].get((uid, n))
+            rel = gap = None
+            if x is not None and y is not None:
+                top = float(y.abs().max())
+                rel = float((x - y).abs().max()) / top
+                worst = max(worst, rel)
+            if n >= len(other) or other[n] != tok:
+                if y is not None and n < len(other):
+                    gap = float(y[tok] - y[other[n]]) / top
+                splits.append((uid, n, gap, rel))
+                break
+    return worst, n_equal, splits
+
+
+def serve_spec_full(torch, ops, serve):
+    """Phase 7; returns the spec streamed run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache
+    from repro_torch.models import model as M
+    from repro_torch.runtime.paramstore import ParamStore, ResidentSource
+    from repro_torch.runtime.streaming import (StreamingParamSource,
+                                               make_streaming_engine)
+
+    args = serve.parse_args(SPEC_ARGS)
+    cfg = get_config(args.arch)                # 64 layers, int8 cache
+    dcfg = get_config(DRAFT_ARCH)              # 24 layers, tied
+    bf16, B, ctx = torch.bfloat16, args.batch, args.ctx
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dparams = M.init_params(dcfg, gen, bf16, "cuda")
+    n_draft = sum(p.numel() for p in dparams.parameters())
+    log(f"  target {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.kv_heads}, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, kv "
+        f"{cfg.kv_dtype}; draft {dcfg.name}: {dcfg.n_layers} layers, d "
+        f"{dcfg.d_model}, tied embeddings {dcfg.tie_embeddings}, "
+        f"{n_draft / 1e9:.3f} B params bf16 resident "
+        f"({2 * n_draft / 1e9:.2f} GB); gamma {SPEC_GAMMA}, {B} slots, "
+        f"ctx {ctx}")
+    sdir, tree = write_store(torch, cfg, bf16, seed=2)
+    runs, launches = {}, {}
+    try:
+        store = ParamStore(sdir)
+        nbytes = store.layer_nbytes
+        head = 2 * cfg.vocab * cfg.d_model * 2       # embed + unembed
+        log(f"  store: {nbytes / 1e6:.2f} MB/layer, "
+            f"{nbytes * cfg.n_layers / 1e9:.2f} GB for {cfg.n_layers} "
+            f"layers; bf16 head {head / 1e9:.2f} GB")
+        store.close()
+        reqs = serve.make_requests(cfg, args)
+        for name in ("spec streamed", "spec resident", "vanilla resident",
+                     "vanilla streamed"):
+            src = StreamingParamSource(ParamStore(sdir),
+                                       window=args.stream_window) \
+                if name.endswith("streamed") else ResidentSource(tree)
+            spec = None
+            if name.startswith("spec"):
+                spec = make_spec(torch, dparams, dcfg, B, ctx, bf16)
+                spec.draft_decode = CallTimer(torch, spec.draft_decode)
+                spec.verify = CallTimer(
+                    torch, lambda c, t, src=src: M.decode_step_layerwise(
+                        src, cfg, c, t))
+            eng = make_streaming_engine(src, cfg, B, ctx, spec=spec,
+                                        cache_dtype=bf16)
+            step_timer = None
+            if spec is None:
+                eng.decode = step_timer = CallTimer(torch, eng.decode)
+            by_T = {}
+            ops.reset_launch_counts()
+            try:
+                with rows_by_T(by_T):
+                    run = traced(torch, eng, init_cache(
+                        cfg, B, ctx, dtype=bf16, device="cuda"), reqs, spec)
+                st = eng.streaming_stats()
+            finally:
+                src.close()
+            counts = ops.launch_counts()
+            # a pass of the target (a prefill, a decode step or a verify
+            # pass) is 7 B3 launches a layer; a cycle is one verify pass
+            # of T = gamma + 1 and gamma + 1 draft steps of T = 1, and
+            # every pass over a dense cache is one B5 launch a layer
+            steps = run["steps"]
+            want = {k: 0 for k in counts}
+            want["q4_matmul"] = PROJECTIONS * cfg.n_layers * (steps
+                                                              + len(reqs))
+            if spec is not None:
+                if spec.cycles != steps:
+                    raise AssertionError(f"{name}: {spec.cycles} cycles in "
+                                         f"{steps} steps")
+                want_T = {("flash_verify", SPEC_GAMMA + 1):
+                          cfg.n_layers * steps,
+                          ("flash_verify", 1):
+                          (SPEC_GAMMA + 1) * dcfg.n_layers * steps}
+            else:
+                want_T = {("flash_verify", 1): cfg.n_layers * steps}
+            want["flash_verify"] = sum(want_T.values())
+            if counts != want or by_T != want_T:
+                raise AssertionError(f"{name}: launches {counts} by T "
+                                     f"{by_T}, wanted {want} by T {want_T}")
+            summ = serve._p50_summary(run["finished"], run["wall"])
+            peak = nbytes * cfg.n_layers if st is None \
+                else st.peak_resident_bytes
+            stall = 0.0 if st is None else st.stall_s
+            msg = (f"  {name}: {len(reqs)} requests, {steps} "
+                   f"{'cycles' if spec else 'decode steps'}, wall "
+                   f"{run['wall']:.3f} s, TTFT p50 "
+                   f"{summ['ttft_p50_s'] * 1e3:.2f} ms, TPOT p50 "
+                   f"{summ['tpot_p50_s'] * 1e3:.2f} ms, "
+                   f"{summ['tokens_per_s']:.2f} tokens/s; peak resident "
+                   f"target weights {peak / 1e6:.1f} MB, prefetch stall "
+                   f"{stall * 1e3:.1f} ms")
+            if spec is not None:
+                d_ms = 1e3 * sum(spec.draft_decode.times) / steps
+                v_ms = 1e3 * float(np.mean(spec.verify.times))
+                msg += (f"; acceptance {spec.acceptance_rate:.4f} "
+                        f"({spec.accepted} of {spec.proposed} drafts); "
+                        f"per cycle: draft {d_ms:.2f} ms ({SPEC_GAMMA + 1} "
+                        f"steps), verify pass {v_ms:.2f} ms (median "
+                        f"{1e3 * float(np.median(spec.verify.times)):.2f}"
+                        f")")
+            else:
+                msg += (f"; decode step "
+                        f"{1e3 * float(np.median(step_timer.times)):.2f} ms"
+                        f" (median)")
+            log(msg)
+            log(f"  {name}: launches {counts}; by rows a sequence {by_T}")
+            launches[name] = counts
+            runs[name] = run
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    del tree
+    for kind in ("spec", "vanilla"):
+        if runs[f"{kind} streamed"]["streams"] != \
+                runs[f"{kind} resident"]["streams"]:
+            raise AssertionError(f"{kind} streamed and {kind} resident "
+                                 f"streams differ")
+    worst, n_equal, splits = compare_traced(runs["spec resident"],
+                                            runs["vanilla resident"])
+    log(f"  streamed and resident streams equal for {len(reqs)} requests "
+        f"(spec and vanilla); spec against vanilla: streams equal for "
+        f"{n_equal} of {len(reqs)}, logits within {worst:.3g} of max|ref| "
+        f"up to each stream's first difference; splits (uid, token, "
+        f"vanilla top-2 gap, logit difference there, both / max|ref|): "
+        f"{splits}")
+    if worst >= SPEC_BF16_REL:
+        raise AssertionError(f"spec and vanilla logits differ by {worst} "
+                             f">= {SPEC_BF16_REL} of max|ref|")
+    for uid, n, gap, rel in splits:
+        if gap is None or rel is None or gap > 2 * rel:
+            raise AssertionError(f"uid {uid} token {n}: spec and vanilla "
+                                 f"split where the vanilla gap {gap} is "
+                                 f"not under twice the logit difference "
+                                 f"{rel}: no rounding explains it")
+    del runs, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["spec streamed"]
+
+
+def parity_case(torch, ops, label, build, reqs, vanilla, want_kernels,
+                verify_kernel, layers, gate=None):
+    """Phase 8, one spec engine: a kernel run whose every launch of
+    ``want_kernels`` is held against its plain version on the same inputs,
+    and (when ``gate(acceptance)`` holds) a ``use_kernels(False)`` run.
+    Asserts that each cycle made one verify pass of ``verify_kernel`` at
+    T = gamma + 1 over the target's layers and gamma + 1 draft steps of B5
+    at T = 1 over the draft's (``layers``: (target, draft)), spec streams
+    equal to ``vanilla``'s, verify logits within LOGIT_REL, and equal
+    per-request accepted counts. Returns the kernel run's acceptance rate
+    and whether the case was completed."""
+    errs, by_T = {}, {}
+    with substituted(ops, "shadow", errs), rows_by_T(by_T):
+        eng, cache, spec, close = build(True)
+        try:
+            kern = traced(torch, eng, cache, reqs, spec)
+        finally:
+            close()
+    rate = spec.acceptance_rate
+    want_T = {(verify_kernel, SPEC_GAMMA + 1): layers[0] * spec.cycles,
+              ("flash_verify", 1): (SPEC_GAMMA + 1) * layers[1]
+              * spec.cycles}
+    if by_T != want_T:
+        raise AssertionError(f"{label}: calls by rows a sequence {by_T}, "
+                             f"wanted {want_T}")
+    bad = {k: v for k, v in errs.items()
+           if v > (Q4_TOL_32B if k == "q4_matmul" else 2e-5)}
+    if sorted(errs) != sorted(want_kernels) or bad:
+        raise AssertionError(f"{label}: launches against their plain "
+                             f"versions {errs}, wanted {want_kernels} "
+                             f"(attention atol 2e-5, B3 {Q4_TOL_32B} of "
+                             f"max|ref|)")
+    if kern["streams"] != vanilla["streams"]:
+        diff = [u for u, t in vanilla["streams"].items()
+                if kern["streams"][u] != t]
+        raise AssertionError(f"{label}: spec streams differ from vanilla "
+                             f"greedy for uids {diff}")
+    if gate is not None and not gate(rate):
+        log(f"  {label}: acceptance {rate:.4f}, outside {ACCEPT_RANGE}")
+        return rate, False
+    ops.use_kernels(False)
+    try:
+        eng, cache, spec_p, close = build(True)
+        try:
+            plain = traced(torch, eng, cache, reqs, spec_p)
+        finally:
+            close()
+    finally:
+        ops.use_kernels(True)
+    worst, n_equal, splits = compare_traced(kern, plain)
+    if worst >= LOGIT_REL or n_equal != len(reqs) or \
+            kern["counts"] != plain["counts"]:
+        raise AssertionError(f"{label}: kernel and plain runs disagree: "
+                             f"logits {worst} (bound {LOGIT_REL}), streams "
+                             f"equal {n_equal} of {len(reqs)}, (proposed, "
+                             f"accepted) {kern['counts']} vs "
+                             f"{plain['counts']}")
+    log(f"  {label}: {spec.cycles} cycles, acceptance {rate:.4f}; every "
+        f"launch within its bound of its plain version on the same inputs"
+        f" {errs}; B5/B1 calls by rows a sequence {by_T}; verify logits "
+        f"within {worst:.3g} of max|ref| of the plain run; streams equal to"
+        f" vanilla greedy and to the plain run for {len(reqs)} of "
+        f"{len(reqs)}; (proposed, accepted) equal to the plain run's: "
+        f"{kern['counts']}")
+    return rate, True
+
+
+def spec_parity(torch, ops, serve) -> None:
+    """Phase 8: (a) the dense engine, (b) the paged engine with chunked
+    admission, (c) the streamed q4 engine, all with spec, at 4 layers, full
+    width, f32 and an f32 cache."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import make_dense_engine
+    from repro_torch.runtime.kvcache import make_paged_engine
+    from repro_torch.runtime.paramstore import ParamStore
+    from repro_torch.runtime.streaming import (StreamingParamSource,
+                                               make_streaming_engine)
+
+    f32 = torch.float32
+    dcfg = dataclasses.replace(get_config(DRAFT_ARCH), n_layers=4)
+    dparams = M.init_params(dcfg, torch.Generator(device="cuda")
+                            .manual_seed(12), f32, "cuda")
+    log(f"  depth cut: 4 layers for every model ({DRAFT_ARCH} draft "
+        f"included); f32 caches (parity mode) in place of qwen1.5-32b's "
+        f"int8 cache, which phase 7 runs")
+
+    # (a) qwen1.5-32b, dense engine
+    args = serve.parse_args(["--arch", "qwen1.5-32b"] + PARITY_ARGS)
+    cfg, params = serve.build_model(args)
+    cfg = dataclasses.replace(cfg, kv_dtype="bfloat16")
+    reqs = serve.make_requests(cfg, args)
+    B, ctx = args.batch, args.ctx
+
+    def dense_build(draft):
+        def build(with_spec):
+            spec = None
+            if with_spec:
+                dp, dc = draft
+                spec = make_spec(torch, dp, dc, B, ctx, f32,
+                                 lambda c, t: M.decode_step(params, cfg, c,
+                                                            t))
+            eng = make_dense_engine(params, cfg, B, ctx, spec=spec,
+                                    cache_dtype=f32)
+            return eng, init_cache(cfg, B, ctx, dtype=f32,
+                                   device="cuda"), spec, lambda: None
+        return build
+
+    eng, cache, _, _ = dense_build(None)(False)
+    vanilla = traced(torch, eng, cache, reqs)
+    layers = (cfg.n_layers, dcfg.n_layers)
+    parity_case(torch, ops, "(a) qwen1.5-32b dense, distinct draft",
+                dense_build((dparams, dcfg)), reqs, vanilla,
+                ["flash_verify"], "flash_verify", layers)
+    pert = copy.deepcopy(params)
+    lo, hi = ACCEPT_RANGE
+    done = False
+    for eps in EPS_LADDER:
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        with torch.no_grad():
+            for p, q in zip(params.parameters(), pert.parameters()):
+                sd = float(p.float().std()) if p.numel() > 1 else 0.0
+                q.copy_(p + eps * sd * torch.randn(
+                    p.shape, generator=gen, device="cuda", dtype=p.dtype))
+        rate, done = parity_case(
+            torch, ops, f"(a) qwen1.5-32b dense, perturbed self-draft "
+            f"eps={eps}", dense_build((pert, cfg)), reqs, vanilla,
+            ["flash_verify"], "flash_verify", (cfg.n_layers, cfg.n_layers),
+            gate=lambda r: lo <= r <= hi)
+        if done or rate < lo:
+            break
+    if not done:
+        raise AssertionError(f"no noise size in {EPS_LADDER} put the "
+                             f"self-draft's acceptance in {ACCEPT_RANGE}")
+    del params, pert, vanilla
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) qwen2.5-14b, paged engine with chunked admission
+    args = serve.parse_args(["--arch", "qwen2.5-14b", "--prefill-chunk",
+                             "128", "--page-tokens", "16"] + PARITY_ARGS)
+    cfg, params = serve.build_model(args)
+    reqs = serve.make_requests(cfg, args)
+    bs = args.page_tokens
+    n_pages = 2 + B * (-(-ctx // bs))
+
+    def paged_build(with_spec):
+        spec = make_spec(torch, dparams, dcfg, B, ctx, f32) \
+            if with_spec else None
+        eng, kv = make_paged_engine(params, cfg, B, ctx, n_pages=n_pages,
+                                    page_tokens=bs, cache_dtype=f32,
+                                    prefill_chunk=args.prefill_chunk,
+                                    spec=spec)
+        if spec is not None:
+            spec.verify = eng.decode
+        return eng, kv.init_cache(), spec, kv.pool.check
+
+    eng, cache, _, _ = paged_build(False)
+    vanilla = traced(torch, eng, cache, reqs)
+    parity_case(torch, ops, "(b) qwen2.5-14b paged, chunked admission, "
+                "distinct draft", paged_build, reqs, vanilla,
+                ["flash_verify", "paged_prefill", "paged_verify"],
+                "paged_verify", (cfg.n_layers, dcfg.n_layers))
+    del params, vanilla
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) qwen1.5-32b, streamed q4 engine
+    args = serve.parse_args(["--arch", "qwen1.5-32b"] + PARITY_ARGS)
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=4,
+                              kv_dtype="bfloat16")
+    reqs = serve.make_requests(cfg, args)
+    sdir, tree = write_store(torch, cfg, f32, seed=3)
+    del tree
+    try:
+        def stream_build(with_spec):
+            src = StreamingParamSource(ParamStore(sdir), window=2)
+            spec = make_spec(
+                torch, dparams, dcfg, B, ctx, f32,
+                lambda c, t: M.decode_step_layerwise(src, cfg, c, t)) \
+                if with_spec else None
+            eng = make_streaming_engine(src, cfg, B, ctx, spec=spec,
+                                        cache_dtype=f32)
+            return eng, init_cache(cfg, B, ctx, dtype=f32,
+                                   device="cuda"), spec, src.close
+
+        eng, cache, _, close = stream_build(False)
+        try:
+            vanilla = traced(torch, eng, cache, reqs)
+        finally:
+            close()
+        parity_case(torch, ops, "(c) qwen1.5-32b streamed q4, distinct "
+                    "draft", stream_build, reqs, vanilla,
+                    ["flash_verify", "q4_matmul"], "flash_verify",
+                    (cfg.n_layers, dcfg.n_layers))
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    return smi.splitlines()[0]
+
 
 def main() -> int:
     import torch
@@ -964,10 +1717,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     log("== phase 0: device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    log(smi.splitlines()[0])
+    log(card())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -990,6 +1740,8 @@ def main() -> int:
     timer = Timer(torch)
     rows = check_kernels(torch, timer, np.random.default_rng(0))
     rows["q4_matmul"] = check_q4(torch, timer, np.random.default_rng(1))
+    rows["flash_verify"] = check_flash(torch, timer,
+                                       np.random.default_rng(2))
     log(f"  phase 2 done at {time.perf_counter() - t_start:.0f} s")
 
     log("== phase 3: serve qwen2.5-14b at full width, 48 layers, bf16")
@@ -1011,9 +1763,22 @@ def main() -> int:
     q4_parity(torch, ops, serve)
     log(f"  phase 6 done at {time.perf_counter() - t_start:.0f} s")
 
+    log("== phase 7: speculative serve of qwen1.5-32b at full width, 64 "
+        "layers, streamed q4, qwen1.5-0.5b draft")
+    spec_counts = serve_spec_full(torch, ops, serve)
+    log(f"  main-path launches: {spec_counts}")
+    log(f"  phase 7 done at {time.perf_counter() - t_start:.0f} s")
+
+    log("== phase 8: spec parity, 4 layers full width f32")
+    spec_parity(torch, ops, serve)
+    log(f"  phase 8 done at {time.perf_counter() - t_start:.0f} s")
+
     counts["q4_matmul"] = stream_counts["q4_matmul"]
+    counts["flash_verify"] = spec_counts["flash_verify"]
     for name, row in rows.items():
         row["launches"] = counts[name]
+    log(f"all phases passed in {time.perf_counter() - t_start:.0f} s on")
+    log(card())
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

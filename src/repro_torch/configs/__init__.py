@@ -4,7 +4,8 @@ port never imports the JAX package."""
 from .base import SHAPES, ModelConfig, ShapeSpec, get_config, list_archs
 
 # importing the modules populates the registry
-from . import llama_paper, qwen25_14b  # noqa: F401
+from . import (llama_paper, qwen15_05b_draft, qwen15_32b,  # noqa: F401
+               qwen25_14b)
 
 ALL_ARCHS = True  # sentinel: registry populated
 

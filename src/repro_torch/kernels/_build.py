@@ -23,14 +23,16 @@ from typing import Dict
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> CUDA source
 SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
-           "q4_matmul": _CSRC / "q4_matmul.cu"}
+           "q4_matmul": _CSRC / "q4_matmul.cu",
+           "flash_decode": _CSRC / "flash_decode.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES: Dict[str, int] = {"paged_verify": 0, "paged_prefill": 0,
-                            "paged_verify_quant": 0, "q4_matmul": 0}
+                            "paged_verify_quant": 0, "q4_matmul": 0,
+                            "flash_verify": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -109,6 +111,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "q4_matmul":
         lib.q4_matmul.argtypes = [P, P, P, P, I, I, I, I, I, P]
         lib.q4_matmul.restype = I
+        return
+    if name == "flash_decode":
+        lib.flash_verify.argtypes = [P] * 5 + [I] * 9 + [F] + [L] * 6 + [P]
+        lib.flash_verify.restype = I
+        lib.flash_decode_smem_bytes.argtypes = [I, I, I, I]
+        lib.flash_decode_smem_bytes.restype = L
         return
     common = [I, I, I, I, I, I, I, I, I, I, F, L, L, L, L, L, L]
     lib.paged_verify.argtypes = [P] * 6 + common + [P]

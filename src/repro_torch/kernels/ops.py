@@ -1,12 +1,15 @@
-"""Dispatch of the port's kernels (paged attention, q4 matmul).
+"""Dispatch of the port's kernels (paged attention, contiguous-cache
+attention, q4 matmul).
 
 A tensor on the CPU goes to the kernel's plain torch version; a CUDA
 tensor launches the CUDA kernel, which raises when it cannot run — there
 is no fallback. ``use_kernels(False)`` forces the plain versions (tests
 and ``chip_smoke.py`` compare the two), mirroring ``repro.kernels.ops``.
-The model path (``models.layers._paged_attention``) asks ``kernels_active``
-once and calls the kernel wrappers itself; the functions below route a
-direct call of one kernel.
+The model path asks ``kernels_active`` once per attention call, in
+``models.layers._paged_attention`` and ``models.layers._dense_attention``,
+and calls the kernel wrappers itself (``layers.qmm`` goes through
+``q4_matmul`` below); the functions below route a direct call of one
+kernel.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Dict, Optional
 import torch
 
 from . import _build
+from . import flash_decode as _fd
 from . import paged_decode as _pd
 from . import paged_prefill as _pp
 from . import q4_matmul as _q4
@@ -46,6 +50,18 @@ def q4_matmul(x, packed, scale, *, group: int = 64):
     if not kernels_active(x):
         return _q4.q4_matmul_ref(x, packed, scale, group=group)
     return _q4.q4_matmul(x, packed, scale, group=group)
+
+
+def flash_verify(q, k, v, kv_len, *, window: Optional[int] = None):
+    if not kernels_active(q):
+        return _fd.flash_verify_ref(q, k, v, kv_len, window=window)
+    return _fd.flash_verify(q, k, v, kv_len, window=window)
+
+
+def flash_decode(q, k, v, kv_len, *, window: Optional[int] = None):
+    if not kernels_active(q):
+        return _fd.flash_decode_ref(q, k, v, kv_len, window=window)
+    return _fd.flash_decode(q, k, v, kv_len, window=window)
 
 
 def paged_verify(q, k_pages, v_pages, table, kv_len, *,

@@ -216,6 +216,43 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def decode_attention_stats(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, kv_len: torch.Tensor,
+                           *, window: Optional[int] = None, pos_offset=0
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Single-query stats: the T = 1 slice of ``verify_attention_stats``.
+    q: (B, 1, H, D) -> acc (B, H, D) [unnormalized], m (B, H), l (B, H)."""
+    acc, m, l = verify_attention_stats(q, k_cache, v_cache, kv_len,
+                                       window=window, pos_offset=pos_offset)
+    return acc[:, :, 0], m[:, :, 0], l[:, :, 0]
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len: torch.Tensor,
+                     *, window: Optional[int] = None) -> torch.Tensor:
+    """Single-position attention against a cache. q: (B, 1, H, D);
+    k_cache/v_cache: (B, S_max, h_kv, D); kv_len: (B,) valid entries
+    (current token included) -> (B, 1, H, D)."""
+    acc, m, l = decode_attention_stats(q, k_cache, v_cache, kv_len,
+                                       window=window)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out[:, None].to(q.dtype)
+
+
+def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, *, window: Optional[int]
+                     ) -> torch.Tensor:
+    """Dispatch attention over a contiguous cache (decode and verify): the
+    CUDA kernel B5 for tensors on the card (unless
+    ``ops.use_kernels(False)``), ``verify_attention`` otherwise."""
+    from ..kernels import flash_decode, ops
+    if ops.kernels_active(q):
+        return flash_decode.flash_verify(q, k, v, kv_len.int(),
+                                         window=window)
+    return verify_attention(q, k, v, kv_len, window=window)
+
+
 # --------------------------------------------------------------------------- #
 #  attention block (GQA, optional QKV bias)
 # --------------------------------------------------------------------------- #
@@ -262,8 +299,10 @@ def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
     ``cache``: {"k": (B,Smax,hk,hd), "v": ..., "len": (B,)} (+ int8
     ``k_scale``/``v_scale``). Decode writes the S new lines in place at
     ``len`` (rolling for a window-sized buffer) and attends over the
-    cache; prefill runs causal attention over ``x`` and fills the cache in
-    place. Returns (out, cache) with the cache's ``len`` advanced.
+    cache through ``_dense_attention`` (an int8 cache is dequantized
+    first, as in the reference); prefill runs causal attention over ``x``
+    and fills the cache in place. Returns (out, cache) with the cache's
+    ``len`` advanced.
     """
     B, S, _ = x.shape
     q, k, v = attn_qkv(p, cfg, x, positions)
@@ -303,7 +342,7 @@ def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
             k_at, v_at = kc.to(q.dtype), vc.to(q.dtype)
         kv_len = torch.clamp(ln + S, max=Smax) if window is not None \
             else ln + S
-        out = verify_attention(q, k_at, v_at, kv_len, window=window)
+        out = _dense_attention(q, k_at, v_at, kv_len, window=window)
     else:
         out = chunked_causal_attention(q, k, v, window=window)
         if cache is not None:

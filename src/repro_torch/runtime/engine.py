@@ -11,11 +11,13 @@ chunks.
 A ``source`` (``runtime.paramstore.ParamSource``, set by
 ``runtime.streaming.make_streaming_engine``) is the weight source the
 layer-wise prefill and decode pull from; the engine keeps it for
-``streaming_stats()``. Speculative decoding (``spec``), session parking,
-the span tracer and serving metrics are later slices; passing any of them
-raises ``NotImplementedError``. In their place the engine stamps each
-request's first-token and finish times on ``clock`` (TTFT and TPOT on
-``FinishedRequest``).
+``streaming_stats()``. ``spec`` (a ``runtime.speculative.SpeculativeDecoder``)
+turns each step into one draft/verify cycle: every occupied slot advances
+by 1 to gamma + 1 tokens, and the streams stay equal to vanilla greedy
+decode. Session parking, the span tracer and serving metrics are later
+slices; passing any of them raises ``NotImplementedError``. In their place
+the engine stamps each request's first-token and finish times on
+``clock`` (TTFT and TPOT on ``FinishedRequest``).
 """
 from __future__ import annotations
 
@@ -27,8 +29,7 @@ import torch
 
 from .telemetry import clock
 
-_LATER = {"spec": "speculative decoding (ROADMAP Queue A item 9)",
-          "session": "session parking (ROADMAP Queue A item 8)",
+_LATER = {"session": "session parking (ROADMAP Queue A item 8)",
           "tracer": "the span tracer (ROADMAP Queue A item 7)",
           "metrics": "serving metrics (ROADMAP Queue A item 7)"}
 
@@ -43,6 +44,8 @@ class SlotState:
     remaining: int = 0               # tokens still to generate
     generated: Optional[List[int]] = None
     t_first: float = 0.0             # clock() when the first token existed
+    proposed: int = 0                # draft tokens proposed (speculative)
+    accepted: int = 0                # draft tokens accepted (speculative)
 
 
 @dataclasses.dataclass
@@ -51,6 +54,12 @@ class FinishedRequest:
     tokens: List[int]
     ttft_s: float = 0.0              # run start -> first token
     tpot_s: float = 0.0              # mean time per later token
+    proposed: int = 0                # speculative bookkeeping (0 = vanilla)
+    accepted: int = 0
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted / max(self.proposed, 1)
 
 
 @dataclasses.dataclass
@@ -77,7 +86,10 @@ class ContinuousBatcher:
     ``len(prompt) + max_new`` cannot fit). ``kv``: a
     ``runtime.kvcache.PagedKVCache``; ``decode`` is then the paged step.
     ``prefill_chunk``/``chunk_step(view, tokens, write)``: chunked paged
-    admission.
+    admission. ``spec``: a ``SpeculativeDecoder``; it owns the draft cache
+    (``spec.admit`` prefills a slot of it), and paged admission reserves
+    gamma positions past the budget, which a verify pass writes before
+    its rollback.
     """
 
     def __init__(self, batch: int, prefill_one: Callable,
@@ -86,8 +98,7 @@ class ContinuousBatcher:
                  ctx: Optional[int] = None, kv=None, tracer=None,
                  metrics=None, prefill_chunk: Optional[int] = None,
                  chunk_step: Optional[Callable] = None, device="cuda"):
-        for name, val in (("spec", spec), ("tracer", tracer),
-                          ("metrics", metrics)):
+        for name, val in (("tracer", tracer), ("metrics", metrics)):
             if val is not None:
                 raise _not_ported(name)
         self.B = batch
@@ -95,6 +106,7 @@ class ContinuousBatcher:
         self.write_slot = write_slot
         self.decode = decode
         self.eos_id = eos_id
+        self.spec = spec
         self.source = source
         self.ctx = ctx
         self.kv = kv
@@ -117,6 +129,11 @@ class ContinuousBatcher:
         if self.source is not None and hasattr(self.source, "stats"):
             return self.source.stats()
         return None
+
+    @property
+    def _margin(self) -> int:
+        """Positions a verify pass writes past a request's budget."""
+        return self.spec.gamma if self.spec is not None else 0
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s.uid is None]
@@ -141,7 +158,7 @@ class ContinuousBatcher:
         prompt_t = torch.as_tensor(prompt, device=self.device)[None, :]
         if self.kv is not None and self.prefill_chunk is not None:
             self.kv.plan_admit(cache, slot, [int(t) for t in prompt],
-                               max_new, register=False)
+                               max_new + self._margin, register=False)
             try:
                 cache, tokens, first_tok = self._chunked_prefill(
                     cache, tokens, slot, prompt)
@@ -150,7 +167,7 @@ class ContinuousBatcher:
                 raise
         elif self.kv is not None:
             self.kv.plan_admit(cache, slot, [int(t) for t in prompt],
-                               max_new)
+                               max_new + self._margin)
             try:
                 first_tok, slot_cache = self.prefill_one(prompt_t)
                 cache = self.kv.install(cache, slot, slot_cache["layers"],
@@ -167,6 +184,8 @@ class ContinuousBatcher:
                     f"ctx or trim the request")
             first_tok, slot_cache = self.prefill_one(prompt_t)
             cache = self.write_slot(cache, slot_cache, slot, len(prompt))
+        if self.spec is not None:
+            self.spec.admit(prompt_t, slot, len(prompt))
         tokens[slot, 0] = first_tok
         self.slots[slot] = SlotState(uid=uid, remaining=max_new - 1,
                                      generated=[int(first_tok)],
@@ -208,14 +227,18 @@ class ContinuousBatcher:
         self.finished.append(FinishedRequest(
             uid=st.uid, tokens=st.generated,
             ttft_s=st.t_first - self._t_start,
-            tpot_s=(now - st.t_first) / n_later if n_later else 0.0))
+            tpot_s=(now - st.t_first) / n_later if n_later else 0.0,
+            proposed=st.proposed, accepted=st.accepted))
         self.slots[i] = SlotState()                      # free immediately
         if self.kv is not None:
             self.kv.release_slot(i)
         return cache
 
     def step(self, cache, tokens: torch.Tensor):
-        """One greedy decode step for every occupied slot."""
+        """One greedy decode step (or one draft/verify cycle) for every
+        occupied slot."""
+        if self.spec is not None:
+            return self._spec_step(cache, tokens)
         if self.kv is not None:
             cache = self.kv.begin_step(cache, self.active(), 1)
         logits, cache = self.decode(cache, tokens)
@@ -232,6 +255,39 @@ class ContinuousBatcher:
             if st.remaining <= 0 or (self.eos_id is not None
                                      and tok == self.eos_id):
                 cache = self._finish(i, cache)
+        return cache, tokens
+
+    def _spec_step(self, cache, tokens: torch.Tensor):
+        """One draft/verify cycle: every occupied slot advances by 1 to
+        gamma + 1 tokens. Tokens emitted past a slot's budget or past EOS
+        are dropped, and the slot frees at once, as in vanilla decode."""
+        len0 = {}
+        if self.kv is not None:
+            # the verify pass writes gamma + 1 positions before rollback
+            cache = self.kv.begin_step(cache, self.active(),
+                                       self.spec.gamma + 1)
+            len0 = {i: self.kv.length(i) for i in self.active()}
+        cache, res = self.spec.cycle(cache, tokens, active=self.active())
+        tokens = res.next_tokens.to(tokens.dtype)
+        for i in self.active():
+            st = self.slots[i]
+            n = int(res.n_emit[i])
+            if self.kv is not None:
+                # pages past the accepted length return to the pool: the
+                # allocator half of the rollback (len is already reset)
+                self.kv.trim_to(i, len0[i] + n)
+            # the counters sample draft/target agreement, so drafts that
+            # were verified but dropped past the budget still count
+            st.proposed += self.spec.gamma
+            st.accepted += n - 1
+            for tok in res.emitted[i, :n]:
+                tok = int(tok)
+                st.generated.append(tok)
+                st.remaining -= 1
+                if st.remaining <= 0 or (self.eos_id is not None
+                                         and tok == self.eos_id):
+                    cache = self._finish(i, cache)
+                    break
         return cache, tokens
 
     def run(self, cache, requests, *, max_steps: int = 10_000,
@@ -265,7 +321,8 @@ class ContinuousBatcher:
                     if not self.active():
                         raise              # nothing will ever free pages
                     if self.kv is not None and not self.kv.can_ever_admit(
-                            len(req.prompt), req.max_new_tokens):
+                            len(req.prompt),
+                            req.max_new_tokens + self._margin):
                         self._shed(req.uid, "shed_capacity",
                                    f"pool too small for request "
                                    f"{req.uid}: {e}")
@@ -302,12 +359,14 @@ def write_dense_slot(cache, slot_cache, slot: int, length: int):
 
 
 def make_dense_engine(params, cfg, batch: int, ctx: int, *,
-                      eos_id: Optional[int] = None,
+                      eos_id: Optional[int] = None, spec=None,
                       cache_dtype=torch.float32,
                       device="cuda") -> ContinuousBatcher:
     """Reference dense-cache engine (prefill-one / slot-write / decode over
     ``models.decode_step``). Drive it with
-    ``eng.run(init_cache(cfg, batch, ctx, dtype, device), reqs)``."""
+    ``eng.run(init_cache(cfg, batch, ctx, dtype, device), reqs)``.
+    ``spec``: a ``SpeculativeDecoder`` whose ``verify`` is the target's
+    ``decode_step``."""
     from ..models import model as M
 
     def prefill_one(prompt):
@@ -319,4 +378,5 @@ def make_dense_engine(params, cfg, batch: int, ctx: int, *,
         return M.decode_step(params, cfg, cache, tokens)
 
     return ContinuousBatcher(batch, prefill_one, write_dense_slot, decode,
-                             eos_id=eos_id, ctx=ctx, device=device)
+                             eos_id=eos_id, spec=spec, ctx=ctx,
+                             device=device)

@@ -565,7 +565,7 @@ class PagedKVCache:
 
 def make_paged_engine(params, cfg, batch: int, ctx: int, *,
                       n_pages: Optional[int] = None, page_tokens: int = 16,
-                      eos_id: Optional[int] = None,
+                      eos_id: Optional[int] = None, spec=None,
                       cache_dtype=torch.float32, offload: bool = False,
                       prefill_chunk: Optional[int] = None, device="cuda"):
     """Build a ``ContinuousBatcher`` over a paged KV cache; returns
@@ -575,6 +575,10 @@ def make_paged_engine(params, cfg, batch: int, ctx: int, *,
     admits prompts in page-aligned chunks computed straight into the
     slot's pages (``models.prefill_chunk_paged``), interleaved with decode
     steps for the active slots. None = one-shot dense prefill + install.
+    ``spec``: a ``SpeculativeDecoder``; its verify pass is this engine's
+    decode step at T = gamma + 1 (set ``spec.verify = engine.decode``),
+    which reserves gamma + 1 positions a cycle (copy-on-write of a shared
+    last page included) and returns pages past the accepted length.
     """
     from ..models import model as M
     from .engine import ContinuousBatcher
@@ -602,7 +606,7 @@ def make_paged_engine(params, cfg, batch: int, ctx: int, *,
         # filled whole before a future admit may share them
         prefill_chunk = max(prefill_chunk // page_tokens, 1) * page_tokens
     eng = ContinuousBatcher(batch, prefill_one, write_slot, decode,
-                            eos_id=eos_id, kv=kv,
+                            eos_id=eos_id, spec=spec, kv=kv,
                             prefill_chunk=prefill_chunk,
                             chunk_step=chunk_step, device=device)
     return eng, kv

@@ -468,6 +468,9 @@ def make_streaming_engine(source: ParamSource, cfg, batch: int, ctx: int,
     ``source`` layer by layer (resident or streamed: the same engine),
     over a dense cache. Drive it with
     ``eng.run(init_cache(cfg, batch, ctx, cache_dtype, device), reqs)``.
+    ``spec``: a ``SpeculativeDecoder`` whose verify is
+    ``decode_step_layerwise`` over the same source at T = gamma + 1, so
+    each layer is read once for the whole draft block.
     """
     from ..models import model as M
     from .engine import ContinuousBatcher, write_dense_slot

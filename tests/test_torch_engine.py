@@ -154,10 +154,13 @@ def test_deferred_features_raise():
     from repro_torch.runtime.kvcache import PagedKVCache
 
     tcfg = _cfg(t_get_config)
-    for kw in ({"spec": object()}, {"tracer": object()},
-               {"metrics": object()}):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for kw in ({"tracer": object()}, {"metrics": object()}):
+        with pytest.raises(NotImplementedError, match="item 7"):
             ContinuousBatcher(2, None, None, None, device=CPU, **kw)
+    # speculative decoding is ported: the decoder is kept and drives step()
+    spec = object()
+    assert ContinuousBatcher(2, None, None, None, device=CPU,
+                             spec=spec).spec is spec
     # weight streaming is ported: a source is kept for streaming_stats()
     src = type("Src", (), {"stats": lambda self: "stats"})()
     assert ContinuousBatcher(2, None, None, None, device=CPU,

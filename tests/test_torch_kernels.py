@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from repro.kernels import ref
+from repro.kernels.flash_decode import flash_decode as j_flash_decode
+from repro.kernels.flash_decode import flash_verify as j_flash_verify
 from repro.kernels.paged_decode import paged_verify as j_paged_verify
 from repro.kernels.paged_decode import \
     paged_verify_quant as j_paged_verify_quant
@@ -294,3 +296,108 @@ def test_qmm_routes_eligible_q4_to_the_kernel(monkeypatch):
     torch.testing.assert_close(ll.qmm(x, w), x @ w)
     assert ll.qmm(x.to(torch.bfloat16), q4).dtype == torch.bfloat16
     assert len(calls) == 2
+
+
+# --------------------------------------------------------------------------- #
+#  B5: decode/verify attention over a contiguous cache
+# --------------------------------------------------------------------------- #
+
+#: (B, T, H, h_kv, D, S, kv_len, window): T in {1, 3, 5}, n_rep in {1, 4},
+#: D in {64, 128}, a window, kv_len past S (a verify pass near the end of
+#: the cache clamps its writes), kv_len 0 at T = 1 (a fully masked row)
+FLASH_CASES = [
+    (2, 1, 4, 4, 64, 24, [7, 24], None),
+    (2, 3, 8, 2, 64, 40, [3, 29], None),
+    (2, 5, 4, 4, 128, 32, [5, 38], None),
+    (3, 5, 8, 2, 128, 48, [9, 30, 48], 6),
+    (2, 1, 8, 2, 128, 16, [0, 21], None),
+    (2, 3, 4, 4, 64, 24, [11, 26], 4),
+]
+
+
+def _flash_case(seed, B, T, H, h_kv, D, S, kv_len):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, h_kv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, h_kv, D)).astype(np.float32)
+    return q, k, v, np.asarray(kv_len, np.int32)
+
+
+@pytest.mark.parametrize("case", range(len(FLASH_CASES)))
+def test_flash_verify_matches_pallas(case):
+    """The port's B5 dispatch on CPU tensors (the plain version) against
+    the Pallas ``flash_verify`` in interpret mode (S <= 512, so one block
+    holds the cache) and ``ref.flash_verify_ref``, atol 1e-5."""
+    B, T, H, h_kv, D, S, kv_len, window = FLASH_CASES[case]
+    q, k, v, kv = _flash_case(80 + case, B, T, H, h_kv, D, S, kv_len)
+    before = ops.launch_counts()
+    out = ops.flash_verify(_t(q), _t(k), _t(v), _t(kv),
+                           window=window).numpy()
+    assert ops.launch_counts() == before          # CPU: plain version
+    jargs = tuple(jnp.asarray(a) for a in (q, k, v, kv))
+    pallas = j_flash_verify(*jargs, window=window, interpret=True)
+    oracle = ref.flash_verify_ref(*jargs, window=window)
+    np.testing.assert_allclose(out, np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(out, np.asarray(oracle), **TOL)
+    assert np.isfinite(out).all()
+    if T == 1:
+        dec = ops.flash_decode(_t(q[:, 0]), _t(k), _t(v), _t(kv),
+                               window=window).numpy()
+        np.testing.assert_allclose(dec, out[:, 0], **TOL)
+        np.testing.assert_allclose(
+            dec, np.asarray(j_flash_decode(jargs[0][:, 0], *jargs[1:],
+                                           window=window, interpret=True)),
+            **TOL)
+        np.testing.assert_allclose(
+            dec, np.asarray(ref.flash_decode_ref(jargs[0][:, 0],
+                                                 *jargs[1:],
+                                                 window=window)), **TOL)
+    if 0 in kv_len:                               # fully masked row -> 0
+        np.testing.assert_array_equal(out[kv_len.index(0)], 0.0)
+
+
+def test_flash_verify_bf16_and_strided_cache():
+    """bf16 q over an f32 cache view (a layer of the stacked cache, read
+    through its strides) and bf16 q over a bf16 cache: the plain version
+    computes in f32 from the values it is given, as the Pallas kernel."""
+    q, k, v, kv = _flash_case(90, 2, 5, 8, 2, 64, 24, [9, 24])
+    stacked = np.stack([k * 0, k, k * 2])          # (L, B, S, h_kv, D)
+    kl = _t(stacked)[1]
+    assert kl.storage_offset() > 0
+    qb = _t(q).to(torch.bfloat16)
+    out = ops.flash_verify(qb, kl, _t(v), _t(kv))
+    assert out.dtype == torch.bfloat16
+    want = ref.flash_verify_ref(jnp.asarray(qb.float().numpy()),
+                                jnp.asarray(k), jnp.asarray(v),
+                                jnp.asarray(kv))
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want),
+                               rtol=2 ** -7, atol=1e-5)
+    kb, vb = _t(k).to(torch.bfloat16), _t(v).to(torch.bfloat16)
+    pallas = j_flash_verify(jnp.asarray(q, jnp.bfloat16),
+                            jnp.asarray(k, jnp.bfloat16),
+                            jnp.asarray(v, jnp.bfloat16), jnp.asarray(kv),
+                            interpret=True)
+    np.testing.assert_allclose(
+        ops.flash_verify(qb, kb, vb, _t(kv)).float().numpy(),
+        np.asarray(pallas, np.float32), rtol=2 ** -7, atol=1e-5)
+
+
+def test_flash_kernel_wrapper_checks_its_inputs():
+    """The B5 wrapper takes CUDA tensors only and raises before anything
+    is built or launched; ``use_kernels(False)`` forces the plain
+    version; no launch is counted on the CPU."""
+    from repro_torch.kernels import flash_decode as fd
+
+    q, k, v, kv = _flash_case(91, 2, 3, 4, 4, 64, 16, [5, 16])
+    args = (_t(q), _t(k), _t(v), _t(kv))
+    with pytest.raises(ValueError, match="CUDA"):
+        fd.flash_verify(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        fd.flash_decode(args[0][:, 0], *args[1:])
+    ops.use_kernels(False)
+    try:
+        forced = ops.flash_verify(*args)
+    finally:
+        ops.use_kernels(True)
+    torch.testing.assert_close(forced, fd.flash_verify_ref(*args))
+    assert ops.launch_counts()["flash_verify"] == 0
