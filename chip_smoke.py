@@ -29,7 +29,15 @@ Phase 2  hold each kernel against its plain torch version on the card and
            against the plain version as B1 is; the check must reject a
            cache whose newest line was overwritten; the library call is
            SDPA on the contiguous cache with the causal-among-drafts mask;
-         * B1 also at T = 5 (the paged verify pass).
+         * B1 also at T = 5 (the paged verify pass);
+         * B6 ssd_scan at mamba2-780m's prefill shapes (48 heads, P 64, N
+           128): B 1 with S 1024, 1000 and 77 (ragged, shorter than a
+           chunk) and B 2 with S 512, x, B and C strided as
+           ``ssd_block`` passes them (S 1024 also contiguous), f32 (1e-5
+           of max|ref| + 1e-5 |ref|) and bf16 (per element 1e-5 + 2^-7
+           |ref|), y and h both; the check must reject a state reset at
+           the second chunk's boundary; no single PyTorch call computes
+           the scan, so its ``library_ms`` is null.
 Phase 3  serve 16 requests (prompts 256-1024, up to 32 new tokens) through
          the paged engine with chunked admission at qwen2.5-14b's full
          width, 48 layers, bf16, random weights from a seed — then the same
@@ -89,6 +97,22 @@ Phase 8  spec parity at 4 layers, full width, f32 and an f32 cache: (a)
          plain version on the same inputs, verify logits agree to 2e-4 of
          max|ref|, per-request accepted counts are equal, and every spec
          stream equals the vanilla greedy stream.
+Phase 9  serve mamba2-780m (the ssm family) at full width and depth (48
+         layers, d 1536, 48 SSD heads of P 64, N 128, vocab 50280, tied),
+         bf16, random weights from a seed: 16 requests (prompts 200-2000
+         tokens, 32 new tokens) through 8 slots, ctx 2080. (a) The
+         resident dense engine: exactly 48 B6 launches a prefill and
+         nothing else; (b) the same with ``use_kernels(False)``: streams
+         equal but at a near-tie (phase 7's rule); (c) a q4 layer store
+         built and quantized on the card one layer at a time, written to
+         a temporary directory and served resident and streamed (window
+         4): equal streams, 48 B6 launches a prefill and 2 B3 launches
+         (in_proj, out_proj) a layer a pass.
+Phase 10 ssm parity at 4 layers, full width, f32 and an f32 cache: the
+         dense engine and the streamed q4 engine, kernels against
+         ``use_kernels(False)``: every B6 (and B3) launch agrees with its
+         plain version on the same inputs, logits agree to 2e-4 of
+         max|ref| and tokens are equal.
 
 Prints the card's name and power limit again, the kernels' JSON line, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
@@ -121,7 +145,8 @@ REPLACES = {"paged_verify": "src/repro/kernels/paged_decode.py:89",
             "paged_prefill": "src/repro/kernels/paged_prefill.py:99",
             "paged_verify_quant": "src/repro/kernels/paged_decode.py:214",
             "q4_matmul": "src/repro/kernels/q4_matmul.py:67",
-            "flash_verify": "src/repro/kernels/flash_decode.py:89"}
+            "flash_verify": "src/repro/kernels/flash_decode.py:89",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:73"}
 
 
 def log(msg: str) -> None:
@@ -563,6 +588,152 @@ def check_flash(torch, timer, rng):
     return row
 
 
+#: mamba2-780m's SSD geometry: 48 heads of P 64, state N 128, d_inner 3072
+SSD_NH, SSD_P, SSD_N = 48, 64, 128
+SSD_DI = SSD_NH * SSD_P
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+#: (label, B, S, strided): prefill shapes of phase 9; ``strided`` reads x,
+#: B and C as the views of one conv output that ``ssd_block`` passes
+SSD_CASES = (
+    ("B6 prefill S=1024", 1, 1024, True),
+    ("B6 prefill S=1024 contiguous", 1, 1024, False),
+    ("B6 prefill S=1000", 1, 1000, True),
+    ("B6 prefill S=77", 1, 77, True),
+    ("B6 prefill B=2 S=512", 2, 512, True),
+)
+SSD_ROW = "B6 prefill S=1024"
+SSD_TOL = 1e-5
+
+
+def ssd_inputs(torch, rng, B, S, strided):
+    """f32 x, dt, A, B, C at mamba2-780m's head geometry. dt is small
+    (softplus of N(-4, 1), ~0.02) so the state carries across chunk
+    boundaries (at the model's init, dt A is ~ -10 and a chunk forgets its
+    past): the check below must see a state lost between chunks."""
+    xbc = rng.standard_normal((B, S, SSD_DI + 2 * SSD_N),
+                              dtype=np.float32)
+    xbc[..., :SSD_DI] *= 0.5
+    xbc[..., SSD_DI:] *= 0.3
+    xbc = torch.from_numpy(xbc).cuda()
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, S, SSD_NH), dtype=np.float32) - 4.0)).cuda()
+    A = -torch.from_numpy(np.exp(rng.standard_normal(
+        SSD_NH).astype(np.float32) * 0.5)).cuda()
+    if not strided:
+        xbc = xbc.contiguous()
+    x = xbc[..., :SSD_DI].reshape(B, S, SSD_NH, SSD_P)
+    Bm, Cm = xbc[..., SSD_DI:SSD_DI + SSD_N], xbc[..., SSD_DI + SSD_N:]
+    if not strided:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    return x, dt, A, Bm, Cm
+
+
+def ssd_within(out, want, dtype) -> float:
+    """Worst ratio of |out - want| to what the dtype allows, per element.
+    f32: 1e-5 max|want| + 1e-5 |want| (f32 sums in another order); bf16:
+    1e-5 + 2^-7 |want| (the outputs' one rounding, at most one ulp)."""
+    err = (out.float() - want.float()).abs()
+    want = want.float().abs()
+    if dtype == "float32":
+        allowed = SSD_TOL * float(want.max()) + SSD_TOL * want
+    else:
+        allowed = 1e-5 + 2.0 ** -7 * want
+    return float((err / allowed).max())
+
+
+def ssd_bound_ms(B, S, dtype, elt):
+    """x read once, y written once (x's dtype), dt read once (f32), B and
+    C read once, h written once, against the chunk products: C B^T once a
+    chunk (shared by the heads) and, per head, the intra-chunk (t, s) x
+    (s, P), C h^T and the state update, at the dtype's peak."""
+    nbytes = B * (2 * S * SSD_DI * elt + S * SSD_NH * 4 + 2 * S * SSD_N * elt
+                  + SSD_NH * SSD_P * SSD_N * elt) + SSD_NH * 4
+    flops = 0
+    for c0 in range(0, S, 128):
+        n = min(128, S - c0)
+        flops += B * (2 * n * n * SSD_N + SSD_NH * (2 * n * n * SSD_P
+                                                    + 4 * n * SSD_N * SSD_P))
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = flops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_ssd(torch, timer, rng):
+    """Phase 2, B6; returns its JSON row (bf16, B 1, S 1024, strided)."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    row = None
+    for label, B, S, strided in SSD_CASES:
+        args32 = ssd_inputs(torch, rng, B, S, strided)
+        for dtype in ("float32", "bfloat16"):
+            dt_ = getattr(torch, dtype)
+            if dtype == "float32":
+                x, dtv, A, Bm, Cm = args32
+            else:                      # one bf16 conv output, viewed again
+                x, dtv, A, Bm, Cm = (args32[0].to(dt_), args32[1],
+                                     args32[2], args32[3].to(dt_),
+                                     args32[4].to(dt_))
+                if strided:
+                    xbc = torch.cat([args32[0].flatten(2), args32[3],
+                                     args32[4]], -1).to(dt_)
+                    x = xbc[..., :SSD_DI].reshape(B, S, SSD_NH, SSD_P)
+                    Bm = xbc[..., SSD_DI:SSD_DI + SSD_N]
+                    Cm = xbc[..., SSD_DI + SSD_N:]
+            if strided and x.is_contiguous():
+                raise AssertionError(f"{label}: x is not a strided view")
+            kern = lambda: ss.ssd_scan(x, dtv, A, Bm, Cm)
+            plain = lambda: ss.ssd_scan_ref(x, dtv, A, Bm, Cm)
+            y, h = kern()
+            torch.cuda.synchronize()
+            y_ref, h_ref = plain()
+            if torch.isnan(y).any() or torch.isnan(h).any():
+                raise AssertionError(f"{label} {dtype}: NaN in kernel out")
+            err = max(float((y.float() - y_ref.float()).abs().max()),
+                      float((h.float() - h_ref.float()).abs().max()))
+            ratio = max(ssd_within(y, y_ref, dtype),
+                        ssd_within(h, h_ref, dtype))
+            if ratio > 1.0:
+                raise AssertionError(f"{label} {dtype}: max|err| {err}, "
+                                     f"{ratio:.3g}x the tolerance")
+            control = None
+            if S > 128:
+                # negative control: the state reset at the second chunk's
+                # boundary (the scan restarted from zero at position 128)
+                y1, _ = ss.ssd_scan_ref(x[:, :128], dtv[:, :128], A,
+                                        Bm[:, :128], Cm[:, :128])
+                y2, h2 = ss.ssd_scan_ref(x[:, 128:], dtv[:, 128:], A,
+                                         Bm[:, 128:], Cm[:, 128:])
+                control = max(ssd_within(torch.cat([y1, y2], 1), y_ref,
+                                         dtype),
+                              ssd_within(h2, h_ref, dtype))
+                if control <= 1.0:
+                    raise AssertionError(
+                        f"{label} {dtype}: the check does not see a state "
+                        f"reset at position 128 ({control:.3g}x the "
+                        f"tolerance)")
+            ms, plain_ms = timer(kern), timer(plain)
+            bms, by = ssd_bound_ms(B, S, dtype, x.element_size())
+            log(f"  {label} B={B} nh={SSD_NH} P={SSD_P} N={SSD_N} "
+                f"{'strided' if strided else 'contiguous'} {dtype}: "
+                f"max|err| {err:.3g} (y and h), {ratio:.3g}x the "
+                f"tolerance (a state reset at 128: "
+                f"{'n/a' if control is None else f'{control:.3g}x'}); "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bms * 1e3:.2f} us ({by}); {B * SSD_NH} CTAs on "
+                f"{torch.cuda.get_device_properties(0).multi_processor_count}"
+                f" SMs")
+            if dtype == "bfloat16" and label == SSD_ROW:
+                # no single PyTorch call computes the scan: library_ms null
+                row = {"name": "ssd_scan", "route": "cuda",
+                       "source": SSD_SOURCE,
+                       "replaces": REPLACES["ssd_scan"], "launches": 0,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bms, "bound_by": by, "library_ms": None}
+        del args32
+    return row
+
+
 # --------------------------------------------------------------------------- #
 #  phases 3 and 4
 # --------------------------------------------------------------------------- #
@@ -750,30 +921,37 @@ def compare_runs(kern, plain):
 
 @contextlib.contextmanager
 def substituted(ops, mode, errs=None):
-    """Phase-4 and phase-6 stand-ins for the kernel wrappers the model
+    """Stand-ins (phases 4, 6, 8 and 10) for the kernel wrappers the model
     path calls. ``"shadow"``: each launch also runs the plain version on
     the same inputs, and ``errs`` keeps the largest max|d| by kernel (for
-    B3 divided by the launch's max|ref|). ``"plain"``:
+    B3 divided by the launch's max|ref|; for B6 the ratio to phase 2's
+    per-element tolerance, over y and h). ``"plain"``:
     the model takes the card's route (kernels reported active) with each
     wrapper replaced by its plain version: one more plain run, summing in
     another order than ``use_kernels(False)``'s."""
     from repro_torch.kernels import (flash_decode, paged_decode,
-                                     paged_prefill, q4_matmul)
+                                     paged_prefill, q4_matmul, ssd_scan)
 
     saved = []
     for mod, name in ((paged_decode, "paged_verify"),
                       (paged_prefill, "paged_prefill"),
                       (paged_decode, "paged_verify_quant"),
                       (q4_matmul, "q4_matmul"),
-                      (flash_decode, "flash_verify")):
+                      (flash_decode, "flash_verify"),
+                      (ssd_scan, "ssd_scan")):
         kern, ref = getattr(mod, name), getattr(mod, name + "_ref")
 
         def shadow(*a, kern=kern, ref=ref, name=name, **k):
             out = kern(*a, **k)
-            want = ref(*a, **k).float()
-            d = float((out.float() - want).abs().max())
-            if name == "q4_matmul":          # relative to max|ref|
-                d /= float(want.abs().max())
+            want = ref(*a, **k)
+            if name == "ssd_scan":           # (y, h): ratio to phase 2's bound
+                dtype = str(out[0].dtype).replace("torch.", "")
+                d = max(ssd_within(o, w, dtype) for o, w in zip(out, want))
+            else:
+                want = want.float()
+                d = float((out.float() - want).abs().max())
+                if name == "q4_matmul":      # relative to max|ref|
+                    d /= float(want.abs().max())
             errs[name] = max(errs.get(name, 0.0), d)
             return out
 
@@ -888,13 +1066,22 @@ STREAM_ARGS = ["--arch", "qwen2.5-14b", "--batch", "8", "--ctx", "640",
 PROJECTIONS = 7          # wq, wk, wv, wo, w_gate, w_up, w_down per layer
 
 
-def same_quant_on_cpu(torch, tree, qtree) -> int:
+#: the ssm block's projections: in_proj and out_proj
+SSM_PROJECTIONS = 2
+
+
+def projections(cfg) -> int:
+    """B3 launches a layer a pass: the block's q4 projections."""
+    return SSM_PROJECTIONS if cfg.family == "ssm" else PROJECTIONS
+
+
+def same_quant_on_cpu(torch, cfg, tree, qtree) -> int:
     """Quantize layer 0's matmul weights again on the CPU: the packed
     bytes and scale bits must equal the card's. Returns the leaves held."""
     from repro_torch.quant import QuantizedTensor, quantize_q4
 
     n = 0
-    for sub in ("attn", "ffn"):
+    for sub in [k for k, v in qtree.items() if isinstance(v, dict)]:
         for key, q in qtree[sub].items():
             if not isinstance(q, QuantizedTensor):
                 continue
@@ -908,9 +1095,9 @@ def same_quant_on_cpu(torch, tree, qtree) -> int:
                     f"from the CPU's in {n_packed} packed bytes and "
                     f"{n_scale} scales")
             n += 1
-    if n != PROJECTIONS:
+    if n != projections(cfg):
         raise AssertionError(f"layer 0: {n} quantized projections, wanted "
-                             f"{PROJECTIONS}")
+                             f"{projections(cfg)}")
     return n
 
 
@@ -937,7 +1124,7 @@ def q4_model(torch, cfg, dtype, seed):
             raise AssertionError(f"layer {i}: left unquantized: {skipped}")
         qtree = map_tree(lambda t: t[0], q["blocks"])
         if i == 0:
-            n = same_quant_on_cpu(torch, tree, qtree)
+            n = same_quant_on_cpu(torch, cfg, tree, qtree)
             log(f"  layer 0: the card's packed bytes and scale bits equal "
                 f"the CPU's for all {n} projections")
         layers.append(qtree)
@@ -948,6 +1135,11 @@ def q4_model(torch, cfg, dtype, seed):
 
 def layer_params(cfg):
     """(matmul weights, other parameters) of one block."""
+    if cfg.family == "ssm":
+        d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+        nh = di // cfg.ssm_head_dim
+        return (d * (2 * di + 2 * N + nh) + di * d,
+                cfg.conv_width * (di + 2 * N) + 3 * nh + di + d)
     d, f = cfg.d_model, cfg.d_ff
     hq, hk = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
     bias = hq + 2 * hk if cfg.qkv_bias else 0
@@ -1085,19 +1277,17 @@ def serve_streamed_full(torch, ops, serve):
     return counts["streamed"]
 
 
-def traced_stream_run(torch, source, cfg, reqs, args):
-    """The layer-wise engine as ``serve.serve_layerwise`` builds it, keeping
-    the logits behind every greedy token by (uid, token index): the
-    prefill's last row for token 0, the decode step's row after that."""
-    from repro_torch.models import init_cache
+def logged_run(torch, eng, prefill_name, cache, reqs):
+    """Run an engine to completion, keeping the logits behind every greedy
+    token by (uid, token index): the last prompt row of the
+    ``models.model`` prefill the engine calls (``prefill_name``) for token
+    0, the decode step's row after that. Returns the streams, the logits,
+    the finished requests, the decode steps and the wall time."""
     from repro_torch.models import model as M
-    from repro_torch.runtime.streaming import make_streaming_engine
 
-    eng = make_streaming_engine(source, cfg, args.batch, args.ctx,
-                                cache_dtype=torch.float32,
-                                device=args.device)
     logits, admitting = {}, []
-    admit, decode, prefill = eng.admit, eng.decode, M.prefill_layerwise
+    admit, decode = eng.admit, eng.decode
+    prefill = getattr(M, prefill_name)
 
     def admit_(cache, tokens, uid, *a, **k):
         admitting.append(uid)
@@ -1115,17 +1305,39 @@ def traced_stream_run(torch, source, cfg, reqs, args):
             logits[(st.uid, len(st.generated))] = out[0][i, 0].float().clone()
         return out
 
-    eng.admit, eng.decode, M.prefill_layerwise = admit_, decode_, prefill_
+    eng.admit, eng.decode = admit_, decode_
+    setattr(M, prefill_name, prefill_)
     try:
-        fin, _ = eng.run(init_cache(cfg, args.batch, args.ctx,
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin, steps = eng.run(cache, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(M, prefill_name, prefill)
+    check_served({"finished": fin, "rejected": eng.rejected,
+                  "requests": reqs})
+    return {"streams": {f.uid: f.tokens for f in fin}, "logits": logits,
+            "finished": fin, "steps": steps, "wall": wall}
+
+
+def traced_stream_run(torch, source, cfg, reqs, args):
+    """The layer-wise engine as ``serve.serve_layerwise`` builds it over an
+    f32 cache, logged (``logged_run``); returns (streams, logits)."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.streaming import make_streaming_engine
+
+    eng = make_streaming_engine(source, cfg, args.batch, args.ctx,
+                                cache_dtype=torch.float32,
+                                device=args.device)
+    try:
+        run = logged_run(torch, eng, "prefill_layerwise",
+                         init_cache(cfg, args.batch, args.ctx,
                                     dtype=torch.float32, device=args.device),
                          reqs)
     finally:
-        M.prefill_layerwise = prefill
         source.close()
-    check_served({"finished": fin, "rejected": eng.rejected,
-                  "requests": reqs})
-    return {f.uid: f.tokens for f in fin}, logits
+    return run["streams"], run["logits"]
 
 
 def q4_parity(torch, ops, serve) -> None:
@@ -1696,6 +1908,248 @@ def spec_parity(torch, ops, serve) -> None:
 
 
 # --------------------------------------------------------------------------- #
+#  phases 9 and 10: the ssm family (mamba2-780m)
+# --------------------------------------------------------------------------- #
+
+SSM_ARGS = ["--arch", "mamba2-780m", "--batch", "8", "--ctx", "2080",
+            "--requests", "16", "--prompt-len", "200", "--prompt-len-max",
+            "2001", "--new-tokens", "32", "--seed", "0", "--stream-window",
+            "4", "--store-quant", "q4"]
+
+
+def near_tie_only(label, kern, plain, bound):
+    """Phase 7's rule for two bf16 runs that sum in another order: up to
+    each stream's first difference the logits agree to ``bound`` of
+    max|ref|, and where streams split the reference's top-2 gap is under
+    twice the two runs' logit difference there (no flip is possible
+    otherwise). Returns (worst, streams equal, splits)."""
+    worst, n_equal, splits = compare_runs(kern, plain)
+    if worst >= bound:
+        raise AssertionError(f"{label}: logits differ by {worst} >= "
+                             f"{bound} of max|ref|")
+    for uid, n, gap, rel in splits:
+        if gap > 2 * rel:
+            raise AssertionError(f"{label}: uid {uid} token {n} splits where "
+                                 f"the top-2 gap {gap} is not under twice "
+                                 f"the logit difference {rel}")
+    return worst, n_equal, splits
+
+
+def ssm_summary(serve, name, run, stats, resident_bytes):
+    """``stream_summary`` of a ``logged_run``."""
+    stream_summary(name, {"stats": stats, "steps": run["steps"],
+                          "wall_s": run["wall"],
+                          "summary": serve._p50_summary(run["finished"],
+                                                        run["wall"])},
+                   resident_bytes)
+
+
+def serve_ssm_full(torch, ops, serve):
+    """Phase 9; returns the launch counts of the resident kernel run (the
+    main path)."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.engine import make_dense_engine
+    from repro_torch.runtime.paramstore import ParamStore, ResidentSource
+    from repro_torch.runtime.streaming import (StreamingParamSource,
+                                               make_streaming_engine)
+
+    args = serve.parse_args(SSM_ARGS + ["--dtype", "bf16"])
+    bf16, Bn, ctx = torch.bfloat16, args.batch, args.ctx
+    t0 = time.perf_counter()
+    cfg, params = serve.build_model(args)     # full width, all 48 layers
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, {cfg.d_inner // cfg.ssm_head_dim} SSD heads of P "
+        f"{cfg.ssm_head_dim}, N {cfg.ssm_state}, vocab {cfg.vocab}, tied; "
+        f"{n / 1e9:.3f} B params in bf16 on the card, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = serve.make_requests(cfg, args)
+    lens = sorted(len(r.prompt) for r in reqs)
+    log(f"  {len(reqs)} requests, prompts {lens[0]}-{lens[-1]} tokens "
+        f"(sum {sum(lens)}), {args.new_tokens} new tokens, {Bn} slots, ctx "
+        f"{ctx}")
+    runs, counts = {}, {}
+    for name in ("kernels", "plain"):
+        ops.use_kernels(name == "kernels")
+        ops.reset_launch_counts()
+        try:
+            eng = make_dense_engine(params, cfg, Bn, ctx, cache_dtype=bf16)
+            runs[name] = logged_run(torch, eng, "prefill", init_cache(
+                cfg, Bn, ctx, dtype=bf16, device="cuda"), reqs)
+        finally:
+            ops.use_kernels(True)
+        counts[name] = ops.launch_counts()
+        want = {k: 0 for k in counts[name]}
+        if name == "kernels":
+            want["ssd_scan"] = cfg.n_layers * len(reqs)
+        if counts[name] != want:
+            raise AssertionError(f"dense engine, {name}: launches "
+                                 f"{counts[name]}, wanted {want} "
+                                 f"({cfg.n_layers} B6 launches a prefill)")
+        ssm_summary(serve, f"dense engine, resident bf16, {name}",
+                    runs[name], None, 2 * n)
+    log(f"  kernel run: {counts['kernels']['ssd_scan']} B6 launches = "
+        f"{len(reqs)} prefills x {cfg.n_layers} layers, nothing else")
+    worst, n_equal, splits = near_tie_only(
+        "kernels against use_kernels(False)",
+        (runs["kernels"]["streams"], runs["kernels"]["logits"]),
+        (runs["plain"]["streams"], runs["plain"]["logits"]), SPEC_BF16_REL)
+    log(f"  kernels against use_kernels(False): streams equal for "
+        f"{n_equal} of {len(reqs)}, logits within {worst:.3g} of max|ref| "
+        f"up to each stream's first difference; splits (uid, token, top-2 "
+        f"gap, logit difference there): {splits}")
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sdir, tree = write_store(torch, cfg, bf16, seed=3)
+    streams = {}
+    try:
+        store = ParamStore(sdir)
+        nbytes = store.layer_nbytes
+        raw = sum(layer_params(cfg))
+        log(f"  store: {store.quant_format}, manifest v{store.version}, "
+            f"{nbytes / 1e6:.3f} MB/layer (the bf16 layer: "
+            f"{2 * raw / 1e6:.3f} MB, ratio {nbytes / (2 * raw):.3f}); "
+            f"{nbytes * store.n_layers / 1e9:.3f} GB")
+        store.close()
+        for name in ("resident", "streamed"):
+            src = ResidentSource(tree) if name == "resident" else \
+                StreamingParamSource(ParamStore(sdir),
+                                     window=args.stream_window)
+            ops.reset_launch_counts()
+            try:
+                eng = make_streaming_engine(src, cfg, Bn, ctx,
+                                            cache_dtype=bf16)
+                run = logged_run(torch, eng, "prefill_layerwise", init_cache(
+                    cfg, Bn, ctx, dtype=bf16, device="cuda"), reqs)
+                st = eng.streaming_stats()
+            finally:
+                src.close()
+            got = ops.launch_counts()
+            passes = len(reqs) + run["steps"]
+            want = {k: 0 for k in got}
+            want["ssd_scan"] = cfg.n_layers * len(reqs)
+            want["q4_matmul"] = SSM_PROJECTIONS * cfg.n_layers * passes
+            if got != want:
+                raise AssertionError(
+                    f"q4 {name}: launches {got}, wanted {want} ({passes} "
+                    f"passes x {cfg.n_layers} layers x {SSM_PROJECTIONS} "
+                    f"of B3, {cfg.n_layers} of B6 a prefill)")
+            ssm_summary(serve, f"layer-wise engine, q4 {name}", run, st,
+                        nbytes * cfg.n_layers)
+            log(f"  q4 {name}: {want['q4_matmul']} B3 launches = {passes} "
+                f"passes x {cfg.n_layers} layers x {SSM_PROJECTIONS}; "
+                f"{want['ssd_scan']} B6 launches")
+            if st is not None:
+                if st.peak_resident_bytes > args.stream_window * nbytes:
+                    raise AssertionError(
+                        f"streamed: peak resident {st.peak_resident_bytes} "
+                        f"B > {args.stream_window} layers of {nbytes} B")
+                log(f"  streamed: peak resident weights "
+                    f"{st.peak_resident_bytes} B = "
+                    f"{st.peak_resident_bytes / nbytes:.2f} layers of "
+                    f"{args.stream_window} allowed; {len(st.events)} layer "
+                    f"reads, median {st.median_layer_read_s * 1e3:.3f} ms")
+            streams[name] = run["streams"]
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    if streams["streamed"] != streams["resident"]:
+        bad = [u for u, t in streams["resident"].items()
+               if streams["streamed"].get(u) != t]
+        raise AssertionError(f"q4 streamed tokens differ from the resident "
+                             f"run's for uids {bad}")
+    log(f"  q4 streamed and resident tokens equal for {len(reqs)} requests")
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["kernels"]
+
+
+def ssm_parity(torch, ops, serve) -> None:
+    """Phase 10, 4 layers at full width, f32 and an f32 cache: the dense
+    engine and the streamed q4 engine, kernels (every launch held against
+    its plain version on the same inputs) against ``use_kernels(False)``:
+    logits within LOGIT_REL of max|ref|, tokens equal."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.engine import make_dense_engine
+    from repro_torch.runtime.paramstore import ParamStore, ResidentSource
+    from repro_torch.runtime.streaming import (StreamingParamSource,
+                                               make_streaming_engine)
+
+    args = serve.parse_args(SSM_ARGS + ["--dtype", "f32", "--layers", "4"])
+    f32, Bn, ctx = torch.float32, args.batch, args.ctx
+    cfg, params = serve.build_model(args)
+    reqs = serve.make_requests(cfg, args)
+    sdir, tree = write_store(torch, cfg, f32, seed=4)
+
+    def dense():
+        return make_dense_engine(params, cfg, Bn, ctx, cache_dtype=f32), \
+            "prefill"
+
+    def streamed():
+        src = StreamingParamSource(ParamStore(sdir), window=2)
+        return make_streaming_engine(src, cfg, Bn, ctx, cache_dtype=f32), \
+            "prefill_layerwise"
+
+    def resident():
+        return make_streaming_engine(ResidentSource(tree), cfg, Bn, ctx,
+                                     cache_dtype=f32), "prefill_layerwise"
+
+    def run(build):
+        eng, fn = build()
+        try:
+            return logged_run(torch, eng, fn, init_cache(
+                cfg, Bn, ctx, dtype=f32, device="cuda"), reqs)
+        finally:
+            if eng.source is not None:
+                eng.source.close()
+
+    try:
+        for label, kern_build, plain_build, want in (
+                ("dense engine", dense, dense, ["ssd_scan"]),
+                ("streamed q4 engine", streamed, resident,
+                 ["q4_matmul", "ssd_scan"])):
+            errs = {}
+            ops.reset_launch_counts()
+            with substituted(ops, "shadow", errs):
+                kern = run(kern_build)
+            n_b6 = ops.launch_counts()["ssd_scan"]
+            ops.use_kernels(False)
+            try:
+                plain = run(plain_build)
+            finally:
+                ops.use_kernels(True)
+            if sorted(errs) != want or errs["ssd_scan"] > 1.0 \
+                    or errs.get("q4_matmul", 0.0) > Q4_TOL \
+                    or n_b6 != cfg.n_layers * len(reqs):
+                raise AssertionError(
+                    f"{label}: {n_b6} B6 launches (wanted {cfg.n_layers} x "
+                    f"{len(reqs)}); against their plain versions on the "
+                    f"same inputs: {errs} (B6 ratio to its tolerance <= 1, "
+                    f"B3 max|d|/max|ref| <= {Q4_TOL}; wanted {want})")
+            worst, n_equal, splits = compare_runs(
+                (kern["streams"], kern["logits"]),
+                (plain["streams"], plain["logits"]))
+            log(f"  {label}: {n_b6} B6 launches, each within "
+                f"{errs['ssd_scan']:.3g}x its tolerance of its plain "
+                f"version on the same inputs {errs}; logits within "
+                f"{worst:.3g} of max|ref| of the use_kernels(False) run; "
+                f"streams equal for {n_equal} of {len(reqs)}; splits: "
+                f"{splits}")
+            if worst >= LOGIT_REL or n_equal != len(reqs):
+                raise AssertionError(f"{label}: kernel and plain-version runs"
+                                     f" disagree (bound {LOGIT_REL}, streams"
+                                     f" all equal)")
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    del params, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
 
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
@@ -1742,6 +2196,7 @@ def main() -> int:
     rows["q4_matmul"] = check_q4(torch, timer, np.random.default_rng(1))
     rows["flash_verify"] = check_flash(torch, timer,
                                        np.random.default_rng(2))
+    rows["ssd_scan"] = check_ssd(torch, timer, np.random.default_rng(3))
     log(f"  phase 2 done at {time.perf_counter() - t_start:.0f} s")
 
     log("== phase 3: serve qwen2.5-14b at full width, 48 layers, bf16")
@@ -1773,8 +2228,19 @@ def main() -> int:
     spec_parity(torch, ops, serve)
     log(f"  phase 8 done at {time.perf_counter() - t_start:.0f} s")
 
+    log("== phase 9: serve mamba2-780m at full width, 48 layers, bf16: "
+        "dense engine, then streamed q4")
+    ssm_counts = serve_ssm_full(torch, ops, serve)
+    log(f"  main-path launches: {ssm_counts}")
+    log(f"  phase 9 done at {time.perf_counter() - t_start:.0f} s")
+
+    log("== phase 10: ssm parity, 4 layers full width f32")
+    ssm_parity(torch, ops, serve)
+    log(f"  phase 10 done at {time.perf_counter() - t_start:.0f} s")
+
     counts["q4_matmul"] = stream_counts["q4_matmul"]
     counts["flash_verify"] = spec_counts["flash_verify"]
+    counts["ssd_scan"] = ssm_counts["ssd_scan"]
     for name, row in rows.items():
         row["launches"] = counts[name]
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s on")

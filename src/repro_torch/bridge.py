@@ -3,17 +3,19 @@ model into the same tree layout.
 
 The caller converts a JAX tree to numpy first
 (``jax.tree.map(np.asarray, params)``), so this module never imports JAX.
-The tree is ``embed``, ``final_norm``, optional ``unembed`` and
-``blocks.{attn_norm, attn.{wq,wk,wv,wo[,bq,bk,bv]}, ffn_norm,
-ffn.{w_gate,w_up,w_down}}``, each block leaf stacked over the L layers.
-Weights keep their (in, out) layout, so ``x @ w`` is the same product.
+The tree is ``embed``, ``final_norm``, optional ``unembed`` and, for the
+dense family, ``blocks.{attn_norm, attn.{wq,wk,wv,wo[,bq,bk,bv]},
+ffn_norm, ffn.{w_gate,w_up,w_down}}``, for the ssm family
+``blocks.{norm, ssd.{in_proj, conv_w, dt_bias, a_log, d_skip, norm,
+out_proj}}``, each block leaf stacked over the L layers. Weights keep
+their (in, out) layout, so ``x @ w`` is the same product.
 
 A quantized leaf (the JAX ``QuantizedTensor`` with numpy ``packed`` int8
 and ``scale`` bf16 children, as ``quant.quantize_tree`` or
 ``runtime.serve.quantize_ring_params`` make it) becomes the port's
 ``QuantizedTensor``; its bf16 scale bits are carried as raw 16-bit words.
-``block_from_tree`` builds one ``DenseBlock`` from a per-layer tree, the
-form ``ParamSource.layer(i)`` returns.
+``block_from_tree`` builds one ``DenseBlock`` or ``SSDBlock`` from a
+per-layer tree, the form ``ParamSource.layer(i)`` returns.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .models.model import GLU, Attention, DenseBlock, DenseModel
+from .models.model import (GLU, SSD, SSD_KEYS, Attention, DenseBlock,
+                           DenseModel, SSDBlock)
 from .quant.grouped import QuantizedTensor, map_tree
 from .runtime.paramstore import stack_layers
 
@@ -57,9 +60,12 @@ def tree_from_numpy(tree: Dict[str, Any], device="cuda",
                         device=device)
 
 
-def block_from_tree(p: Dict[str, Any]) -> DenseBlock:
-    """One ``DenseBlock`` from a per-layer tree (no layer axis); leaves
-    are used as they are, views included."""
+def block_from_tree(p: Dict[str, Any]):
+    """One ``DenseBlock`` (or ``SSDBlock``, for a tree with ``ssd``) from a
+    per-layer tree (no layer axis); leaves are used as they are, views
+    included."""
+    if "ssd" in p:
+        return SSDBlock(p["norm"], SSD(*(p["ssd"][k] for k in SSD_KEYS)))
     attn, ffn = p["attn"], p["ffn"]
     bias = [attn[k] for k in ("bq", "bk", "bv")] if "bq" in attn else []
     return DenseBlock(
@@ -73,15 +79,19 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda",
                       dtype=torch.float32) -> DenseModel:
     t = tree_from_numpy(tree, device, dtype)
     blocks = t["blocks"]
-    n_layers = blocks["attn_norm"].shape[0]
+    n_layers = blocks["norm" if "ssd" in blocks else "attn_norm"].shape[0]
     layers = [block_from_tree(map_tree(lambda a: a[i], blocks))
               for i in range(n_layers)]
     return DenseModel(t["embed"], t["final_norm"], layers, t.get("unembed"))
 
 
-def tree_from_block(block: DenseBlock) -> Dict[str, Any]:
+def tree_from_block(block) -> Dict[str, Any]:
     """One block as its per-layer tree (the inverse of
     ``block_from_tree``)."""
+    if isinstance(block, SSDBlock):
+        return {"norm": block.norm.detach(),
+                "ssd": {k: getattr(block.ssd, k).detach()
+                        for k in SSD_KEYS}}
     out = {"attn_norm": block.attn_norm.detach(),
            "ffn_norm": block.ffn_norm.detach()}
     for sub, keys in _BLOCK_KEYS.items():

@@ -24,7 +24,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> CUDA source
 SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
            "q4_matmul": _CSRC / "q4_matmul.cu",
-           "flash_decode": _CSRC / "flash_decode.cu"}
+           "flash_decode": _CSRC / "flash_decode.cu",
+           "ssd_scan": _CSRC / "ssd_scan.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES: Dict[str, int] = {"paged_verify": 0, "paged_prefill": 0,
                             "paged_verify_quant": 0, "q4_matmul": 0,
-                            "flash_verify": 0}
+                            "flash_verify": 0, "ssd_scan": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -111,6 +112,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "q4_matmul":
         lib.q4_matmul.argtypes = [P, P, P, P, I, I, I, I, I, P]
         lib.q4_matmul.restype = I
+        return
+    if name == "ssd_scan":
+        lib.ssd_scan.argtypes = [P] * 7 + [I] * 7 + [L] * 10 + [P]
+        lib.ssd_scan.restype = I
+        lib.ssd_scan_smem_bytes.argtypes = [I, I, I]
+        lib.ssd_scan_smem_bytes.restype = L
         return
     if name == "flash_decode":
         lib.flash_verify.argtypes = [P] * 5 + [I] * 9 + [F] + [L] * 6 + [P]

@@ -1,5 +1,5 @@
-"""Dispatch of the port's kernels (paged attention, contiguous-cache
-attention, q4 matmul).
+"""Dispatch of the port's kernels: paged attention (B1, B2, B4),
+contiguous-cache attention (B5), the q4 matmul (B3) and the SSD scan (B6).
 
 A tensor on the CPU goes to the kernel's plain torch version; a CUDA
 tensor launches the CUDA kernel, which raises when it cannot run — there
@@ -8,8 +8,8 @@ and ``chip_smoke.py`` compare the two), mirroring ``repro.kernels.ops``.
 The model path asks ``kernels_active`` once per attention call, in
 ``models.layers._paged_attention`` and ``models.layers._dense_attention``,
 and calls the kernel wrappers itself (``layers.qmm`` goes through
-``q4_matmul`` below); the functions below route a direct call of one
-kernel.
+``q4_matmul`` below, ``layers.ssd_block``'s zero-state prefill through
+``ssd_scan``); the functions below route a direct call of one kernel.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from . import flash_decode as _fd
 from . import paged_decode as _pd
 from . import paged_prefill as _pp
 from . import q4_matmul as _q4
+from . import ssd_scan as _ssd
 
 _FORCE_REF = False
 
@@ -50,6 +51,12 @@ def q4_matmul(x, packed, scale, *, group: int = 64):
     if not kernels_active(x):
         return _q4.q4_matmul_ref(x, packed, scale, group=group)
     return _q4.q4_matmul(x, packed, scale, group=group)
+
+
+def ssd_scan(x, dt, A, Bmat, Cmat, *, chunk: int = 128):
+    if not kernels_active(x):
+        return _ssd.ssd_scan_ref(x, dt, A, Bmat, Cmat, chunk=chunk)
+    return _ssd.ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk)
 
 
 def flash_verify(q, k, v, kv_len, *, window: Optional[int] = None):

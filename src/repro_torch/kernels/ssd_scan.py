@@ -1,0 +1,104 @@
+"""Mamba-2 SSD chunked scan from the zero state: the CUDA kernel B6 and its
+plain torch versions.
+
+Counterpart of ``repro/kernels/ssd_scan.py`` (Pallas). The kernel lives in
+``csrc/ssd_scan.cu``; the wrapper checks what it is given, allocates the
+outputs and launches on the current stream without synchronising. It takes
+CUDA tensors only — ``kernels.ops`` routes CPU tensors to the plain
+version beside it. Unlike the Pallas wrapper it takes any S (the last
+chunk is ragged) and reads x, B and C through their strides, in the
+layout ``models.layers.ssd_block`` leaves them (views of one conv output).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .paged_decode import SMEM_LIMIT, _code
+
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bmat: torch.Tensor, Cmat: torch.Tensor, *, chunk: int = 128
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6. x: (B, S, nh, P) f32/bf16; dt: (B, S, nh) f32; A: (nh,) f32
+    (<= 0); Bmat/Cmat: (B, S, N) in x's dtype. Each may be a strided view
+    with a contiguous last dim. Returns (y (B, S, nh, P), h_final
+    (B, nh, P, N)), both contiguous in x.dtype: the scan from the zero
+    state, summed in f32 chunk by chunk (``chunk`` positions at a time)."""
+    name = "ssd_scan"
+    for t in (x, dt, A, Bmat, Cmat):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name}: all tensors must be on one CUDA "
+                             f"device (got {t.device}, x on {x.device})")
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bmat.dim() != 3:
+        raise ValueError(f"{name}: x must be (B, S, nh, P), dt (B, S, nh), "
+                         f"A (nh,) and B/C (B, S, N)")
+    Bsz, S, nh, P = x.shape
+    N = Bmat.shape[-1]
+    if dt.shape != (Bsz, S, nh) or A.shape != (nh,) \
+            or Bmat.shape != (Bsz, S, N) or Cmat.shape != Bmat.shape:
+        raise ValueError(f"{name}: dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, B {tuple(Bmat.shape)}, C "
+                         f"{tuple(Cmat.shape)} do not match x "
+                         f"{tuple(x.shape)}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"{name}: dt and A must be float32")
+    xc = _code(x, _FLOATS, f"{name} x")
+    if Bmat.dtype != x.dtype or Cmat.dtype != x.dtype:
+        raise TypeError(f"{name}: B and C must be in x's dtype {x.dtype}")
+    if x.stride(-1) != 1 or Bmat.stride(-1) != 1 or Cmat.stride(-1) != 1 \
+            or not A.is_contiguous():
+        raise ValueError(f"{name}: x, B and C need a contiguous last dim, "
+                         f"A contiguous")
+    if Bsz == 0 or S == 0 or nh == 0 or chunk < 1:
+        raise ValueError(f"{name}: empty batch, sequence or heads, or "
+                         f"chunk < 1")
+    lib = _build.load(name)
+    smem = lib.ssd_scan_smem_bytes(P, N, chunk)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {smem} B of shared memory per CTA "
+                         f"(P={P}, N={N}, chunk={chunk}); limit "
+                         f"{SMEM_LIMIT}")
+    y = torch.empty((Bsz, S, nh, P), dtype=x.dtype, device=x.device)
+    h = torch.empty((Bsz, nh, P, N), dtype=x.dtype, device=x.device)
+    code = lib.ssd_scan(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
+        Cmat.data_ptr(), y.data_ptr(), h.data_ptr(), xc, Bsz, S, nh, P, N,
+        chunk, *x.stride()[:3], *dt.stride(), *Bmat.stride()[:2],
+        *Cmat.stride()[:2], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, name, name)
+    _build.LAUNCHES[name] += 1
+    return y, h
+
+
+# --------------------------------------------------------------------------- #
+#  plain versions
+# --------------------------------------------------------------------------- #
+
+def ssd_scan_ref(x, dt, A, Bmat, Cmat, *, chunk: int = 128
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain B6: the model layer's ``ssd_chunked`` from the zero state."""
+    from ..models.layers import ssd_chunked
+    return ssd_chunked(x, dt, A, Bmat, Cmat, chunk=chunk)
+
+
+def ssd_sequential_ref(x, dt, A, Bmat, Cmat
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The O(S) recurrence h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T,
+    y_t = C_t . h_t, in f32 from the zero state: ground truth for both
+    SSD paths."""
+    Bsz, S, nh, P = x.shape
+    N = Bmat.shape[-1]
+    A = A.float()
+    h = torch.zeros((Bsz, nh, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dtt = dt[:, t].float()
+        h = h * torch.exp(dtt * A[None])[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dtt, x[:, t].float(), Bmat[:, t].float())
+        ys.append(torch.einsum("bn,bhpn->bhp", Cmat[:, t].float(), h))
+    return torch.stack(ys, dim=1).to(x.dtype), h.to(x.dtype)

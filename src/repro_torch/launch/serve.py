@@ -1,14 +1,18 @@
 """Serving driver of the port: ``python -m repro_torch.launch.serve``.
 
-Builds a dense model with random weights from ``--seed`` (``--smoke``: the
-reduced config) and serves ``RequestGenerator`` requests, printing TTFT,
-TPOT, tokens/s and the kernel launch counts. Runs on the card unless
-``--device cpu``.
+Builds a dense GQA or ssm (``--arch mamba2-780m``) model with random
+weights from ``--seed`` (``--smoke``: the reduced config) and serves
+``RequestGenerator`` requests, printing TTFT, TPOT, tokens/s and the
+kernel launch counts. Runs on the card unless ``--device cpu``.
 
-Paged (the default): the paged continuous batcher
+Paged (the default for dense models): the paged continuous batcher
 (``runtime.kvcache.make_paged_engine``), with the KV high-water mark;
 ``--check-dense`` also runs the dense-cache engine on the same requests and
-exits nonzero on any token mismatch.
+exits nonzero on any token mismatch. An ssm model has no per-token pages:
+it is served through the dense-cache engine
+(``runtime.engine.make_dense_engine``), and the paged-only flags
+(``--check-dense``, ``--prefill-chunk``, ``--kv-quant-kernel``) are an
+argument error for it.
 
 Streamed (``--stream-window W``, W > 0): the weights go to a layer store
 in a temporary directory (packed q4 with ``--store-quant q4``, deleted at
@@ -98,6 +102,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     if not args.stream_window and (args.check_resident
                                    or args.store_quant != "none"):
         ap.error("--check-resident and --store-quant need --stream-window")
+    if get_config(args.arch).family == "ssm" and (
+            args.check_dense or args.prefill_chunk or args.kv_quant_kernel):
+        ap.error(f"{args.arch} keeps a recurrent state, not KV pages: it "
+                 f"takes neither --check-dense, --prefill-chunk nor "
+                 f"--kv-quant-kernel")
     return args
 
 
@@ -153,6 +162,32 @@ def serve_paged(params, cfg, reqs, args: argparse.Namespace) -> Dict:
     wall = clock() - t0
     return {"finished": fin, "rejected": eng.rejected, "steps": steps,
             "wall_s": wall, "kv": kv.stats()}
+
+
+def serve_dense(params, cfg, reqs, args: argparse.Namespace) -> Dict:
+    """Serve ``reqs`` through the dense-cache engine (the ssm family's
+    resident path); returns the streams and what was measured."""
+    device = torch.device(args.device)
+    dtype = DTYPES[args.dtype]
+    eng = make_dense_engine(params, cfg, args.batch, args.ctx,
+                            cache_dtype=dtype, device=device)
+    cache = init_cache(cfg, args.batch, args.ctx, dtype=dtype, device=device)
+    _sync(device)
+    t0 = clock()
+    fin, steps = eng.run(cache, reqs)
+    _sync(device)
+    wall = clock() - t0
+    summ = _p50_summary(fin, wall)
+    print(f"dense-cache serve on {args.device} ({args.dtype}): "
+          f"{len(fin)} requests through {args.batch} slots, "
+          f"{sum(len(f.tokens) for f in fin)} tokens in {wall:.3f} s "
+          f"({steps} steps)")
+    print(f"  TTFT p50 {summ['ttft_p50_s'] * 1e3:.2f} ms, TPOT p50 "
+          f"{summ['tpot_p50_s'] * 1e3:.2f} ms, {summ['tokens_per_s']:.1f} "
+          f"tokens/s")
+    print(f"  kernel launches {ops.launch_counts()}")
+    return {"finished": fin, "rejected": eng.rejected, "steps": steps,
+            "wall_s": wall, "summary": summ}
 
 
 def _p50_summary(fin, wall_s: float) -> Dict[str, float]:
@@ -272,6 +307,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     reqs = make_requests(cfg, args)
     if args.stream_window:
         res = serve_streamed(params, cfg, reqs, args)
+        if res["rejected"]:
+            raise SystemExit(f"{len(res['rejected'])} requests shed: "
+                             f"{res['rejected'][0].reason}")
+        return res
+    if cfg.family == "ssm":
+        res = serve_dense(params, cfg, reqs, args)
         if res["rejected"]:
             raise SystemExit(f"{len(res['rejected'])} requests shed: "
                              f"{res['rejected'][0].reason}")

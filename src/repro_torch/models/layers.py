@@ -502,3 +502,131 @@ def attn_block_paged(p, cfg: ModelConfig, x: torch.Tensor, positions,
 
 def glu_ffn(p, x: torch.Tensor) -> torch.Tensor:
     return qmm(swish(qmm(x, p.w_gate)) * qmm(x, p.w_up), p.w_down)
+
+
+# --------------------------------------------------------------------------- #
+#  Mamba-2 SSD block
+# --------------------------------------------------------------------------- #
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                   state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x: (B, S, C), w: (K, C).
+
+    Returns (y, new_state) where state is the trailing K-1 inputs.
+    """
+    K = w.shape[0]
+    B, S, C = x.shape
+    if state is None:
+        state = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)          # (B, S+K-1, C)
+    w = w.to(x.dtype)
+    y = sum(xp[:, i:i + S] * w[i] for i in range(K))
+    new_state = xp[:, S:] if K > 1 else xp[:, :0]
+    return y, new_state
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bmat: torch.Tensor, Cmat: torch.Tensor,
+                h0: Optional[torch.Tensor] = None, chunk: int = 128
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """State-space-duality chunked scan (Mamba-2 alg. 1), plain torch.
+
+    x: (B, S, nh, P); dt: (B, S, nh); A: (nh,) <= 0; Bmat/Cmat: (B, S, N);
+    h0: (B, nh, P, N) or None (the zero state). Returns (y (B, S, nh, P),
+    h_final (B, nh, P, N)), both in x.dtype. S is zero-padded to a multiple
+    of ``chunk`` (padded positions have dt = 0, so they move nothing).
+    Every product and sum is in f32, as in the TPU kernel B6; the JAX
+    function keeps C.B in the inputs' dtype, which only bf16 inputs see.
+    The reference's dt-weighted ``GB`` product is dead code there and is
+    not formed here: it would be a (B, nc, chunk, nh, P, N) f32 tensor.
+    """
+    Bsz, S, nh, P = x.shape
+    N = Bmat.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    f = torch.nn.functional.pad
+    xr = f(x.float(), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, chunk, nh, P)
+    dtr = f(dt.float(), (0, 0, 0, pad)).reshape(Bsz, nc, chunk, nh)
+    Br = f(Bmat.float(), (0, 0, 0, pad)).reshape(Bsz, nc, chunk, N)
+    Cr = f(Cmat.float(), (0, 0, 0, pad)).reshape(Bsz, nc, chunk, N)
+    cum = torch.cumsum(dtr * A.float(), dim=2)             # (B, nc, c, nh)
+    seg_total = cum[:, :, -1]                               # (B, nc, nh)
+
+    # intra-chunk: L[t, s] = exp(cum[t] - cum[s]) for t >= s; the masked
+    # (t < s) differences are positive and overflow, so they become -inf
+    # BEFORE exp
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,t,s,nh)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()
+    Lmat = torch.exp(diff.masked_fill(~tri[None, None, :, :, None],
+                                      float("-inf")))
+    scores = torch.einsum("bctn,bcsn->bcts", Cr, Br)
+    w = scores[..., None] * Lmat * dtr[:, :, None, :, :]    # (B,nc,t,s,nh)
+    y_intra = torch.einsum("bctsh,bcshp->bcthp", w, xr)
+
+    # inter-chunk: chunk state sum_s exp(cum_end - cum_s) dt_s x_s B_s^T
+    decay_to_end = torch.exp(seg_total[:, :, None, :] - cum)
+    chunk_state = torch.einsum("bcshp,bcsn->bchpn",
+                               xr * (decay_to_end * dtr)[..., None], Br)
+    h = torch.zeros((Bsz, nh, P, N), dtype=torch.float32,
+                    device=x.device) if h0 is None else h0.float()
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * torch.exp(seg_total[:, c])[:, :, None, None] \
+            + chunk_state[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                     # (B,nc,nh,P,N)
+    y_inter = torch.einsum("bctn,bchpn->bcthp", Cr, h_prev) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, nc * chunk, nh, P)[:, :S]
+    return y.to(x.dtype), h.to(x.dtype)
+
+
+def ssd_block(p, cfg: ModelConfig, x: torch.Tensor, *,
+              cache: Optional[Dict] = None, decode: bool = False,
+              fresh: bool = False) -> torch.Tensor:
+    """Mamba-2 block: in-proj -> conv -> SSD -> gated norm -> out-proj.
+
+    cache: {"conv": (B, K-1, di+2N), "state": (B, nh, P, N)}, written in
+    place. A prefill from the zero state (no cache, or ``fresh``: the
+    caller knows the cache is ``init_cache``'s) runs the scan through
+    ``ops.ssd_scan`` (kernel B6 on the card); a prefill that continues the
+    cache's state takes ``ssd_chunked`` with ``h0``; decode (S = 1) is the
+    recurrence's one step in f32.
+    """
+    from ..kernels import ops
+
+    B, S, d = x.shape
+    di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    nh = di // P
+    zxbcdt = qmm(x, p.in_proj)
+    z, xbc, dt = zxbcdt.split([di, di + 2 * N, nh], dim=-1)
+    conv_state = cache["conv"] if cache is not None else None
+    xbc, new_conv = _causal_conv1d(xbc, p.conv_w, conv_state)
+    xbc = swish(xbc)
+    xs, Bmat, Cmat = xbc.split([di, N, N], dim=-1)
+    dt = torch.nn.functional.softplus(dt.float() + p.dt_bias.float())
+    A = -torch.exp(p.a_log.float())                         # (nh,)
+    xh = xs.reshape(B, S, nh, P)                            # a strided view
+
+    if decode:
+        assert S == 1 and cache is not None
+        dA = torch.exp(dt[:, 0] * A[None])                  # (B, nh)
+        dBx = torch.einsum("bh,bhp,bn->bhpn", dt[:, 0], xh[:, 0].float(),
+                           Bmat[:, 0].float())
+        h = cache["state"].float() * dA[:, :, None, None] + dBx
+        y = torch.einsum("bn,bhpn->bhp", Cmat[:, 0].float(), h)
+        y = y[:, None].to(x.dtype)
+        h_fin = h.to(x.dtype)
+    elif cache is None or fresh:
+        y, h_fin = ops.ssd_scan(xh, dt, A, Bmat, Cmat)
+    else:
+        y, h_fin = ssd_chunked(xh, dt, A, Bmat, Cmat, h0=cache["state"])
+    y = y + xh * p.d_skip.to(x.dtype)[None, None, :, None]
+    y = y.reshape(B, S, di)
+    y = rms_norm(y * swish(z), p.norm, cfg.norm_eps)
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(h_fin)
+    return qmm(y, p.out_proj)

@@ -1,21 +1,30 @@
-"""Model assembly of the port: dense GQA decoder, init / forward / prefill /
-decode over a dense or paged KV cache, with resident weights or layer by
-layer from a ``ParamSource`` (the streamed path).
+"""Model assembly of the port: the dense GQA and ssm (Mamba-2) families,
+init / forward / prefill / decode over a dense cache (dense GQA also over
+a paged KV cache), with resident weights or layer by layer from a
+``ParamSource`` (the streamed path).
 
-Counterpart of ``repro.models.model`` for the dense family. Parameters are
-``nn.Module``s (``DenseModel`` > ``DenseBlock`` > ``Attention``/``GLU``)
-whose tensors keep the JAX pytree's names and (in, out) layouts; a Python
-loop over ``blocks`` takes the place of ``lax.scan``.
+Counterpart of ``repro.models.model`` for those two families. Parameters
+are ``nn.Module``s (``DenseModel`` > ``DenseBlock`` > ``Attention``/``GLU``,
+or ``DenseModel`` > ``SSDBlock`` > ``SSD``) whose tensors keep the JAX
+pytree's names and (in, out) layouts; a Python loop over ``blocks`` takes
+the place of ``lax.scan``.
 
 Caches (device tensors, written in place):
 
   dense : {"len": (B,), "layers": {"k"/"v": (L, B, S_max, h_kv, hd)
            [+ "k_scale"/"v_scale": (L, B, S_max, h_kv)]}}
+  ssm   : {"len": (B,), "layers": {"conv": (L, B, K-1, di+2N),
+           "state": (L, B, nh, P, N)}}
   paged : {"pages": {leaf: (L, P, bs, ...)}, "block_table": (B, nb),
-           "len": (B,)}  (built by ``runtime.kvcache.PagedKVCache``)
+           "len": (B,)}  (built by ``runtime.kvcache.PagedKVCache``;
+           dense GQA only)
 
 Every function returns a new cache dict (``len`` advanced) over the same
 tensors, so callers keep the JAX package's ``cache = f(cache, ...)`` flow.
+An ssm prefill into a cache no token has entered yet (``len`` 0
+everywhere: ``init_cache``'s zero state) runs the SSD scan through kernel
+B6 on the card; the recurrent state cannot roll back, so decode takes one
+token a sequence (T = 1), as in the JAX package.
 
 The layer-wise paths (``forward_layerwise``, ``prefill_layerwise``,
 ``decode_step_layerwise``) pull each layer's tree from
@@ -70,9 +79,33 @@ class DenseBlock(nn.Module):
         self.ffn = ffn
 
 
+#: the SSD mixer's leaves, in the JAX tree's order
+SSD_KEYS = ("in_proj", "conv_w", "dt_bias", "a_log", "d_skip", "norm",
+            "out_proj")
+
+
+class SSD(nn.Module):
+    """The Mamba-2 mixer: in_proj (d, 2di+2N+nh), conv_w (K, di+2N),
+    dt_bias/a_log/d_skip (nh,), norm (di,), out_proj (di, d)."""
+
+    def __init__(self, in_proj, conv_w, dt_bias, a_log, d_skip, norm,
+                 out_proj):
+        super().__init__()
+        for name, t in zip(SSD_KEYS, (in_proj, conv_w, dt_bias, a_log,
+                                      d_skip, norm, out_proj)):
+            setattr(self, name, _param(t))
+
+
+class SSDBlock(nn.Module):
+    def __init__(self, norm, ssd: SSD):
+        super().__init__()
+        self.norm = _param(norm)
+        self.ssd = ssd
+
+
 class DenseModel(nn.Module):
-    """Embedding, a stack of dense blocks, final norm and (untied)
-    unembedding."""
+    """Embedding, a stack of blocks (``DenseBlock`` or ``SSDBlock``), final
+    norm and (untied) unembedding."""
 
     def __init__(self, embed, final_norm, blocks, unembed=None):
         super().__init__()
@@ -101,18 +134,35 @@ def _draws(generator: torch.Generator, dtype, device):
     return normal, ones, zeros
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.mla:
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "ssm") or cfg.mla:
         raise NotImplementedError(
-            f"the port serves the dense GQA family only (got {cfg.name})")
+            f"the port serves the dense GQA and ssm families only (got "
+            f"{cfg.name})")
+
+
+def _init_ssd_block(cfg: ModelConfig, normal, ones, zeros, dtype,
+                    device) -> SSDBlock:
+    d, di, N, P = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    nh = di // P
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32,
+                                     device=device)).to(dtype)
+    ssd = SSD(normal((d, 2 * di + 2 * N + nh), 1.0 / math.sqrt(d)),
+              normal((cfg.conv_width, di + 2 * N), 0.1), zeros(nh), a_log,
+              ones(nh), ones(di), normal((di, d), 1.0 / math.sqrt(di)))
+    return SSDBlock(ones(d), ssd)
 
 
 def init_block(cfg: ModelConfig, generator: torch.Generator,
-               dtype=torch.float32, device="cuda") -> DenseBlock:
-    """One dense block's random weights (normal scaled by 1/sqrt(fan-in),
-    zero biases, unit norms), drawn from ``generator``."""
-    _check_dense(cfg)
+               dtype=torch.float32, device="cuda"):
+    """One block's random weights, drawn from ``generator``: a dense block
+    (normal scaled by 1/sqrt(fan-in), zero biases, unit norms), or an SSD
+    block (projections as dense, conv_w normal x 0.1, dt_bias 0, a_log
+    log(linspace(1, 16, nh)), d_skip 1, unit norms)."""
+    _check_family(cfg)
     normal, ones, zeros = _draws(generator, dtype, device)
+    if cfg.family == "ssm":
+        return _init_ssd_block(cfg, normal, ones, zeros, dtype, device)
     d, H, hk, hd, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads,
                        cfg.head_dim, cfg.d_ff)
     s = 1.0 / math.sqrt(d)
@@ -129,7 +179,7 @@ def init_head(cfg: ModelConfig, generator: torch.Generator,
               dtype=torch.float32, device="cuda") -> Dict[str, torch.Tensor]:
     """The non-block weights: {"embed" (x0.02), "final_norm" (ones)[,
     "unembed" (1/sqrt(d)) unless tied]}."""
-    _check_dense(cfg)
+    _check_family(cfg)
     normal, ones, _ = _draws(generator, dtype, device)
     head = {}
     if not cfg.tie_embeddings:
@@ -142,11 +192,10 @@ def init_head(cfg: ModelConfig, generator: torch.Generator,
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32, device="cuda") -> DenseModel:
-    """Random weights with the JAX package's distributions (normal scaled
-    by 1/sqrt(fan-in), embed x0.02, zero biases, unit norms), drawn from
-    ``generator`` (which must live on ``device``): the blocks in order,
-    then the head."""
-    _check_dense(cfg)
+    """Random weights with the JAX package's distributions (``init_block``,
+    embed x0.02), drawn from ``generator`` (which must live on
+    ``device``): the blocks in order, then the head."""
+    _check_family(cfg)
     blocks = [init_block(cfg, generator, dtype, device)
               for _ in range(cfg.n_layers)]
     head = init_head(cfg, generator, dtype, device)
@@ -157,7 +206,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cuda") -> Dict:
     """The dense (L, B, max_len, ...) cache (int8 K/V + bf16 scales when
-    ``cfg.kv_dtype == "int8"``)."""
+    ``cfg.kv_dtype == "int8"``), or the ssm family's conv window and
+    recurrent state (zero; their size does not depend on ``max_len``)."""
+    if cfg.family == "ssm":
+        L, di, N, P = cfg.n_layers, cfg.d_inner, cfg.ssm_state, \
+            cfg.ssm_head_dim
+        layers = {"conv": torch.zeros((L, batch, cfg.conv_width - 1,
+                                       di + 2 * N), dtype=dtype,
+                                      device=device),
+                  "state": torch.zeros((L, batch, di // P, P, N),
+                                       dtype=dtype, device=device)}
+        return {"len": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device), "layers": layers}
     L, hk, hd = cfg.n_layers, max(cfg.kv_heads, 1), cfg.head_dim
     S = min(max_len, cfg.attn_window) if cfg.attn_window else max_len
     shape = (L, batch, S, hk, hd)
@@ -218,11 +278,24 @@ def _dense_layer(p, cfg: ModelConfig, x, positions, c: Optional[Dict], *,
     return x + ll.glu_ffn(p.ffn, ll.rms_norm(x, p.ffn_norm, cfg.norm_eps))
 
 
-def _dense_backbone(params: DenseModel, cfg: ModelConfig, x, positions,
-                    cache: Optional[Dict], *, decode: bool):
+def _ssd_layer(p, cfg: ModelConfig, x, c: Optional[Dict], *, decode: bool,
+               fresh: bool):
+    return x + ll.ssd_block(p.ssd, cfg, ll.rms_norm(x, p.norm, cfg.norm_eps),
+                            cache=c, decode=decode, fresh=fresh)
+
+
+def _layer(p, cfg: ModelConfig, x, positions, c: Optional[Dict], *,
+           decode: bool, fresh: bool):
+    if cfg.family == "ssm":
+        return _ssd_layer(p, cfg, x, c, decode=decode, fresh=fresh)
+    return _dense_layer(p, cfg, x, positions, c, decode=decode)
+
+
+def _backbone(params: DenseModel, cfg: ModelConfig, x, positions,
+              cache: Optional[Dict], *, decode: bool, fresh: bool = False):
     for i, p in enumerate(params.blocks):
-        x = _dense_layer(p, cfg, x, positions, _layer_cache(cache, i),
-                         decode=decode)
+        x = _layer(p, cfg, x, positions, _layer_cache(cache, i),
+                   decode=decode, fresh=fresh)
     return x, _advance(cache, x.shape[1])
 
 
@@ -231,15 +304,29 @@ def _prefill_positions(B: int, S: int, device) -> torch.Tensor:
         B, S)
 
 
+def _fresh(cfg: ModelConfig, cache: Optional[Dict]) -> bool:
+    """Whether a prefill starts from the zero recurrent state: no cache,
+    or one no token has entered yet (``len`` 0 everywhere, as
+    ``init_cache`` makes it). Only the ssm family asks (one host sync a
+    prefill); a prefill that continues a state takes the plain scan."""
+    if cache is None or cfg.family != "ssm":
+        return True
+    return not bool(cache["len"].any())
+
+
+def _check_decode(cfg: ModelConfig, T: int) -> None:
+    if T > 1 and cfg.family != "dense":
+        raise ValueError(f"multi-token decode unsupported for {cfg.family}")
+
+
 @torch.no_grad()
 def forward(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor
             ) -> torch.Tensor:
     """Full-sequence logits (B, S, V), no cache."""
     x = embed_tokens(params, cfg, tokens)
     B, S, _ = x.shape
-    x, _ = _dense_backbone(params, cfg, x,
-                           _prefill_positions(B, S, x.device), None,
-                           decode=False)
+    x, _ = _backbone(params, cfg, x, _prefill_positions(B, S, x.device),
+                     None, decode=False)
     x = ll.rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x)
 
@@ -250,9 +337,9 @@ def prefill(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor,
     """Process the prompt, fill the cache, return last-position logits."""
     x = embed_tokens(params, cfg, tokens)
     B, S, _ = x.shape
-    x, new_cache = _dense_backbone(params, cfg, x,
-                                   _prefill_positions(B, S, x.device), cache,
-                                   decode=False)
+    x, new_cache = _backbone(params, cfg, x,
+                             _prefill_positions(B, S, x.device), cache,
+                             decode=False, fresh=_fresh(cfg, cache))
     x = ll.rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x), new_cache
 
@@ -262,11 +349,13 @@ def decode_step(params: DenseModel, cfg: ModelConfig, cache: Dict,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """One decode step over the dense cache. tokens: (B, T); T > 1 is the
     speculative verify pass (causal among the T tokens; roll rejected
-    positions back with ``rollback_cache``)."""
+    positions back with ``rollback_cache``), dense family only: recurrent
+    state cannot roll back."""
     T = tokens.shape[1]
+    _check_decode(cfg, T)
     x = embed_tokens(params, cfg, tokens)
     pos = _positions(cache["len"], T)
-    x, new_cache = _dense_backbone(params, cfg, x, pos, cache, decode=True)
+    x, new_cache = _backbone(params, cfg, x, pos, cache, decode=True)
     x = ll.rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x), new_cache
 
@@ -278,7 +367,8 @@ def decode_step(params: DenseModel, cfg: ModelConfig, cache: Dict,
 #: leaf names whose consumers route through ``layers.qmm``: the only sites
 #: where a packed weight may survive into the block functions
 _FUSED_Q4_KEYS = frozenset((
-    "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+    "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+    "in_proj", "out_proj"))
 
 
 def _dequant_params(p: Dict) -> types.SimpleNamespace:
@@ -304,18 +394,20 @@ def _prepare_layer_params(p: Dict) -> Dict:
 
 
 def _layerwise_backbone(source, cfg: ModelConfig, x, positions,
-                        cache: Optional[Dict], *, decode: bool):
+                        cache: Optional[Dict], *, decode: bool,
+                        fresh: bool = False):
     """The stack one layer at a time, weights pulled from ``source``; the
     dense cache's layer ``i`` is written in place."""
-    if cfg.family != "dense" or cfg.mla:
+    if cfg.family not in ("dense", "ssm") or cfg.mla:
         raise ValueError(f"layer-wise streaming unsupported for family "
-                         f"{cfg.family} (the port streams dense models)")
+                         f"{cfg.family} (the port streams dense GQA and "
+                         f"ssm models)")
     from ..bridge import block_from_tree
 
     for i in range(cfg.n_layers):
         p = block_from_tree(_prepare_layer_params(source.layer(i)))
-        x = _dense_layer(p, cfg, x, positions, _layer_cache(cache, i),
-                         decode=decode)
+        x = _layer(p, cfg, x, positions, _layer_cache(cache, i),
+                   decode=decode, fresh=fresh)
     return x, _advance(cache, x.shape[1])
 
 
@@ -342,7 +434,8 @@ def prefill_layerwise(source, cfg: ModelConfig, tokens: torch.Tensor,
     B, S, _ = x.shape
     x, new_cache = _layerwise_backbone(source, cfg, x,
                                        _prefill_positions(B, S, x.device),
-                                       cache, decode=False)
+                                       cache, decode=False,
+                                       fresh=_fresh(cfg, cache))
     x = ll.rms_norm(x[:, -1:], head.final_norm, cfg.norm_eps)
     return unembed(head, cfg, x), new_cache
 
@@ -351,9 +444,10 @@ def prefill_layerwise(source, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step_layerwise(source, cfg: ModelConfig, cache: Dict,
                           tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """``decode_step`` with weights pulled from a ParamSource. tokens:
-    (B, T); T > 1 is a verify pass that reads each layer once for the
-    whole block."""
+    (B, T); T > 1 (dense family only) is a verify pass that reads each
+    layer once for the whole block."""
     T = tokens.shape[1]
+    _check_decode(cfg, T)
     head = _dequant_params(source.head())
     x = embed_tokens(head, cfg, tokens)
     x, new_cache = _layerwise_backbone(source, cfg, x,

@@ -194,6 +194,10 @@ class KVStats:
 
 def paged_cache_spec(cfg) -> Dict[str, Tuple[int, ...]]:
     """Per-leaf trailing shapes of one cache line (one token, one layer)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(
+            f"paged KV cache unsupported for family {cfg.family} "
+            "(recurrent state has no per-token pages)")
     if cfg.family != "dense" or cfg.mla:
         raise NotImplementedError(
             f"the port's paged cache serves the dense GQA family only "

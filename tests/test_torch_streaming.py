@@ -435,7 +435,7 @@ def test_layerwise_rejects_other_families(q4_ring_store):
     with ParamStore(d) as store:
         with pytest.raises(ValueError, match="unsupported for family"):
             TM.forward_layerwise(store, dataclasses.replace(
-                tcfg, family="ssm"), torch.zeros((1, 2), dtype=torch.int32))
+                tcfg, family="hybrid"), torch.zeros((1, 2), dtype=torch.int32))
 
 
 # --------------------------------------------------------------------------- #
