@@ -11,10 +11,13 @@ Phase 2  hold each kernel against its plain torch version on the card and
          could take:
          * B1 paged_verify, B2 paged_prefill, B4 paged_verify_quant at the
            main path's head shapes (H 40, h_kv 8, D 128, 16-token pages),
-           B4 at decode and at int8 admission's chunk shapes, in f32 (atol
-           2e-5) and bf16 (per element 1e-5 + 2^-7 |ref|, under a 1e-2
-           ceiling); the check must reject a swapped page; the library
-           call is SDPA on pre-gathered pages;
+           B4 at decode (T 1) and at the paged spec verify (T 5), each with
+           an inactive sink slot as the engine runs them (the tile
+           kernels' design 2, split pages), and at int8 admission's chunk
+           shapes (design 1, 128-row tiles), each B2/B4 line naming the
+           design it ran, in f32 (atol 2e-5) and bf16 (per element 1e-5 +
+           2^-7 |ref|, under a 1e-2 ceiling); the check must reject a
+           swapped page; the library call is SDPA on pre-gathered pages;
          * B3 q4_matmul at every projection shape of qwen2.5-14b (K, N) and
            M in {1, 8, 37, 256, 512}, f32 and bf16 x, both against the
            plain version's f32 output to 1e-5 of max|ref| + 1e-5 |ref| (f32
@@ -138,7 +141,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12                       # H100 SXM, data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # bf16 tensor / f32 SIMT
 H, H_KV, D, BS = 40, 8, 128, 16             # qwen2.5-14b attention heads
-SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+SOURCES = {"paged_verify": "src/repro_torch/kernels/csrc/paged_attention.cu",
+           "paged_prefill": "src/repro_torch/kernels/csrc/paged_tiles.cu",
+           "paged_verify_quant":
+               "src/repro_torch/kernels/csrc/paged_tiles.cu"}
 Q4_SOURCE = "src/repro_torch/kernels/csrc/q4_matmul.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
 REPLACES = {"paged_verify": "src/repro/kernels/paged_decode.py:89",
@@ -298,8 +304,13 @@ def check_kernels(torch, timer, rng):
                          (100, 868, None)):
         cases.append(("paged_prefill", f"B2 S={S} kv_len={n} "
                       f"window={window}", S, np.array([n]), window, ()))
-    cases.append(("paged_verify_quant", f"B4 T=1 B={B}", 1, kv_len_np,
-                  None, ()))
+    # decode and the paged spec verify over int8 pages, each with an
+    # inactive sink slot as the engine runs them (design 2)
+    for T in (1, 5):
+        kvl = kv_len_np.copy()
+        kvl[0] = T
+        cases.append(("paged_verify_quant", f"B4 T={T} B={B}", T, kvl, None,
+                      (0,)))
     # int8 chunked admission: a full chunk and a short last one at B = 1
     for S, n in ((256, 1024), (100, 868)):
         cases.append(("paged_verify_quant", f"B4 S={S} kv_len={n}", S,
@@ -307,6 +318,14 @@ def check_kernels(torch, timer, rng):
     rows = {}
     for name, label, T, kvl, window, sinks in cases:
         Bc = len(kvl)
+        if name != "paged_verify":
+            plan = pd.tile_plan(Bc, T, H, H_KV, D, BS, nb,
+                                quant=name == "paged_verify_quant")
+            label += f" [design {plan.design}"
+            if plan.design == 2:
+                label += (f": {plan.n_split} splits of {plan.split_pages} "
+                          f"pages, key split {plan.key_split}")
+            label += "]"
         k32, v32, table = make_pages(torch, rng, B=Bc, nb=nb, kv_len=kvl,
                                      sink_rows=sinks)
         # negative control: one sequence's newest page swapped for another
@@ -383,7 +402,8 @@ def check_kernels(torch, timer, rng):
                                            "kv_len=1024 window=None"))
             if dtype == "bfloat16" and main_shape:
                 rows[name] = {"name": name, "route": "cuda",
-                              "source": SOURCE, "replaces": REPLACES[name],
+                              "source": SOURCES[name],
+                              "replaces": REPLACES[name],
                               "launches": 0, "max_abs_err": err, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bms,
                               "bound_by": by, "library_ms": lib_ms}

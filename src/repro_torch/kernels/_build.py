@@ -23,6 +23,7 @@ from typing import Dict
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> CUDA source
 SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
+           "paged_tiles": _CSRC / "paged_tiles.cu",
            "q4_matmul": _CSRC / "q4_matmul.cu",
            "flash_decode": _CSRC / "flash_decode.cu",
            "ssd_scan": _CSRC / "ssd_scan.cu"}
@@ -125,12 +126,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flash_decode_smem_bytes.argtypes = [I, I, I, I]
         lib.flash_decode_smem_bytes.restype = L
         return
-    common = [I, I, I, I, I, I, I, I, I, I, F, L, L, L, L, L, L]
-    lib.paged_verify.argtypes = [P] * 6 + common + [P]
-    lib.paged_prefill.argtypes = [P] * 6 + common + [P]
-    lib.paged_verify_quant.argtypes = [P] * 8 + common + [L, L, L, P]
-    for fn in (lib.paged_verify, lib.paged_prefill, lib.paged_verify_quant):
-        fn.restype = I
+    if name == "paged_tiles":
+        lib.paged_tiles.argtypes = [P] * 10 + [I] * 11 + [F] + [I] * 3 + \
+            [L] * 9 + [P]
+        lib.paged_tiles.restype = I
+        lib.paged_tiles_smem_bytes.argtypes = [I, I, I, I, I]
+        lib.paged_tiles_smem_bytes.restype = L
+        return
+    lib.paged_verify.argtypes = [P] * 6 + [I] * 10 + [F] + [L] * 6 + [P]
+    lib.paged_verify.restype = I
     lib.paged_attention_smem_bytes.argtypes = [I, I, I, I, I]
     lib.paged_attention_smem_bytes.restype = L
 

@@ -1,12 +1,12 @@
-// Paged attention for Hopper (sm_90a): decode/verify, chunked prefill and
-// int8-page decode over a block-table-addressed page pool.
+// Paged attention for Hopper (sm_90a): decode/verify over float pages (B1)
+// through a block-table-addressed page pool.
 //
-// Replaces the Pallas TPU kernels
+// Replaces the Pallas TPU kernel
 //   B1 src/repro/kernels/paged_decode.py  paged_verify / paged_decode
-//   B2 src/repro/kernels/paged_prefill.py paged_prefill
-//   B4 src/repro/kernels/paged_decode.py  paged_verify_quant / paged_decode_quant
+// (B2 paged_prefill and B4 paged_verify_quant run on the tensor-core tile
+// kernels of paged_tiles.cu; nothing of theirs reaches this file.)
 //
-// What each computes: GQA flash attention of R = T*n_rep query rows of one
+// What it computes: GQA flash attention of R = T*n_rep query rows of one
 // (sequence b, kv head h) against that sequence's pages, routed through
 // table[b, :]. Row (t, rep) sits at absolute position kv_len[b] - T + t and
 // sees positions <= its own (and > own - window when a window is set).
@@ -16,8 +16,6 @@
 // What bounds it on the H100: bytes. At decode every K/V byte of a live
 // page is read once per (b, h) and used by only T*n_rep rows (5 for
 // qwen2.5-14b at T = 1), far below the ~295 flop/byte the tensor cores need.
-// Prefill (B2) reuses each page across up to 64 rows of a tile, still well
-// below that ridge at S = 256.
 //
 // What this design does about it:
 //   * the pool is read in its stored (P, bs, h_kv, D) layout through its
@@ -26,15 +24,15 @@
 //   * q is read in place as (B, T, H, D): row = t*n_rep + rep indexes it
 //     directly, no regrouping copy;
 //   * the page walk is bounded per tile by the live range: pages at or past
-//     ceil(kv_len/bs) (stale or sink entries), pages past the tile's causal
-//     frontier and pages that end before the tile's window are never
-//     loaded. For B2 this skips the loads of dead pages, not only the math;
-//   * int8 pages (B4) are dequantized while staging into shared memory: only
-//     the int8 bytes and the per-(position, head) scales cross HBM.
-// Simple first: one CTA per (row tile of <= 64 rows, kv head, sequence);
-// 4 warps; each page staged as f32 in shared memory; lane j scores key j.
-// Not yet done (later work): splitting pages across CTAs for small decode
-// grids, mma/wgmma for the prefill rows, cp.async/TMA page pipelines.
+//     ceil(kv_len/bs) (stale or sink entries) and pages that end before the
+//     tile's window are never loaded.
+// Simple first, and still so: one CTA per (row tile of <= 64 rows, kv head,
+// sequence) walking its pages in series; 4 warps; each page staged as f32
+// in shared memory; lane j scores key j with scalar f32 FMAs (half of the
+// lanes idle on 16-token pages). B1 keeps this scalar template on purpose:
+// its redesign is the split-page decode of paged_tiles.cu's design 2
+// applied to float pages, with B5 (flash_decode.cu) in the same PR, so that
+// B1's row measures the old design until then.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,11 +46,10 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTileRows = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum DType { kF32 = 0, kBF16 = 1 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -62,7 +59,6 @@ struct Geometry {
   float scale;                           // 1/sqrt(D), rounded on the host
   long long q_sb, q_st, q_sh;            // q strides (elements); d contiguous
   long long kv_sp, kv_ss, kv_sh;         // pool strides; d contiguous
-  long long sc_sp, sc_ss, sc_sh;         // scale strides (int8 pools only)
 };
 
 size_t smem_bytes(const Geometry& g) {
@@ -73,11 +69,10 @@ size_t smem_bytes(const Geometry& g) {
   return floats * sizeof(float);
 }
 
-template <typename QT, typename KT, typename ST, bool kQuant>
+template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
-                       const KT* __restrict__ vp, const ST* __restrict__ ksc,
-                       const ST* __restrict__ vsc,
+                       const KT* __restrict__ vp,
                        const int* __restrict__ table,
                        const int* __restrict__ kv_len, QT* __restrict__ out,
                        Geometry g) {
@@ -126,15 +121,8 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
     const KT* vpage = vp + pid * g.kv_sp + h * g.kv_sh;
     for (int i = tid; i < bs * D; i += kThreads) {
       const int j = i / D, d = i - j * D;
-      float kx = to_f32(kpage[j * g.kv_ss + d]);
-      float vx = to_f32(vpage[j * g.kv_ss + d]);
-      if (kQuant) {
-        const long long s = pid * g.sc_sp + j * g.sc_ss + h * g.sc_sh;
-        kx *= to_f32(ksc[s]);
-        vx *= to_f32(vsc[s]);
-      }
-      kt[j * ldk + d] = kx;
-      vt[j * ldk + d] = vx;
+      kt[j * ldk + d] = to_f32(kpage[j * g.kv_ss + d]);
+      vt[j * ldk + d] = to_f32(vpage[j * g.kv_ss + d]);
     }
     __syncthreads();
 
@@ -193,13 +181,13 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
   }
 }
 
-template <typename QT, typename KT, typename ST, bool kQuant>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* table, const void* kv_len, void* out,
-           const Geometry& g, cudaStream_t stream) {
+template <typename QT, typename KT>
+int launch(const void* q, const void* k, const void* v, const void* table,
+           const void* kv_len, void* out, const Geometry& g,
+           cudaStream_t stream) {
   const int rows = g.T * (g.H / g.h_kv);
   const size_t smem = smem_bytes(g);
-  auto kern = paged_attention_kernel<QT, KT, ST, kQuant>;
+  auto kern = paged_attention_kernel<QT, KT>;
   static size_t smem_set = 48 * 1024;        // the default opt-in ceiling
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -210,8 +198,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   const dim3 grid((rows + kTileRows - 1) / kTileRows, g.h_kv, g.B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<const ST*>(ks),
-      static_cast<const ST*>(vs), static_cast<const int*>(table),
+      static_cast<const KT*>(v), static_cast<const int*>(table),
       static_cast<const int*>(kv_len), static_cast<QT*>(out), g);
   return int(cudaGetLastError());
 }
@@ -221,11 +208,9 @@ int dispatch_float_kv(int kv_dtype, const void* q, const void* k,
                       const void* v, const void* table, const void* kv_len,
                       void* out, const Geometry& g, cudaStream_t s) {
   if (kv_dtype == kF32)
-    return launch<QT, float, float, false>(q, k, v, nullptr, nullptr, table,
-                                           kv_len, out, g, s);
+    return launch<QT, float>(q, k, v, table, kv_len, out, g, s);
   if (kv_dtype == kBF16)
-    return launch<QT, __nv_bfloat16, float, false>(q, k, v, nullptr, nullptr,
-                                                   table, kv_len, out, g, s);
+    return launch<QT, __nv_bfloat16>(q, k, v, table, kv_len, out, g, s);
   return int(cudaErrorInvalidValue);
 }
 
@@ -241,20 +226,6 @@ int float_pages(int q_dtype, int kv_dtype, const void* q, const void* k,
   return int(cudaErrorInvalidValue);
 }
 
-template <typename QT>
-int dispatch_scale(int sc_dtype, const void* q, const void* k, const void* v,
-                   const void* ks, const void* vs, const void* table,
-                   const void* kv_len, void* out, const Geometry& g,
-                   cudaStream_t s) {
-  if (sc_dtype == kF32)
-    return launch<QT, int8_t, float, true>(q, k, v, ks, vs, table, kv_len, out,
-                                           g, s);
-  if (sc_dtype == kBF16)
-    return launch<QT, int8_t, __nv_bfloat16, true>(q, k, v, ks, vs, table,
-                                                   kv_len, out, g, s);
-  return int(cudaErrorInvalidValue);
-}
-
 Geometry make_geometry(int B, int T, int H, int h_kv, int D, int bs, int nb,
                        int window, float scale, long long q_sb,
                        long long q_st, long long q_sh, long long kv_sp,
@@ -267,7 +238,6 @@ Geometry make_geometry(int B, int T, int H, int h_kv, int D, int bs, int nb,
   g.scale = scale;
   g.q_sb = q_sb; g.q_st = q_st; g.q_sh = q_sh;
   g.kv_sp = kv_sp; g.kv_ss = kv_ss; g.kv_sh = kv_sh;
-  g.sc_sp = g.sc_ss = g.sc_sh = 0;
   return g;
 }
 
@@ -299,47 +269,6 @@ int paged_verify(const void* q, const void* k, const void* v,
                                    q_sb, q_st, q_sh, kv_sp, kv_ss, kv_sh);
   return float_pages(q_dtype, kv_dtype, q, k, v, table, kv_len, out, g,
                      static_cast<cudaStream_t>(stream));
-}
-
-// B2: one prompt chunk of S rows per sequence against float pages. The
-// same online-softmax walk as B1; at S rows the tile bounds of the page walk
-// are what skip the chunk's dead pages (ahead of the frontier, behind the
-// window).
-int paged_prefill(const void* q, const void* k, const void* v,
-                  const void* table, const void* kv_len, void* out,
-                  int q_dtype, int kv_dtype, int B, int S, int H, int h_kv,
-                  int D, int bs, int nb, int window, float scale,
-                  long long q_sb, long long q_st, long long q_sh,
-                  long long kv_sp, long long kv_ss, long long kv_sh,
-                  void* stream) {
-  const Geometry g = make_geometry(B, S, H, h_kv, D, bs, nb, window, scale,
-                                   q_sb, q_st, q_sh, kv_sp, kv_ss, kv_sh);
-  return float_pages(q_dtype, kv_dtype, q, k, v, table, kv_len, out, g,
-                     static_cast<cudaStream_t>(stream));
-}
-
-// B4: B1 over int8 pages with per-(position, kv-head) scales stored in the
-// pool dtype (f32 or bf16), dequantized while staging.
-int paged_verify_quant(const void* q, const void* k, const void* v,
-                       const void* k_scale, const void* v_scale,
-                       const void* table, const void* kv_len, void* out,
-                       int q_dtype, int sc_dtype, int B, int T, int H,
-                       int h_kv, int D, int bs, int nb, int window,
-                       float scale, long long q_sb, long long q_st,
-                       long long q_sh, long long kv_sp, long long kv_ss,
-                       long long kv_sh, long long sc_sp, long long sc_ss,
-                       long long sc_sh, void* stream) {
-  Geometry g = make_geometry(B, T, H, h_kv, D, bs, nb, window, scale, q_sb,
-                             q_st, q_sh, kv_sp, kv_ss, kv_sh);
-  g.sc_sp = sc_sp; g.sc_ss = sc_ss; g.sc_sh = sc_sh;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == kF32)
-    return dispatch_scale<float>(sc_dtype, q, k, v, k_scale, v_scale, table,
-                                 kv_len, out, g, s);
-  if (q_dtype == kBF16)
-    return dispatch_scale<__nv_bfloat16>(sc_dtype, q, k, v, k_scale, v_scale,
-                                         table, kv_len, out, g, s);
-  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

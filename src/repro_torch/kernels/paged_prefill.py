@@ -3,9 +3,13 @@ version.
 
 Counterpart of ``repro/kernels/paged_prefill.py`` (Pallas). One prompt
 chunk of S rows per sequence attends over the pages the table addresses,
-row t at absolute position ``kv_len - S + t``. The kernel
-(``csrc/paged_attention.cu``) never loads dead pages: those at or past the
-chunk's causal frontier and those behind its sliding window.
+row t at absolute position ``kv_len - S + t``. The kernel is design 1 of
+``csrc/paged_tiles.cu``: one CTA per 128-row tile of a kv head's group
+(the n_rep query heads packed into the rows), K/V blocks of 64 keys
+gathered through the table with ``cp.async`` into a two-stage ring, and
+S = Q.K^T and O += P.V on the tensor cores (``mma.sync`` m16n8k16, bf16
+pieces, f32 sums). It never loads dead pages: those at or past the tile's
+causal frontier and those behind its sliding window.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from .paged_decode import _launch_float
+from .paged_decode import _launch_tiles
 
 
 def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
@@ -24,7 +28,7 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     already wrote through the table; pages (P, bs, h_kv, D) f32/bf16;
     table (B, nb) int32; kv_len (B,) int32 including the chunk ->
     (B, S, H, D) in q.dtype. Each row uses its own sequence's kv_len."""
-    return _launch_float("paged_prefill", q, k_pages, v_pages, table,
+    return _launch_tiles("paged_prefill", q, k_pages, v_pages, table,
                          kv_len, window)
 
 

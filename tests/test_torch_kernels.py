@@ -184,6 +184,164 @@ def test_build_is_keyed_by_source_and_needs_nvcc(monkeypatch):
 
 
 # --------------------------------------------------------------------------- #
+#  B2 / B4 on the tensor cores: the precision contract and the route plan
+# --------------------------------------------------------------------------- #
+
+def _within(out, want, dtype):
+    """``chip_smoke.within``'s rule: f32 atol 2e-5; bf16 per element
+    1e-5 + 2^-7 |want| under a 1e-2 ceiling; returns the worst ratio."""
+    err = (out.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return float(err.max()) / 2e-5
+    ratio = float((err / (1e-5 + 2.0 ** -7 * want.float().abs())).max())
+    return max(ratio, float(err.max()) / 1e-2)
+
+
+def _pieces(x, n):
+    """x as n bf16 pieces, largest first (each residual exact in f32)."""
+    out = []
+    for _ in range(n):
+        out.append(x.to(torch.bfloat16).float())
+        x = x - out[-1]
+    return out
+
+
+def _piece_products(a, b, eq):
+    """Sum of the products of pieces whose orders sum below max(len)."""
+    n = max(len(a), len(b))
+    return sum(torch.einsum(eq, x, y) for i, x in enumerate(a)
+               for j, y in enumerate(b) if i + j < n)
+
+
+def _emulate_tiles(q, k, v, kv_len, *, k_scale=None, v_scale=None,
+                   round_p=False):
+    """The rounding of ``csrc/paged_tiles.cu`` on the CPU, over gathered
+    pages k/v (B, S, h_kv, D): q and f32 pages enter the products as three
+    bf16 pieces, bf16 and int8 as one; S = Q.K^T (k_scale on the f32
+    score after the product, then the softmax scale); P (v_scale folded
+    in) as hi + lo for a bf16 result or three pieces for an f32 one --
+    or, with ``round_p``, as one bf16 rounding, the habit the design
+    rejects; the result rounded once to q's dtype."""
+    B, T, H, D = q.shape
+    S, n_rep = k.shape[1], H // k.shape[2]
+    f32_q, f32_kv = q.dtype == torch.float32, k.dtype == torch.float32
+    kx = k.float().repeat_interleave(n_rep, dim=2)
+    vx = v.float().repeat_interleave(n_rep, dim=2)
+    s = _piece_products(_pieces(q.float(), 3 if f32_q else 1),
+                        _pieces(kx, 3 if f32_kv else 1), "bthd,bshd->bhts")
+    if k_scale is not None:
+        s = s * k_scale.float().repeat_interleave(n_rep, 2).permute(
+            0, 2, 1)[:, :, None]
+    s = s * torch.tensor(1.0 / np.sqrt(D), dtype=torch.float32)
+    qpos = kv_len.long()[:, None] - T + torch.arange(T)
+    mask = (torch.arange(S)[None, None] <= qpos[..., None])[:, None]
+    s = torch.where(mask, s, -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - torch.where(
+        torch.isfinite(m), m, 0.0)), 0.0)
+    l = p.sum(-1)
+    if v_scale is not None:
+        p = p * v_scale.float().repeat_interleave(n_rep, 2).permute(
+            0, 2, 1)[:, :, None]
+    P = [p.to(torch.bfloat16).float()] if round_p else \
+        _pieces(p, 3 if f32_q else 2)
+    acc = _piece_products(P, _pieces(vx, 3 if f32_kv else 1),
+                          "bhts,bshd->bhtd")
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+#: a small GQA chunk (n_rep 5) at chip_smoke's data scale: q std 1, pages
+#: std 0.5; int8 pools as the model quantizes them, scales in q's dtype
+TILE_CHUNK = dict(B=2, T=24, H=10, h_kv=2, D=64, P=40, bs=8, nb=16,
+                  kv_len=[24, 101])
+
+
+def _tile_inputs(dtype, quant, seed=40):
+    from repro_torch.models.layers import gather_pages, quantize_kv
+
+    q, kp, vp, table, kv = _case(seed, **TILE_CHUNK)
+    q, table, kv = _t(q).to(dtype), _t(table), _t(kv)
+    kp, vp = _t(kp) * 0.5, _t(vp) * 0.5
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+        ks, vs = ks.to(dtype), vs.to(dtype)
+        want = ops.paged_verify_quant(q.float(), kq, vq, ks, vs, table, kv)
+        gathered = [gather_pages(t, table) for t in (kq, vq, ks, vs)]
+        return want, dict(q=q, k=gathered[0], v=gathered[1], kv_len=kv,
+                          k_scale=gathered[2], v_scale=gathered[3])
+    kp, vp = kp.to(dtype), vp.to(dtype)
+    want = ops.paged_prefill(q.float(), kp.float(), vp.float(), table, kv)
+    return want, dict(q=q, k=gather_pages(kp, table),
+                      v=gather_pages(vp, table), kv_len=kv)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["pages", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tile_precision_contract(dtype, quant):
+    """The tile kernels' rounding (emulated) meets chip_smoke's phase-2
+    rule against the plain version in f32: bf16 with P as hi + lo, f32
+    with three pieces a side, int8 K exact with its scale after the
+    product and v_scale folded into P. (The CUDA kernels themselves are
+    held to the same rule on the card.)"""
+    want, args = _tile_inputs(dtype, quant)
+    out = _emulate_tiles(**args)
+    assert out.dtype == dtype and out.shape == want.shape
+    assert _within(out, want, dtype) <= 0.6
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["pages", "int8"])
+def test_tile_precision_bf16_rounded_p_fails(quant):
+    """Why P enters as hi + lo: rounding P to bf16 once before P.V (the
+    usual flash-attention habit) breaks the bf16 rule where outputs are
+    near zero, with the same inputs that pass above."""
+    want, args = _tile_inputs(torch.bfloat16, quant)
+    assert _within(_emulate_tiles(**args, round_p=True), want,
+                   torch.bfloat16) > 2.0
+
+
+@pytest.mark.parametrize("T", [1, 5, 256])
+def test_tile_plan_is_a_function_of_shapes(T):
+    """qwen2.5-14b's heads (40 over 8, D 128), 16-token pages, a table of
+    128: decode and verify rows (T * 5 <= 64) split the pages across CTAs
+    (design 2: 8 splits of 16 pages, the 4 warps sharing a 16- or 32-row
+    tile), chunk rows take design 1; B2 is always design 1. The plan reads
+    no tensor, so kv_len cannot move it."""
+    from repro_torch.kernels.paged_decode import TilePlan, tile_plan
+
+    B, H, h_kv, D, bs, nb = 8, 40, 8, 128, 16, 128
+    plan = tile_plan(B, T, H, h_kv, D, bs, nb, quant=True)
+    assert plan == tile_plan(B, T, H, h_kv, D, bs, nb, quant=True)
+    rows = T * 5
+    if T == 256:
+        assert plan == TilePlan(1, 1, 1, nb, None)
+    else:
+        key_split = {1: 4, 5: 2}[T]
+        assert plan == TilePlan(2, key_split, 8, 16,
+                                ((B, h_kv, 8, rows, D),
+                                 (2, B, h_kv, 8, rows)))
+        assert 16 * 4 // key_split >= rows      # one row tile per split
+    assert tile_plan(B, T, H, h_kv, D, bs, nb, quant=False) == \
+        TilePlan(1, 1, 1, nb, None)
+
+
+def test_tile_wrappers_check_alignment():
+    """The tile kernels copy 16 bytes at a time: a pool at an odd offset
+    or with a head stride of 130 bf16 elements is refused, not copied."""
+    from repro_torch.kernels.paged_decode import _check_aligned
+
+    pool = torch.zeros(4, 16, 2, 128, dtype=torch.bfloat16)
+    _check_aligned("t", pool=pool)
+    odd = torch.zeros(4 * 16 * 2 * 128 + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check_aligned("t", pool=odd.view(4, 16, 2, 128))
+    wide = torch.zeros(4, 16, 2, 130, dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check_aligned("t", pool=wide)
+
+
+# --------------------------------------------------------------------------- #
 #  B3: W4A16 grouped matmul
 # --------------------------------------------------------------------------- #
 
