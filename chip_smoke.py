@@ -8,16 +8,20 @@ Phase 1  build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 Phase 2  hold each kernel against its plain torch version on the card and
          time the kernel, the plain version and one library call that the
          port never calls (``library_ms``), beside the least time the card
-         could take:
+         could take (the attention kernels and their library calls also
+         replayed from a CUDA graph: the device's time alone, without the
+         host's work of the call):
          * B1 paged_verify, B2 paged_prefill, B4 paged_verify_quant at the
            main path's head shapes (H 40, h_kv 8, D 128, 16-token pages),
-           B4 at decode (T 1) and at the paged spec verify (T 5), each with
-           an inactive sink slot as the engine runs them (the tile
-           kernels' design 2, split pages), and at int8 admission's chunk
-           shapes (design 1, 128-row tiles), each B2/B4 line naming the
-           design it ran, in f32 (atol 2e-5) and bf16 (per element 1e-5 +
-           2^-7 |ref|, under a 1e-2 ceiling); the check must reject a
-           swapped page; the library call is SDPA on pre-gathered pages;
+           B1 and B4 at decode (T 1) and at the paged spec verify (T 5),
+           each with an inactive sink slot as the engine runs them (the
+           tile kernels' design 2, split keys), B2 and B4 at int8
+           admission's chunk shapes (design 1, 128-row tiles), each line
+           naming the design, splits and key split it ran, in f32 (atol
+           2e-5) and bf16 (per element 1e-5 + 2^-7 |ref|, under a 1e-2
+           ceiling); the check must reject a swapped page; B1's verify
+           rows must equal T = 1 calls at their positions exactly (max|d|
+           0); the library call is SDPA on pre-gathered pages;
          * B3 q4_matmul at every projection shape of qwen2.5-14b (K, N) and
            M in {1, 8, 37, 256, 512}, f32 and bf16 x, both against the
            plain version's f32 output to 1e-5 of max|ref| + 1e-5 |ref| (f32
@@ -25,14 +29,20 @@ Phase 2  hold each kernel against its plain torch version on the card and
            a weight with one group's scale doubled; the library call is
            cuBLAS ``x @ w`` on the weight dequantized beforehand; also at
            qwen1.5-32b's projection shapes at M = 2 and 10 (its verify);
-         * B5 flash_verify at qwen1.5-32b's verify (T 5, 40 heads MHA, D
-           128, kv_len 128-1024), its draft's decode (T 1, 16 heads, D 64),
-           qwen2.5-14b's dense decode (T 1, 40 over 8 heads, S 640), a
-           window with kv_len past S and fully masked rows, f32 and bf16,
-           against the plain version as B1 is; the check must reject a
-           cache whose newest line was overwritten; the library call is
-           SDPA on the contiguous cache with the causal-among-drafts mask;
-         * B1 also at T = 5 (the paged verify pass);
+         * B5 flash_verify (design 2 of the same tile kernel over the
+           contiguous cache) at qwen1.5-32b's verify (T 5, 40 heads MHA, D
+           128, kv_len 128-1024; also over its int8 cache with bf16
+           scales, as phase 7 runs it), its draft's decode (T 1, 16 heads,
+           D 64), qwen2.5-14b's dense decode (T 1, 40 over 8 heads, S
+           640), a window with kv_len past S and fully masked rows, f32
+           and bf16, against the plain version as B1 is, verify rows
+           against single steps exactly; the check must reject a cache
+           whose newest line was overwritten; the library call is SDPA on
+           the contiguous cache (dequantized beforehand for int8) with
+           the causal-among-drafts mask;
+         * B1, B2, B4 and B5 at head dims 16, 96 and 256 (staged
+           zero-padded to 64, 128 and 256), H 8 over 2, f32 and bf16, each
+           with its negative control (not timed);
          * B6 ssd_scan at mamba2-780m's prefill shapes (48 heads, P 64, N
            128): B 1 with S 1024, 1000 and 77 (ragged, shorter than a
            chunk) and B 2 with S 512, x, B and C strided as
@@ -52,7 +62,10 @@ Phase 4  a 4-layer full-width f32 copy: the paged engine (chunked, f32
          and int8 pages) with kernels against ``use_kernels(False)``:
          every launch agrees with its plain version on the same inputs;
          with f32 pages logits agree to 2e-4 of max|ref| and tokens are
-         equal; the dense engine's tokens equal the paged engine's.
+         equal; with int8 pages the (layer, page) pairs whose int8 bytes
+         differ between the two runs are counted (none differing while
+         the logits differ by more than 2e-4 is a fault); the dense
+         engine's tokens equal the paged engine's.
 Phase 5  the streamed q4 path at full width, all 48 layers, bf16: build
          qwen2.5-14b on the card one layer at a time from a seed, quantize
          each layer there as the serve driver does (and hold layer 0's
@@ -116,6 +129,15 @@ Phase 10 ssm parity at 4 layers, full width, f32 and an f32 cache: the
          ``use_kernels(False)``: every B6 (and B3) launch agrees with its
          plain version on the same inputs, logits agree to 2e-4 of
          max|ref| and tokens are equal.
+Phase 11 the CI smokes' shapes on the card: the reduced configs (head_dim
+         16) through ``python -m repro_torch.launch.serve --smoke --dtype
+         f32``, each in its own process, must exit 0 having launched
+         their kernels: (a) ``--prefill-chunk 8 --check-dense`` (B2, B1,
+         and B5 in the dense engine; equal tokens), (b) ``--prefill-chunk
+         8 --kv-quant-kernel`` (B4; no dense comparison, ROADMAP Queue C),
+         (c) ``--arch qwen1.5-32b --stream-window 2 --store-quant q4
+         --check-resident`` (its int8 dense cache through the fused B5,
+         and B3; streamed tokens equal resident).
 
 Prints the card's name and power limit again, the kernels' JSON line, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
@@ -141,12 +163,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12                       # H100 SXM, data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # bf16 tensor / f32 SIMT
 H, H_KV, D, BS = 40, 8, 128, 16             # qwen2.5-14b attention heads
-SOURCES = {"paged_verify": "src/repro_torch/kernels/csrc/paged_attention.cu",
-           "paged_prefill": "src/repro_torch/kernels/csrc/paged_tiles.cu",
-           "paged_verify_quant":
-               "src/repro_torch/kernels/csrc/paged_tiles.cu"}
+TILES_SOURCE = "src/repro_torch/kernels/csrc/paged_tiles.cu"
+SOURCES = {"paged_verify": TILES_SOURCE, "paged_prefill": TILES_SOURCE,
+           "paged_verify_quant": TILES_SOURCE}
 Q4_SOURCE = "src/repro_torch/kernels/csrc/q4_matmul.cu"
-FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+FLASH_SOURCE = TILES_SOURCE
 REPLACES = {"paged_verify": "src/repro/kernels/paged_decode.py:89",
             "paged_prefill": "src/repro/kernels/paged_prefill.py:99",
             "paged_verify_quant": "src/repro/kernels/paged_decode.py:214",
@@ -188,8 +209,24 @@ class Timer:
             times.append(a.elapsed_time(b))
         return float(np.median(times))
 
+    def graph(self, fn) -> float:
+        """The same median for ``fn`` captured once in a CUDA graph and
+        replayed: the device's work alone, without the host's work of the
+        call (Python checks, allocation, launch overhead)."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        return self(g.replay)
 
-def make_pages(torch, rng, *, B, nb, kv_len, sink_rows=()):
+
+def make_pages(torch, rng, *, B, nb, kv_len, sink_rows=(), h_kv=H_KV,
+               head_dim=D):
     """A pool with each sequence's live pages at random ids; table entries
     past ceil(kv_len/bs) are stale ids of other pages; ``sink_rows`` run
     as inactive slots (all-sink table, kv_len = T set by the caller)."""
@@ -202,8 +239,8 @@ def make_pages(torch, rng, *, B, nb, kv_len, sink_rows=()):
     for b in sink_rows:
         table[b] = 0
     # data at std 0.5 keeps |out| < 4, where bf16's half-ulp is < 1e-2
-    k = rng.standard_normal((P, BS, H_KV, D), dtype=np.float32) * 0.5
-    v = rng.standard_normal((P, BS, H_KV, D), dtype=np.float32) * 0.5
+    k = rng.standard_normal((P, BS, h_kv, head_dim), dtype=np.float32) * 0.5
+    v = rng.standard_normal((P, BS, h_kv, head_dim), dtype=np.float32) * 0.5
     dev = "cuda"
     return (torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev),
             torch.from_numpy(table.astype(np.int32)).to(dev))
@@ -287,6 +324,52 @@ def within(out, want, dtype):
     return max(ratio, float(err.max()) / 1e-2)
 
 
+def tile_label(pd, name, B, T, H_q, h_kv, head_dim, bs, nb, pool):
+    """The design a tile-kernel call runs, as phase 2 names it."""
+    plan = pd.tile_plan(B, T, H_q, h_kv, head_dim, bs, nb, pool=pool,
+                        kernel=name)
+    text = f"design {plan.design}"
+    if plan.design == 2:
+        unit = "lines" if name == "flash_verify" else "pages"
+        text += (f": {plan.n_split} splits of {plan.split_pages} {unit}, "
+                 f"key split {plan.key_split}")
+    if plan.d_pad != head_dim:
+        text += f", D padded to {plan.d_pad}"
+    return f"[{text}]"
+
+
+def verify_equals_steps(label, dtype, out, step, T):
+    """Row t of a T-row call against a T = 1 call at its position
+    (``step(t)``): max|d| must be exactly 0 (fixed split boundaries and key
+    split, blocks counted from a split's start)."""
+    worst = 0.0
+    for t in range(T):
+        d = (out[:, t:t + 1].float() - step(t).float()).abs().max()
+        worst = max(worst, float(d))
+    if worst != 0.0:
+        raise AssertionError(f"{label} {dtype}: a verify row differs from "
+                             f"a single step at its position by {worst}")
+    return worst
+
+
+def hold(label, dtype, out, want, control):
+    """The phase-2 rule: no NaN, ``out`` within the dtype's tolerance of
+    the f32 plain version, and the negative control outside it; returns
+    (max|err|, ratio, control ratio)."""
+    if bool(out.isnan().any()):
+        raise AssertionError(f"{label} {dtype}: NaN in kernel out")
+    err = float((out.float() - want.float()).abs().max())
+    ratio = within(out, want, dtype)
+    if ratio > 1.0:
+        raise AssertionError(f"{label} {dtype}: max|err| {err}, "
+                             f"{ratio:.3g}x the tolerance")
+    c = within(control, want, dtype)
+    if c <= 1.0:
+        raise AssertionError(f"{label} {dtype}: the check does not see its "
+                             f"negative control ({c:.3g}x the tolerance)")
+    return err, ratio, c
+
+
 def check_kernels(torch, timer, rng):
     """Phase 2; returns the JSON rows (bf16 measurements) by kernel."""
     from repro_torch.kernels import paged_decode as pd
@@ -316,16 +399,9 @@ def check_kernels(torch, timer, rng):
         cases.append(("paged_verify_quant", f"B4 S={S} kv_len={n}", S,
                       np.array([n]), None, ()))
     rows = {}
-    for name, label, T, kvl, window, sinks in cases:
+    for name, label0, T, kvl, window, sinks in cases:
         Bc = len(kvl)
-        if name != "paged_verify":
-            plan = pd.tile_plan(Bc, T, H, H_KV, D, BS, nb,
-                                quant=name == "paged_verify_quant")
-            label += f" [design {plan.design}"
-            if plan.design == 2:
-                label += (f": {plan.n_split} splits of {plan.split_pages} "
-                          f"pages, key split {plan.key_split}")
-            label += "]"
+        quant = name == "paged_verify_quant"
         k32, v32, table = make_pages(torch, rng, B=Bc, nb=nb, kv_len=kvl,
                                      sink_rows=sinks)
         # negative control: one sequence's newest page swapped for another
@@ -340,7 +416,10 @@ def check_kernels(torch, timer, rng):
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
             q = q32.to(dt)
-            if name == "paged_verify_quant":
+            label = f"{label0} " + tile_label(
+                pd, name, Bc, T, H, H_KV, D, BS, nb,
+                torch.int8 if quant else dt)
+            if quant:
                 kq, ks = quantize_kv(k32)
                 vq, vs = quantize_kv(v32)
                 ks, vs = ks.to(dt), vs.to(dt)     # scales in the pool dtype
@@ -371,32 +450,32 @@ def check_kernels(torch, timer, rng):
             out = kern()
             torch.cuda.synchronize()
             want = plain32()
-            if torch.isnan(out).any():
-                raise AssertionError(f"{label} {dtype}: NaN in kernel out")
-            err = float((out.float() - want.float()).abs().max())
-            ratio = within(out, want, dtype)
-            if ratio > 1.0:
-                raise AssertionError(f"{label} {dtype}: max|err| {err}, "
-                                     f"{ratio:.3g}x the tolerance")
-            control = within(plain32(bad_table).to(dt), want, dtype)
-            if control <= 1.0:
-                raise AssertionError(f"{label} {dtype}: the check does not "
-                                     f"see a swapped page ({control:.3g}x "
-                                     f"the tolerance)")
+            err, ratio, control = hold(label, dtype, out, want,
+                                       plain32(bad_table).to(dt))
+            steps = ""
+            if name == "paged_verify" and T > 1:
+                worst = verify_equals_steps(
+                    label, dtype, out, lambda t: pd.paged_verify(
+                        q[:, t:t + 1], k, v, table, kv_len - (T - 1 - t)),
+                    T)
+                steps = (f"; each of the {T} rows equals a T=1 call at its "
+                         f"position (max|d| {worst})")
             ms = timer(kern)
             plain_ms = timer(plain)
             lib_ms = timer(lib)
+            dev_ms, dev_lib = timer.graph(kern), timer.graph(lib)
             kv_pos, keys = visible(kvl, T, window)
-            quant = name == "paged_verify_quant"
             bms, by = bound_ms(q_elems=q.numel(), elt=q.element_size(),
                                kv_pos=kv_pos, keys=keys, dtype=dtype,
                                kv_elt=1 if quant else None,
                                scale_elt=q.element_size() if quant else 0)
             log(f"  {label} {dtype}: max|err| {err:.3g}, {ratio:.3g}x the "
-                f"tolerance (a swapped page: {control:.3g}x); "
+                f"tolerance (a swapped page: {control:.3g}x){steps}; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on "
                 f"pre-gathered pages (library_ms) {lib_ms:.4f} ms, bound "
-                f"{bms * 1e3:.2f} us ({by})")
+                f"{bms * 1e3:.2f} us ({by}); replayed from a CUDA graph "
+                f"(device alone): kernel {dev_ms:.4f} ms, SDPA "
+                f"{dev_lib:.4f} ms")
             # the JSON row: each kernel at the shape it runs most often
             main_shape = label.startswith(("B1 T=1", "B4 T=1", "B2 S=256 "
                                            "kv_len=1024 window=None"))
@@ -507,17 +586,21 @@ def check_q4(torch, timer, rng):
 
 
 #: B5 cases: (label, B, T, H, h_kv, D, S, kv_len or None (drawn from
-#: [lo, S]), lo, window). The JSON row: qwen1.5-32b's verify at kv_len
-#: 1024 in bf16, 64 launches of every cycle of phase 7.
+#: [lo, S]), lo, window, int8 cache). The JSON row: qwen1.5-32b's verify
+#: at kv_len 1024 over a bf16 cache, in bf16; phase 7 runs the same shape
+#: over the int8 cache (the int8 row).
 FLASH_CASES = (
     ("B5 32B verify T=5 kv_len=1024", 2, 5, 40, 40, 128, 1024, (1024, 1024),
-     0, None),
-    ("B5 32B verify T=5", 2, 5, 40, 40, 128, 1024, None, 128, None),
-    ("B5 draft decode T=1", 2, 1, 16, 16, 64, 1024, None, 128, None),
-    ("B5 14B decode T=1", 8, 1, 40, 8, 128, 640, None, 64, None),
+     0, None, False),
+    ("B5 32B verify T=5 kv_len=1024 int8 cache", 2, 5, 40, 40, 128, 1024,
+     (1024, 1024), 0, None, True),
+    ("B5 32B verify T=5", 2, 5, 40, 40, 128, 1024, None, 128, None, False),
+    ("B5 draft decode T=1", 2, 1, 16, 16, 64, 1024, None, 128, None, False),
+    ("B5 14B decode T=1", 8, 1, 40, 8, 128, 640, None, 64, None, False),
     # rows of sequence 0 sit before position 0, sequence 3's past the
     # window's reach of the cache: fully masked; kv_len 700 > S
-    ("B5 window=64 T=5", 4, 5, 40, 8, 128, 640, (3, 300, 700, 800), 0, 64),
+    ("B5 window=64 T=5", 4, 5, 40, 8, 128, 640, (3, 300, 700, 800), 0, 64,
+     False),
 )
 FLASH_ROW = "B5 32B verify T=5 kv_len=1024"
 
@@ -537,9 +620,11 @@ def fully_masked(kv_len, T, S, window):
 def check_flash(torch, timer, rng):
     """Phase 2, B5; returns its JSON row (the bf16 32B verify)."""
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models.layers import quantize_kv
 
     row = None
-    for label, B, T, Hh, hk, Dd, S, kvl, lo, window in FLASH_CASES:
+    for label0, B, T, Hh, hk, Dd, S, kvl, lo, window, int8 in FLASH_CASES:
         if kvl is None:
             kvl = rng.integers(lo, S + 1, B)
         kvl = np.asarray(kvl)
@@ -553,51 +638,83 @@ def check_flash(torch, timer, rng):
         # negative control: sequence 1's newest line, which all of its
         # rows see, overwritten with its line 0
         newest = min(int(kvl[1]), S) - 1
+        if int8:           # the dense cache's layout: int8 + bf16 scales
+            (k8, ks), (v8, vs) = quantize_kv(k32), quantize_kv(v32)
+            ks, vs = ks.to(torch.bfloat16), vs.to(torch.bfloat16)
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
-            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            q = q32.to(dt)
+            if int8:
+                k, v, sc = k8, v8, (ks, vs)
+            else:
+                k, v, sc = k32.to(dt), v32.to(dt), (None, None)
             bad_k, bad_v = k.clone(), v.clone()
             bad_k[1, newest] = k[1, 0]
             bad_v[1, newest] = v[1, 0]
-            kern = lambda: fd.flash_verify(q, k, v, kv_len, window=window)
-            plain32 = lambda kk=k, vv=v: fd.flash_verify_ref(
-                q.float(), kk.float(), vv.float(), kv_len, window=window)
-            plain = lambda: fd.flash_verify_ref(q, k, v, kv_len,
-                                                window=window)
-            lib = sdpa_on_cache(torch, q, k, v, kv_len, window)
+            bad_sc = tuple(None if t is None else t.clone() for t in sc)
+            for t in bad_sc:
+                if t is not None:
+                    t[1, newest] = t[1, 0]
+            label = f"{label0} " + tile_label(
+                pd, "flash_verify", B, T, Hh, hk, Dd, 1, S,
+                torch.int8 if int8 else dt)
+
+            def kern(q=q, kv_len=kv_len):
+                return fd.flash_verify(q, k, v, kv_len, window=window,
+                                       k_scale=sc[0], v_scale=sc[1])
+
+            def plain32(kk=k, vv=v, s=sc):
+                return fd.flash_verify_ref(q.float(), kk, vv, kv_len,
+                                           window=window, k_scale=s[0],
+                                           v_scale=s[1])
+
+            def plain():
+                return fd.flash_verify_ref(q, k, v, kv_len, window=window,
+                                           k_scale=sc[0], v_scale=sc[1])
+
+            if int8:
+                lib = sdpa_on_cache(torch, q, (ks.float()[..., None]
+                                               * k.float()).to(dt),
+                                    (vs.float()[..., None]
+                                     * v.float()).to(dt), kv_len, window)
+            else:
+                lib = sdpa_on_cache(torch, q, k, v, kv_len, window)
             out = kern()
             torch.cuda.synchronize()
             want = plain32()
-            if torch.isnan(out).any():
-                raise AssertionError(f"{label} {dtype}: NaN in kernel out")
-            err = float((out.float() - want.float()).abs().max())
-            ratio = within(out, want, dtype)
-            if ratio > 1.0:
-                raise AssertionError(f"{label} {dtype}: max|err| {err}, "
-                                     f"{ratio:.3g}x the tolerance")
-            control = within(plain32(bad_k, bad_v).to(dt), want, dtype)
-            if control <= 1.0:
-                raise AssertionError(f"{label} {dtype}: the check does not "
-                                     f"see an overwritten line "
-                                     f"({control:.3g}x the tolerance)")
+            err, ratio, control = hold(
+                label, dtype, out, want,
+                plain32(bad_k, bad_v, bad_sc).to(dt))
             for b, t in fully_masked(kvl, T, S, window):
                 if float(out[b, t].float().abs().max()) != 0.0:
                     raise AssertionError(f"{label}: fully masked row "
                                          f"({b}, {t}) is not 0")
+            steps = ""
+            if T > 1:
+                worst = verify_equals_steps(
+                    label, dtype, out, lambda t: kern(
+                        q[:, t:t + 1], kv_len - (T - 1 - t)), T)
+                steps = (f"; each of the {T} rows equals a T=1 call at its "
+                         f"position (max|d| {worst})")
             ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
+            dev_ms, dev_lib = timer.graph(kern), timer.graph(lib)
             kv_pos, keys = visible(kvl, T, window, S)
             bms, by = bound_ms(q_elems=q.numel(), elt=q.element_size(),
                                kv_pos=kv_pos, keys=keys, dtype=dtype,
+                               kv_elt=1 if int8 else None,
+                               scale_elt=2 if int8 else 0,
                                h_kv=hk, head_dim=Dd, heads=Hh)
             n_masked = len(fully_masked(kvl, T, S, window))
             log(f"  {label} B={B} H={Hh} h_kv={hk} D={Dd} S={S} kv_len="
                 f"{kvl.tolist()} {dtype} ({n_masked} fully masked rows, "
                 f"0 as required): max|err| {err:.3g}, {ratio:.3g}x "
-                f"the tolerance (an overwritten line: {control:.3g}x); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
-                f"cache (library_ms) {lib_ms:.4f} ms, bound "
-                f"{bms * 1e3:.2f} us ({by})")
-            if dtype == "bfloat16" and label == FLASH_ROW:
+                f"the tolerance (an overwritten line: {control:.3g}x)"
+                f"{steps}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"SDPA on the {'dequantized ' if int8 else ''}cache "
+                f"(library_ms) {lib_ms:.4f} ms, bound {bms * 1e3:.2f} us "
+                f"({by}); replayed from a CUDA graph (device alone): kernel "
+                f"{dev_ms:.4f} ms, SDPA {dev_lib:.4f} ms")
+            if dtype == "bfloat16" and label0 == FLASH_ROW:
                 row = {"name": "flash_verify", "route": "cuda",
                        "source": FLASH_SOURCE,
                        "replaces": REPLACES["flash_verify"],
@@ -606,6 +723,116 @@ def check_flash(torch, timer, rng):
                        "bound_by": by, "library_ms": lib_ms}
         del k32, v32, q32
     return row
+
+
+#: head dims off the main path: the tiles are staged zero-padded to 64
+#: (D 16: the CI smokes' reduced configs), 128 (96) and 256 (256)
+HEAD_DIMS = (16, 96, 256)
+
+
+def check_head_dims(torch, rng):
+    """Phase 2 at D = 16, 96 and 256: B1 (T 1 and 5), B2 (a 48-row chunk),
+    B4 (T 1, and a 40-row chunk: design 1) and B5 (T 5, a window, kv_len
+    past a ragged S; float and int8 cache) in f32 and bf16, each held to
+    the phase-2 rule with its negative control, and B1's and B5's verify
+    rows to single steps, exactly. Not timed."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.models.layers import quantize_kv
+
+    Hq, hk, B, nb, S = 8, 2, 3, 32, 300
+    for Dd in HEAD_DIMS:
+        cases = [("paged_verify", 1), ("paged_verify", 5),
+                 ("paged_prefill", 48), ("paged_verify_quant", 1),
+                 ("paged_verify_quant", 40), ("flash_verify", 5),
+                 ("flash_int8", 5)]
+        for name, T in cases:
+            q32 = torch.from_numpy(rng.standard_normal(
+                (B, T, Hq, Dd), dtype=np.float32)).cuda()
+            flash = name.startswith("flash")
+            kvl = np.array([S - 7, S + 9, 150]) if flash else \
+                rng.integers(T + 60, nb * BS + 1, B)
+            kv_len = torch.from_numpy(kvl.astype(np.int32)).cuda()
+            if flash:
+                k32 = torch.from_numpy(rng.standard_normal(
+                    (B, S, hk, Dd), dtype=np.float32) * 0.5).cuda()
+                v32 = torch.from_numpy(rng.standard_normal(
+                    (B, S, hk, Dd), dtype=np.float32) * 0.5).cuda()
+                newest = min(int(kvl[1]), S) - 1
+            else:
+                k32, v32, table = make_pages(torch, rng, B=B, nb=nb,
+                                             kv_len=kvl, h_kv=hk,
+                                             head_dim=Dd)
+                bad_table = table.clone()
+                last = (int(kvl[-1]) - 1) // BS
+                bad_table[-1, last] = table[-1, 0]
+            window = 64 if flash else None
+            int8 = name in ("paged_verify_quant", "flash_int8")
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                q = q32.to(dt)
+                if int8:    # scales: the dense cache's bf16, a pool's dtype
+                    sdt = torch.bfloat16 if flash else dt
+                    (k, ks), (v, vs) = quantize_kv(k32), quantize_kv(v32)
+                    ks, vs = ks.to(sdt), vs.to(sdt)
+                else:
+                    k, v, ks, vs = k32.to(dt), v32.to(dt), None, None
+                pool = torch.int8 if int8 else dt
+                if flash:
+                    label = f"B5 D={Dd} T={T}{' int8' if int8 else ''} " + \
+                        tile_label(pd, "flash_verify", B, T, Hq, hk, Dd, 1,
+                                   S, pool)
+                    bk, bv = k.clone(), v.clone()
+                    bk[1, newest], bv[1, newest] = k[1, 0], v[1, 0]
+
+                    def kern(qq=q, n=kv_len):
+                        return fd.flash_verify(qq, k, v, n, window=window,
+                                               k_scale=ks, v_scale=vs)
+
+                    def plain32(kk=k, vv=v):
+                        return fd.flash_verify_ref(q.float(), kk, vv, kv_len,
+                                                   window=window, k_scale=ks,
+                                                   v_scale=vs)
+                    control = plain32(bk, bv)
+                else:
+                    tag = {"paged_verify": "B1", "paged_prefill": "B2",
+                           "paged_verify_quant": "B4"}[name]
+                    label = f"{tag} D={Dd} T={T} " + tile_label(
+                        pd, name, B, T, Hq, hk, Dd, BS, nb, pool)
+                    if int8:
+                        def kern(qq=q, n=kv_len):
+                            return pd.paged_verify_quant(qq, k, v, ks, vs,
+                                                         table, n)
+
+                        def plain32(tab=table):
+                            return pd.paged_verify_quant_ref(
+                                q.float(), k, v, ks, vs, tab, kv_len)
+                    else:
+                        wrap = pp.paged_prefill if name == "paged_prefill" \
+                            else pd.paged_verify
+                        ref = pp.paged_prefill_ref \
+                            if name == "paged_prefill" else pd.paged_verify_ref
+
+                        def kern(qq=q, n=kv_len, wrap=wrap):
+                            return wrap(qq, k, v, table, n)
+
+                        def plain32(tab=table, ref=ref):
+                            return ref(q.float(), k.float(), v.float(), tab,
+                                       kv_len)
+                    control = plain32(bad_table)
+                out = kern()
+                torch.cuda.synchronize()
+                want = plain32()
+                err, ratio, c = hold(label, dtype, out, want, control.to(dt))
+                steps = ""
+                if T == 5 and name != "paged_verify_quant":
+                    verify_equals_steps(label, dtype, out, lambda t: kern(
+                        q[:, t:t + 1], kv_len - (T - 1 - t)), T)
+                    steps = "; verify rows equal single steps exactly"
+                log(f"  {label} {dtype}: max|err| {err:.3g}, {ratio:.3g}x "
+                    f"the tolerance (negative control: {c:.3g}x){steps}")
+            del k32, v32
 
 
 #: mamba2-780m's SSD geometry: 48 heads of P 64, state N 128, d_inner 3072
@@ -911,10 +1138,11 @@ def traced_paged_run(torch, params, cfg, reqs, args):
         return out
 
     eng.admit, eng.chunk_step, eng.decode = admit_, chunk_step_, decode_
-    fin, _ = eng.run(kv.init_cache(), reqs)
+    cache = kv.init_cache()
+    fin, _ = eng.run(cache, reqs)
     check_served({"finished": fin, "rejected": eng.rejected,
                   "requests": reqs})
-    return {f.uid: f.tokens for f in fin}, logits
+    return {f.uid: f.tokens for f in fin}, logits, cache["pages"]
 
 
 def compare_runs(kern, plain):
@@ -922,8 +1150,9 @@ def compare_runs(kern, plain):
     difference the contexts are equal, so the logits there measure the
     two paths' numerical agreement; a differing token ends the comparison
     of its stream. Returns (worst max|d|/max|ref|, streams equal,
-    [(uid, token, top-2 gap / max|ref|, max|d|/max|ref| there)])."""
-    (sk, lk), (sp, lp) = kern, plain
+    [(uid, token, top-2 gap / max|ref|, max|d|/max|ref| there)]). A run
+    may carry more than (tokens, logits); the rest is not compared."""
+    (sk, lk), (sp, lp) = kern[:2], plain[:2]
     worst, n_equal, splits = 0.0, 0, []
     for uid, toks in sp.items():
         n_equal += sk[uid] == toks
@@ -937,6 +1166,19 @@ def compare_runs(kern, plain):
                                rel))
                 break
     return worst, n_equal, splits
+
+
+def int8_flips(torch, a, b):
+    """Two runs' final int8 pools: the (layer, page) pairs whose K or V
+    bytes differ, the bytes that differ, and the pairs in all."""
+    pairs = torch.zeros(a["k"].shape[:2], dtype=torch.bool,
+                        device=a["k"].device)
+    n_bytes = 0
+    for name in ("k", "v"):
+        d = a[name] != b[name]
+        pairs |= d.flatten(2).any(-1)
+        n_bytes += int(d.sum())
+    return int(pairs.sum()), n_bytes, pairs.numel()
 
 
 @contextlib.contextmanager
@@ -1039,6 +1281,16 @@ def parity(torch, ops, serve) -> None:
             raise AssertionError(f"{label}: kernel and plain-version runs "
                                  f"disagree (bound {LOGIT_REL}, streams "
                                  f"all equal)")
+        if quant:
+            flips = int8_flips(torch, kern[2], plain[2])
+            log(f"  {label}: (layer, page) pairs whose int8 K/V bytes differ "
+                f"between the kernel and plain runs at the end: "
+                f"{flips[0]} of {flips[2]} ({flips[1]} bytes)")
+            if flips[0] == 0 and worst > LOGIT_REL:
+                raise AssertionError(
+                    f"{label}: logits differ by {worst:.3g} of max|ref| "
+                    f"(over {LOGIT_REL}) though no int8 byte of any page "
+                    f"differs: not a rounding flip")
         if quant:
             with substituted(ops, "plain"):
                 other = traced_paged_run(torch, params, c, reqs, args)
@@ -2170,6 +2422,61 @@ def ssm_parity(torch, ops, serve) -> None:
 
 
 # --------------------------------------------------------------------------- #
+#  phase 11: the CI smokes' shapes on the card
+# --------------------------------------------------------------------------- #
+
+#: (label, serve flags, kernels that must have launched): the reduced
+#: configs (head_dim 16) through ``repro_torch.launch.serve --smoke
+#: --dtype f32``, each in a process of its own
+CI_SMOKES = (
+    ("(a) paged, chunks of 8, tokens equal to the dense engine's",
+     ["--prefill-chunk", "8", "--check-dense"],
+     ("paged_prefill", "paged_verify", "flash_verify")),
+    # int8 pages with chunked admission never match the dense engine
+    # (ROADMAP Queue C): no dense comparison
+    ("(b) int8 pages, chunks of 8", ["--prefill-chunk", "8",
+                                     "--kv-quant-kernel"],
+     ("paged_verify_quant",)),
+    ("(c) qwen1.5-32b (int8 dense cache) from a q4 store, streamed with a "
+     "window of 2, tokens equal to resident",
+     ["--arch", "qwen1.5-32b", "--stream-window", "2", "--store-quant",
+      "q4", "--check-resident"], ("flash_verify", "q4_matmul")),
+)
+
+
+def ci_smokes() -> None:
+    """Phase 11: each CI smoke shape must exit 0 on the card, having
+    launched its kernels (the last ``kernel launches`` line it prints)."""
+    import ast
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    for label, flags, kernels in CI_SMOKES:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+               "--dtype", "f32", *flags]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: {' '.join(cmd[1:])} exited "
+                                 f"{proc.returncode}\n{proc.stdout[-4000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if "kernel launches" in ln]
+        counts = ast.literal_eval(lines[-1].split("kernel launches", 1)[1]
+                                  .strip()) if lines else {}
+        idle = [k for k in kernels if not counts.get(k)]
+        if idle:
+            raise AssertionError(f"{label}: {idle} never launched "
+                                 f"({counts})")
+        checks = [ln.strip() for ln in proc.stdout.splitlines()
+                  if "identical" in ln]
+        log(f"  {label}: exit 0 in {time.perf_counter() - t0:.1f} s; "
+            f"launches {counts}; {'; '.join(checks)}")
+
+
+# --------------------------------------------------------------------------- #
 
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
@@ -2216,6 +2523,7 @@ def main() -> int:
     rows["q4_matmul"] = check_q4(torch, timer, np.random.default_rng(1))
     rows["flash_verify"] = check_flash(torch, timer,
                                        np.random.default_rng(2))
+    check_head_dims(torch, np.random.default_rng(4))
     rows["ssd_scan"] = check_ssd(torch, timer, np.random.default_rng(3))
     log(f"  phase 2 done at {time.perf_counter() - t_start:.0f} s")
 
@@ -2257,6 +2565,11 @@ def main() -> int:
     log("== phase 10: ssm parity, 4 layers full width f32")
     ssm_parity(torch, ops, serve)
     log(f"  phase 10 done at {time.perf_counter() - t_start:.0f} s")
+
+    log("== phase 11: the CI smokes' shapes (reduced configs, head_dim 16) "
+        "on the card")
+    ci_smokes()
+    log(f"  phase 11 done at {time.perf_counter() - t_start:.0f} s")
 
     counts["q4_matmul"] = stream_counts["q4_matmul"]
     counts["flash_verify"] = spec_counts["flash_verify"]

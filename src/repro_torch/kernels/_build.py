@@ -22,10 +22,8 @@ from typing import Dict
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> CUDA source
-SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
-           "paged_tiles": _CSRC / "paged_tiles.cu",
+SOURCES = {"paged_tiles": _CSRC / "paged_tiles.cu",
            "q4_matmul": _CSRC / "q4_matmul.cu",
-           "flash_decode": _CSRC / "flash_decode.cu",
            "ssd_scan": _CSRC / "ssd_scan.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -120,23 +118,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ssd_scan_smem_bytes.argtypes = [I, I, I]
         lib.ssd_scan_smem_bytes.restype = L
         return
-    if name == "flash_decode":
-        lib.flash_verify.argtypes = [P] * 5 + [I] * 9 + [F] + [L] * 6 + [P]
-        lib.flash_verify.restype = I
-        lib.flash_decode_smem_bytes.argtypes = [I, I, I, I]
-        lib.flash_decode_smem_bytes.restype = L
-        return
-    if name == "paged_tiles":
-        lib.paged_tiles.argtypes = [P] * 10 + [I] * 11 + [F] + [I] * 3 + \
-            [L] * 9 + [P]
-        lib.paged_tiles.restype = I
-        lib.paged_tiles_smem_bytes.argtypes = [I, I, I, I, I]
-        lib.paged_tiles_smem_bytes.restype = L
-        return
-    lib.paged_verify.argtypes = [P] * 6 + [I] * 10 + [F] + [L] * 6 + [P]
-    lib.paged_verify.restype = I
-    lib.paged_attention_smem_bytes.argtypes = [I, I, I, I, I]
-    lib.paged_attention_smem_bytes.restype = L
+    lib.paged_tiles.argtypes = [P] * 10 + [I] * 12 + [F] + [I] * 3 + \
+        [L] * 9 + [P]
+    lib.paged_tiles.restype = I
+    lib.paged_tiles_smem_bytes.argtypes = [I, I, I, I, I]
+    lib.paged_tiles_smem_bytes.restype = L
 
 
 def load(name: str) -> ctypes.CDLL:

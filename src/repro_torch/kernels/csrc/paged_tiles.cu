@@ -1,52 +1,90 @@
-// Paged attention on Hopper's tensor cores (sm_90a): chunked prefill over
-// float pages and decode, verify and chunked admission over int8 pages.
+// Decode, verify and chunked-prefill attention on Hopper's tensor cores
+// (sm_90a), over a paged pool (float or int8 pages) or a contiguous cache
+// (float or int8 lines): every attention kernel of the port.
 //
 // Replaces the Pallas TPU kernels
+//   B1 src/repro/kernels/paged_decode.py  paged_verify / paged_decode
 //   B2 src/repro/kernels/paged_prefill.py paged_prefill
 //   B4 src/repro/kernels/paged_decode.py  paged_verify_quant /
 //                                          paged_decode_quant
-// (B1, paged_verify over float pages, stays in paged_attention.cu.)
+//   B5 src/repro/kernels/flash_decode.py  flash_verify / flash_decode
+// (B5 over an int8 cache fuses the model's dequantize-then-attend.)
 //
 // What each computes: GQA flash attention of R = T*n_rep query rows of one
-// (sequence b, kv head h) against that sequence's pages (P, bs, h_kv, D),
-// routed through table[b, :]. Row (t, rep) sits at absolute position
-// kv_len[b] - T + t and sees positions <= its own (and > own - window when
-// a window is set). Online softmax (m, l, acc) in f32; a fully masked row
-// returns 0 (l floored at 1e-30).
+// (sequence b, kv head h). Row r = t*n_rep + rep reads query head
+// h*n_rep + rep, sits at absolute position kv_len[b] - T + t and sees
+// positions <= its own (and > own - window when a window is set). Paged:
+// key j of sequence b is slot j % bs of page table[b, j / bs]; contiguous:
+// key j is line j of the cache, base + b*sb + j*ss + h*sh through the
+// caller's strides, and only the first S lines exist (kv_len may exceed S).
+// Online softmax (m, l, acc) in f32; a fully masked row returns 0 (l
+// floored at 1e-30).
 //
 // What bounds it on the H100:
 //   * B2, and B4 on a prompt chunk (S = 256 rows x 5 heads of a group
 //     against up to 2048 keys): operations. Each K/V byte feeds up to 1280
 //     rows, above the card's ~295 flop/byte ridge; the work is ~4.7 GFLOP
 //     at S = 256, kv_len 1024 (about 5 us of bf16 tensor-core time).
-//   * B4 at decode and verify (T*n_rep <= 64 rows): bytes. Each int8 K/V
-//     byte is read once and used by a handful of rows.
+//   * B1, B4 and B5 at decode and verify (T*n_rep <= 64 rows): bytes. Each
+//     K/V byte is read once and used by a handful of rows.
 //
 // What this design does about it:
-//   * Design 1, the chunk-row tile (every B2 call, B4 when T*n_rep > 64):
-//     one CTA per (128-row tile, kv head, sequence), 8 warps of 16 rows.
-//     The rows pack the n_rep query heads of a group, so each K/V block is
-//     staged once for all of them. The tile walks its live keys in blocks
-//     of 64 (32 for f32 pages): cp.async 16-byte copies, routed per key
-//     through the table (one page id a thread a block, looked up a block
-//     ahead), into a ring of 2 (float pages) or 3 (int8) stages, so the
-//     next blocks' gather overlaps this block's products. S = Q.K^T and
-//     O += P.V run on mma.sync m16n8k16 (bf16 operands, f32 sums) fed by
-//     ldmatrix from rows padded by 16 bytes (no bank conflicts). Masks are
-//     applied only on blocks that cross a row's causal or window frontier;
-//     pages past the tile's frontier or wholly behind its window are never
-//     loaded. Softmax runs in base 2 (the scale folds in log2 e).
-//   * Design 2, split pages (B4 when T*n_rep <= 64): the same tile code
-//     with 4 warps and the key walk cut into splits of 256 keys, one CTA
-//     per (split, kv head, sequence), so a decode step runs
-//     B * h_kv * n_split CTAs instead of B * h_kv. With <= 16 rows the 4
-//     warps share one 16-row tile and each takes a quarter of every key
-//     block; they merge in shared memory in warp order. A 4-stage ring
-//     holds a whole split in flight at once. Each CTA writes (acc, m, l)
-//     to scratch; a second kernel merges the splits in split order (the
-//     merge_attention_stats rule), so the result does not depend on
-//     scheduling. n_split comes from the table's width on the host, never
-//     from kv_len.
+//   * Design 1, the chunk-row tile (every B2 call, B1 and B4 when
+//     T*n_rep > 64): one CTA per (128-row tile, kv head, sequence), 8 warps
+//     of 16 rows. The rows pack the n_rep query heads of a group, so each
+//     K/V block is staged once for all of them. The tile walks its live
+//     keys in blocks of 64 (32 for f32 pages): cp.async 16-byte copies,
+//     routed per key through the table (one page id a thread a block,
+//     looked up a block ahead), into a ring of 2 (float pages) or 3 (int8)
+//     stages, so the next blocks' gather overlaps this block's products.
+//     S = Q.K^T and O += P.V run on mma.sync m16n8k16 (bf16 operands, f32
+//     sums) fed by ldmatrix from rows padded by 16 bytes (no bank
+//     conflicts). Masks are applied only on blocks that cross a row's
+//     causal or window frontier; keys past the tile's frontier or wholly
+//     behind its window are never loaded. Softmax runs in base 2 for bf16
+//     results (the scale folds in log2 e).
+//   * Design 2, split keys (B1, B4 at T*n_rep <= 64; every B5 call): the
+//     same tile code with 4 warps and the key walk cut into splits of 256
+//     keys, one CTA per (row tile, split, kv head, sequence), so a decode
+//     step runs B * h_kv * n_split CTAs instead of B * h_kv. The KS warps
+//     of a row tile share it, each taking a fixed part of every key block
+//     (KS = 4 warps on a 16-row tile, 2 on each of two 16-row tiles for
+//     f32 pools; int8 pages at D_pad <= 128 keep the plan of the rows, KS
+//     4, 2 or 1 at <= 16, <= 32, <= 64 rows), and merge in shared memory
+//     in warp order. Each CTA writes
+//     (acc, m, l) to scratch; a second kernel merges the splits in split
+//     order (the merge_attention_stats rule), so the result does not
+//     depend on scheduling. n_split comes from the table's width (the
+//     cache's S) on the host, never from kv_len.
+//   * A verify row equals a decode step to the bit (float pools, caches,
+//     and int8 pages up to 16 rows or at D_pad 256). The split boundaries,
+//     the key split and the rows a tile holds are fixed by the pool alone,
+//     the walk starts at a block boundary counted from the split's start
+//     (never at the tile's oldest row), the m16n8k16 product computes each
+//     row on its own, and a block a row cannot see leaves its (m, l, acc)
+//     exactly as they were. So row t of a T = 5 call sums what a T = 1 call
+//     at its position sums, in the same order.
+//   * Head dims: any D = 0 (mod 16) up to 256 runs on a tile built for
+//     D_pad = 64, 128 or 256. q, K and V rows are staged D_pad wide with
+//     columns D..D_pad zero-filled (every 16-byte chunk of a row is whole:
+//     int8 rows are D bytes, bf16 2D, f32 4D). The zero columns add exact
+//     zeros to Q.K^T and fill output columns that are never stored.
+//   * Dynamic shared memory a CTA takes (Layout::BYTES, bytes; the CTA
+//     adds 1024 of static m, l, and the limit is 232448), by q dtype, pool
+//     dtype and D_pad:
+//                        design 1                design 2
+//       q    pool     64      128     256      64      128     256
+//       f32  f32   115712  222208  217600   74240  143872  217600
+//       f32  bf16   92160  174080  168960   43776   82688  160512
+//       f32  int8   99840  189952  185088   60160  115456  226048
+//       bf16 f32    78848  152576  150016   65024  126464  183808
+//       bf16 bf16   55296  104448  101376   39168   73984  143616
+//       bf16 int8   62976  120320  117504   55552  106752  209152
+//     (design 2 at the fixed key split; int8 pages at key split 2 and 1:
+//     f32 q 67072 / 80896 at D_pad 64, 128512 / 154624 at 128; bf16 q
+//     57856 / 62464 and 111104 / 119808.) D_pad 256 takes a smaller layout: design 1 runs 4 warps (64-row
+//     tiles) on blocks of half the keys, and design 2 over f32 pages keeps
+//     one ring stage.
 //   * Precision. A bf16 product of the f32 P loses the outputs near zero,
 //     so P enters as bf16 pieces that sum to it: hi + lo for a bf16 result
 //     (then rounded once to bf16), hi + mid + lo for an f32 one. f32 q and
@@ -59,9 +97,9 @@
 //     multiplies the f32 score after the product and v_scale is folded
 //     into P before it is split. The softmax scale multiplies the f32
 //     score, never q.
-//   * The pools are read in their stored layout through their strides and
-//     q in place as (B, T, H, D); int8 pages cross HBM as int8 (converted
-//     in shared memory), scales as their stored dtype.
+//   * The pools and caches are read in their stored layout through their
+//     strides and q in place as (B, T, H, D); int8 lines cross HBM as int8
+//     (converted in shared memory), scales as their stored dtype.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,13 +114,15 @@ constexpr unsigned kFull = 0xffffffffu;
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 struct Geo {
-  int T, H, h_kv, bs, nb, window;        // window <= 0: none
+  int T, H, h_kv, D, bs, nb, window;     // window <= 0: none; D <= D_pad
   int rows, n_rep;                       // rows = T * n_rep
   int n_split, split_pages;              // key walk cut into n_split CTAs
   float scale;                           // 1/sqrt(D), rounded on the host
   long long q_sb, q_st, q_sh;            // q strides (elements); d contiguous
-  long long kv_sp, kv_ss, kv_sh;         // pool strides; d contiguous
-  long long sc_sp, sc_ss, sc_sh;         // scale strides (int8 pools only)
+  // pool strides (page, slot, head) or cache strides (sequence, line,
+  // head); d contiguous. The scales' likewise (int8 only).
+  long long kv_sp, kv_ss, kv_sh;
+  long long sc_sp, sc_ss, sc_sh;
 };
 
 // bf16 pieces an operand of type T enters the products as: an f32 x is
@@ -90,17 +130,29 @@ struct Geo {
 template <typename T> struct Pieces { static constexpr int n = 1; };
 template <> struct Pieces<float> { static constexpr int n = 3; };
 
+// design 2's key split where the caller does not choose it: the pool alone
+// fixes it (f32 blocks of 32 keys feed 2 warps; the others' 64 keys, 4)
+template <typename KT>
+constexpr int kFixedSplit = sizeof(KT) == 4 ? 2 : 4;
+
 template <typename QT, typename KT, int D, int KS, bool kPartial>
 struct Layout {
   static constexpr bool kQuant = sizeof(KT) == 1;
   static constexpr bool kDirect = sizeof(KT) == 2;   // bf16: mma reads the ring
-  static constexpr int N = sizeof(KT) == 4 ? 32 : 64;  // keys a block
+  static constexpr bool kWide = D > 128;             // D_pad 256
+  // keys a block: 64 (32 for f32 pools), halved for design 1 at D_pad 256
+  static constexpr int N =
+      (sizeof(KT) == 4 ? 32 : 64) / (kWide && !kPartial ? 2 : 1);
   // ring stages: int8 blocks are small, so more of them are in flight (a
   // design-2 split of 256 keys is 4 blocks: all of it at once); float
-  // pages keep 2, so that two bf16 CTAs (104 KB each) fit an SM
-  static constexpr int STAGES = kQuant ? (kPartial ? 4 : 3) : 2;
-  // design 1: 8 warps of 16 rows; design 2: 4 warps, KS of them a row tile
-  static constexpr int WARPS = kPartial ? 4 : 8;
+  // pages keep 2, so that two bf16 CTAs (104 KB each) fit an SM; design 2
+  // over f32 pages at D_pad 256 keeps 1
+  static constexpr int STAGES =
+      kQuant ? (kPartial ? 4 : 3)
+             : (kWide && kPartial && sizeof(KT) == 4 ? 1 : 2);
+  // design 1: 8 warps of 16 rows (4 at D_pad 256); design 2: 4 warps, KS
+  // of them a row tile
+  static constexpr int WARPS = kPartial || kWide ? 4 : 8;
   static constexpr int THREADS = WARPS * 32;
   static constexpr int TR = 16 * WARPS / KS;         // rows a CTA
   static constexpr int LD = D + 8;                   // padded bf16 row
@@ -251,9 +303,11 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // One CTA: a tile of TR rows of one (b, kv head) against the keys of one
-// split (design 1: one split covering the table). Fragment layout of
+// split (design 1: one split covering the table). kContig: the keys are a
+// contiguous cache's lines (bs = 1, nb = S, no table). Fragment layout of
 // m16n8k16: lane = 4 * g + tq holds rows g and g + 8, columns 2tq, 2tq + 1.
-template <typename QT, typename KT, typename ST, int D, int KS, bool kPartial>
+template <typename QT, typename KT, typename ST, int D, int KS, bool kPartial,
+          bool kContig>
 __global__ void __launch_bounds__(Layout<QT, KT, D, KS, kPartial>::THREADS)
 paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
                   const KT* __restrict__ vp, const ST* __restrict__ ksc,
@@ -266,6 +320,7 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
   constexpr int NQ = L::NQ, NKV = L::NKV, NP = L::NP;
   constexpr int NS = NQ > NKV ? NQ : NKV;    // keep piece pairs i + j < NS
   constexpr int NO = NP > NKV ? NP : NKV;
+  constexpr int PRE = S > 1 ? S - 1 : 1;     // blocks in flight ahead
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kThreads = L::THREADS;
   __shared__ float m_sh[kMaxWarps][16], l_sh[kMaxWarps][16];
@@ -277,35 +332,39 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.x % g.n_split, tile = blockIdx.x / g.n_split;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int n_rep = g.n_rep;
+  const int n_rep = g.n_rep, Dl = g.D;
   const int r0 = tile * TR;
   const int tile_rows = min(TR, g.rows - r0);
   const int len = kv_len[b];
 
-  // live keys of this CTA: nothing at or past the newest row's position,
-  // no page wholly behind the oldest row's window, only this split's pages
+  // live keys of this CTA, [k_lo, k_hi): whole pages, nothing past the
+  // newest row's page (a contiguous cache: nothing past it or past S), no
+  // page wholly behind the oldest row's window, only this split's keys.
+  // The walk starts at kw, a block boundary counted from the split's
+  // start; keys in [kw, k_lo) are zero-filled and masked.
   const int qpos_lo = len - g.T + r0 / n_rep;
   const int qpos_hi = len - g.T + (r0 + tile_rows - 1) / n_rep;
-  int p_end = qpos_hi < 0 ? 0 : min(g.nb, qpos_hi / g.bs + 1);
-  int p_begin = g.window > 0 ? max(0, qpos_lo - g.window + 1) / g.bs : 0;
-  p_begin = max(p_begin, split * g.split_pages);
-  p_end = min(p_end, (split + 1) * g.split_pages);
-  const int k_lo = p_begin * g.bs, k_hi = p_end * g.bs;
-  const int n_blocks = k_hi > k_lo ? (k_hi - k_lo + N - 1) / N : 0;
+  const int split_keys = g.split_pages * g.bs, s0 = split * split_keys;
+  int k_hi = qpos_hi < 0 ? 0 : min(g.nb, qpos_hi / g.bs + 1) * g.bs;
+  int k_lo = g.window > 0 ? max(0, qpos_lo - g.window + 1) / g.bs * g.bs : 0;
+  k_lo = max(k_lo, s0);
+  k_hi = min(k_hi, s0 + split_keys);
+  const int kw = s0 + (k_lo - s0) / N * N;
+  const int n_blocks = k_hi > k_lo ? (k_hi - kw + N - 1) / N : 0;
   const long long n_part = (long long)gridDim.z * g.h_kv * g.n_split * g.rows;
   if (n_blocks == 0) {
     // no live key (a split past kv_len, a sink slot's later splits): an
     // empty split (m = -inf, l = 0; the combine skips it), or zero rows
-    for (int i = tid; i < tile_rows * (kPartial ? 1 : D); i += kThreads) {
+    for (int i = tid; i < tile_rows * (kPartial ? 1 : Dl); i += kThreads) {
       if constexpr (kPartial) {
         const long long at =
             (((long long)b * g.h_kv + h) * g.n_split + split) * g.rows + r0 + i;
         part_ml[at] = -INFINITY;
         part_ml[n_part + at] = 0.f;
       } else {
-        const int grow = r0 + i / D, t = grow / n_rep;
+        const int grow = r0 + i / Dl, t = grow / n_rep;
         const int head = h * n_rep + (grow - t * n_rep);
-        store_as(out + (((long long)b * g.T + t) * g.H + head) * D + i % D,
+        store_as(out + (((long long)b * g.T + t) * g.H + head) * Dl + i % Dl,
                  0.f);
       }
     }
@@ -316,38 +375,48 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
   auto ring_v = [&](int st) { return ring_k(st) + size_t(N) * L::RING_ROW; };
 
   // TPK threads copy one key row, CPT 16-byte chunks each, so a thread
-  // looks up one page id a block, one block ahead of its copy
+  // looks up one page id a block, one block ahead of its copy; chunks at
+  // or past the row's width (Dl) are zero-filled
   constexpr int CPR = D * int(sizeof(KT)) / 16;
   constexpr int TPK = kThreads / N;
   constexpr int CPT = CPR / TPK;
+  const int cpr_live = Dl * int(sizeof(KT)) / 16;
   const int ik = tid / TPK, c0 = (tid % TPK) * CPT;
-  auto page_of = [&](int j) -> long long {     // -1: outside [k_lo, k_hi)
-    const int pos = k_lo + j * N + ik;
-    if (j >= n_blocks || pos >= k_hi) return -1;
-    return table[(long long)b * g.nb + pos / g.bs];
+  // the page of this thread's key of block j (a contiguous cache: 0), or
+  // -1 outside [k_lo, k_hi)
+  auto page_of = [&](int j) -> long long {
+    const int pos = kw + j * N + ik;
+    if (j >= n_blocks || pos < k_lo || pos >= k_hi) return -1;
+    if constexpr (kContig) return 0;
+    else return table[(long long)b * g.nb + pos / g.bs];
+  };
+  auto line_of = [&](int j, long long pid, long long sp, long long ss,
+                     long long sh) -> long long {
+    const int pos = kw + j * N + ik;
+    if constexpr (kContig)
+      return (long long)b * sp + (long long)pos * ss + (long long)h * sh;
+    else
+      return pid * sp + (long long)(pos % g.bs) * ss + (long long)h * sh;
   };
   // block j's K and V rows into ring stage st (keys outside [k_lo, k_hi)
   // are zero-filled and never read from HBM); returns this thread's scale
   // of the block (int8: a row's first thread k_scale, its second v_scale)
   auto fetch = [&](int j, int st, long long pid) -> float {
     const bool live = pid >= 0;
-    long long off = 0;
-    if (live)
-      off = pid * g.kv_sp + (long long)((k_lo + j * N + ik) % g.bs) * g.kv_ss +
-            (long long)h * g.kv_sh;
+    const long long off =
+        live ? line_of(j, pid, g.kv_sp, g.kv_ss, g.kv_sh) : 0;
     unsigned char* dk = ring_k(st) + ik * L::RING_ROW;
     unsigned char* dv = ring_v(st) + ik * L::RING_ROW;
 #pragma unroll
     for (int c = c0; c < c0 + CPT; ++c) {
-      const long long e = off + c * (16 / int(sizeof(KT)));
-      cp_async16(dk + c * 16, kp + e, live);
-      cp_async16(dv + c * 16, vp + e, live);
+      const bool cl = live && c < cpr_live;
+      const long long e = cl ? off + c * (16 / int(sizeof(KT))) : 0;
+      cp_async16(dk + c * 16, kp + e, cl);
+      cp_async16(dv + c * 16, vp + e, cl);
     }
     if constexpr (L::kQuant) {    // threads 0 and 1 of a row: its k, v scale
       if (live && tid % TPK < 2) {
-        const long long at = pid * g.sc_sp +
-                             (long long)((k_lo + j * N + ik) % g.bs) * g.sc_ss +
-                             (long long)h * g.sc_sh;
+        const long long at = line_of(j, pid, g.sc_sp, g.sc_ss, g.sc_sh);
         return to_f32(tid % TPK == 0 ? ksc[at] : vsc[at]);
       }
     }
@@ -358,10 +427,11 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
     if constexpr (L::kQuant)
       if (tid % TPK < 2) scs[st * 2 * N + (tid % TPK) * N + ik] = v;
   };
+  static_assert(!L::kQuant || S > 1, "int8 scales are stored a block ahead");
 
   // prologue: blocks 0 .. S - 2 in flight (page ids first, all at once)
-  long long pids[S - 1];
-  float scv[S - 1];
+  long long pids[PRE];
+  float scv[PRE];
 #pragma unroll
   for (int j = 0; j < S - 1; ++j) pids[j] = page_of(j);
 #pragma unroll
@@ -371,11 +441,12 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
   }
   long long pid_next = page_of(S - 1);
 
-  // the tile's q rows as NQ bf16 planes; rows past the tile are zero
+  // the tile's q rows as NQ bf16 planes; rows past the tile and columns
+  // past Dl are zero
   for (int c = tid; c < TR * (D / 8); c += kThreads) {
     const int r = c / (D / 8), d0 = (c - r * (D / 8)) * 8;
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < tile_rows) {
+    if (r < tile_rows && d0 < Dl) {
       const int row = r0 + r, t = row / n_rep;
       const int head = h * n_rep + (row - t * n_rep);
       load8(q + b * g.q_sb + t * g.q_st + head * g.q_sh + d0, x);
@@ -385,7 +456,7 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
 #pragma unroll
   for (int j = 0; j < S - 1; ++j) store_scale(j, scv[j]);
 
-  const int mt = warp / KS, kg = warp % KS;      // row tile, key quarter
+  const int mt = warp / KS, kg = warp % KS;      // row tile, key part
   const int wrow0 = mt * 16;
   const bool wlive = wrow0 < tile_rows;
   const int gq = lane >> 2, tq = lane & 3;
@@ -444,8 +515,9 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
     const float* vsc_s = ksc_s + N;
 
     if (wlive) {
-      const int kb = k_lo + j * N;
-      // S = Q . K^T over this warp's NT key tiles
+      const int kb = kw + j * N;
+      // S = Q . K^T over this warp's NT key tiles (a padded head's zero
+      // columns add exact zeros)
       float s[NT][4];
 #pragma unroll
       for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -491,9 +563,9 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
           products(s);
         }
       }
-      // scale, mask (only where the block crosses a row's frontier), and
-      // the online softmax update
-      const bool edge = kb + N > k_hi || kb + N - 1 > wq_lo ||
+      // scale, mask (only where the block crosses a row's frontier or the
+      // live range), and the online softmax update
+      const bool edge = kb < k_lo || kb + N > k_hi || kb + N - 1 > wq_lo ||
                         (g.window > 0 && kb <= wq_hi - g.window);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -506,7 +578,7 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
           x *= score_scale;
           if (edge) {
             const int pos = kb + key, qp = qpos_r[e >> 1];
-            if (!(pos < k_hi && pos <= qp &&
+            if (!(pos >= k_lo && pos < k_hi && pos <= qp &&
                   (g.window <= 0 || pos > qp - g.window)))
               x = -INFINITY;
           }
@@ -686,18 +758,21 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
     } else {
       const int t = grow / n_rep, head = h * n_rep + (grow - t * n_rep);
       const float l = fmaxf(l_r[r], 1e-30f);
-      QT* o = out + (((long long)b * g.T + t) * g.H + head) * D;
+      QT* o = out + (((long long)b * g.T + t) * g.H + head) * Dl;
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn)
+      for (int dn = 0; dn < D / 8; ++dn) {
+        if (dn * 8 >= Dl) break;              // a padded head's columns
         store2(o + dn * 8 + 2 * tq, acc[dn][2 * r] / l,
                acc[dn][2 * r + 1] / l);
+      }
     }
   }
 }
 
 // Design 2's second pass: one CTA per (row, kv head, sequence), one thread
-// per d; the splits merge in split order. A split that saw no key of a row
-// (m = -inf) adds nothing; a row no split saw returns 0.
+// per d < Dl (scratch rows are D_pad wide); the splits merge in split
+// order. A split that saw no key of a row (m = -inf) adds nothing; a row
+// no split saw returns 0.
 template <typename QT, int D>
 __global__ void __launch_bounds__(D)
 combine_splits(const float* __restrict__ part_acc,
@@ -722,7 +797,7 @@ combine_splits(const float* __restrict__ part_acc,
     }
   }
   const int t = row / g.n_rep, head = h * g.n_rep + (row - t * g.n_rep);
-  store_as(out + (((long long)b * g.T + t) * g.H + head) * D + d,
+  store_as(out + (((long long)b * g.T + t) * g.H + head) * g.D + d,
            a / fmaxf(l, 1e-30f));
 }
 
@@ -731,10 +806,11 @@ struct Args {
   void *out, *part_acc, *part_ml;
 };
 
-template <typename QT, typename KT, typename ST, int D, int KS, bool kPartial>
+template <typename QT, typename KT, typename ST, int D, int KS, bool kPartial,
+          bool kContig>
 int launch(const Args& a, const Geo& g, int B, cudaStream_t stream) {
   using L = Layout<QT, KT, D, KS, kPartial>;
-  auto kern = paged_tile_kernel<QT, KT, ST, D, KS, kPartial>;
+  auto kern = paged_tile_kernel<QT, KT, ST, D, KS, kPartial, kContig>;
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -756,77 +832,103 @@ int launch(const Args& a, const Geo& g, int B, cudaStream_t stream) {
       static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml), g);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !kPartial) return int(e);
-  combine_splits<QT, D><<<dim3(g.rows, g.h_kv, B), D, 0, stream>>>(
+  combine_splits<QT, D><<<dim3(g.rows, g.h_kv, B), g.D, 0, stream>>>(
       static_cast<const float*>(a.part_acc),
       static_cast<const float*>(a.part_ml), static_cast<QT*>(a.out), g);
   return int(cudaGetLastError());
 }
 
-// design 1 (key split 1, one pass) for every pool dtype; design 2 (key
-// split 1, 2 or 4, then the combine) for int8 pools only
+// design 1 over pages (key split 1); design 2 over a contiguous cache or
+// pages with the key split the pool fixes, or, for int8 pages at D_pad
+// <= 128, the key split 1, 2 or 4 the caller's plan picks from the rows
 template <typename QT, typename KT, typename ST, int D>
-int by_split(const Args& a, const Geo& g, int B, int key_split, bool partial,
-             cudaStream_t s) {
+int by_design(const Args& a, const Geo& g, int B, int key_split,
+              bool partial, bool contig, cudaStream_t s) {
+  constexpr int F = kFixedSplit<KT>;
   if (!partial)
-    return key_split == 1 ? launch<QT, KT, ST, D, 1, false>(a, g, B, s)
-                          : int(cudaErrorInvalidValue);
-  if constexpr (sizeof(KT) == 1) {
-    if (key_split == 1) return launch<QT, KT, ST, D, 1, true>(a, g, B, s);
-    if (key_split == 2) return launch<QT, KT, ST, D, 2, true>(a, g, B, s);
-    if (key_split == 4) return launch<QT, KT, ST, D, 4, true>(a, g, B, s);
+    return key_split == 1 && !contig
+               ? launch<QT, KT, ST, D, 1, false, false>(a, g, B, s)
+               : int(cudaErrorInvalidValue);
+  if (key_split == F)
+    return contig ? launch<QT, KT, ST, D, F, true, true>(a, g, B, s)
+                  : launch<QT, KT, ST, D, F, true, false>(a, g, B, s);
+  if constexpr (sizeof(KT) == 1 && D <= 128) {
+    if (!contig && key_split == 1)
+      return launch<QT, KT, ST, D, 1, true, false>(a, g, B, s);
+    if (!contig && key_split == 2)
+      return launch<QT, KT, ST, D, 2, true, false>(a, g, B, s);
   }
   return int(cudaErrorInvalidValue);
 }
 
+// the tile width a head dim runs on, or 0 where D is not a multiple of 16
+// in [16, 256]
+int d_pad(int D) {
+  if (D < 16 || D > 256 || D % 16) return 0;
+  return D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+
 template <typename QT, typename KT, typename ST>
-int by_dim(const Args& a, const Geo& g, int B, int D, int key_split,
-           bool partial, cudaStream_t s) {
-  if (D == 64) return by_split<QT, KT, ST, 64>(a, g, B, key_split, partial, s);
-  if (D == 128)
-    return by_split<QT, KT, ST, 128>(a, g, B, key_split, partial, s);
+int by_dim(const Args& a, const Geo& g, int B, int key_split, bool partial,
+           bool contig, cudaStream_t s) {
+  switch (d_pad(g.D)) {
+    case 64:
+      return by_design<QT, KT, ST, 64>(a, g, B, key_split, partial, contig, s);
+    case 128:
+      return by_design<QT, KT, ST, 128>(a, g, B, key_split, partial, contig,
+                                        s);
+    case 256:
+      return by_design<QT, KT, ST, 256>(a, g, B, key_split, partial, contig,
+                                        s);
+  }
   return int(cudaErrorInvalidValue);
 }
 
 template <typename QT>
-int by_pool(const Args& a, const Geo& g, int B, int D, int kv_dtype,
-            int sc_dtype, int key_split, bool partial, cudaStream_t s) {
+int by_pool(const Args& a, const Geo& g, int B, int kv_dtype, int sc_dtype,
+            int key_split, bool partial, bool contig, cudaStream_t s) {
   if (kv_dtype == kF32)
-    return by_dim<QT, float, float>(a, g, B, D, key_split, partial, s);
+    return by_dim<QT, float, float>(a, g, B, key_split, partial, contig, s);
   if (kv_dtype == kBF16)
-    return by_dim<QT, __nv_bfloat16, float>(a, g, B, D, key_split, partial, s);
+    return by_dim<QT, __nv_bfloat16, float>(a, g, B, key_split, partial,
+                                            contig, s);
   if (kv_dtype == kI8 && sc_dtype == kF32)
-    return by_dim<QT, int8_t, float>(a, g, B, D, key_split, partial, s);
+    return by_dim<QT, int8_t, float>(a, g, B, key_split, partial, contig, s);
   if (kv_dtype == kI8 && sc_dtype == kBF16)
-    return by_dim<QT, int8_t, __nv_bfloat16>(a, g, B, D, key_split, partial,
-                                             s);
+    return by_dim<QT, int8_t, __nv_bfloat16>(a, g, B, key_split, partial,
+                                             contig, s);
   return int(cudaErrorInvalidValue);
 }
 
 template <typename QT, typename KT, int D>
 long long bytes_for(int key_split, bool partial) {
+  constexpr int F = kFixedSplit<KT>;
   if (!partial)
     return key_split == 1 ? (long long)Layout<QT, KT, D, 1, false>::BYTES : -1;
-  if constexpr (sizeof(KT) == 1) {
+  if (key_split == F) return (long long)Layout<QT, KT, D, F, true>::BYTES;
+  if constexpr (sizeof(KT) == 1 && D <= 128) {
     if (key_split == 1) return (long long)Layout<QT, KT, D, 1, true>::BYTES;
     if (key_split == 2) return (long long)Layout<QT, KT, D, 2, true>::BYTES;
-    if (key_split == 4) return (long long)Layout<QT, KT, D, 4, true>::BYTES;
+  }
+  return -1;
+}
+
+template <typename QT, typename KT>
+long long bytes_by_dim(int D, int key_split, bool partial) {
+  switch (d_pad(D)) {
+    case 64: return bytes_for<QT, KT, 64>(key_split, partial);
+    case 128: return bytes_for<QT, KT, 128>(key_split, partial);
+    case 256: return bytes_for<QT, KT, 256>(key_split, partial);
   }
   return -1;
 }
 
 template <typename QT>
 long long bytes_by_pool(int kv_dtype, int D, int key_split, bool partial) {
-  if (D != 64 && D != 128) return -1;
-  const bool d64 = D == 64;
-  if (kv_dtype == kF32)
-    return d64 ? bytes_for<QT, float, 64>(key_split, partial)
-               : bytes_for<QT, float, 128>(key_split, partial);
+  if (kv_dtype == kF32) return bytes_by_dim<QT, float>(D, key_split, partial);
   if (kv_dtype == kBF16)
-    return d64 ? bytes_for<QT, __nv_bfloat16, 64>(key_split, partial)
-               : bytes_for<QT, __nv_bfloat16, 128>(key_split, partial);
-  if (kv_dtype == kI8)
-    return d64 ? bytes_for<QT, int8_t, 64>(key_split, partial)
-               : bytes_for<QT, int8_t, 128>(key_split, partial);
+    return bytes_by_dim<QT, __nv_bfloat16>(D, key_split, partial);
+  if (kv_dtype == kI8) return bytes_by_dim<QT, int8_t>(D, key_split, partial);
   return -1;
 }
 
@@ -835,8 +937,8 @@ long long bytes_by_pool(int kv_dtype, int D, int key_split, bool partial) {
 extern "C" {
 
 // Shared memory one CTA of the tile kernel needs (dynamic plus static), or
-// -1 for a combination it does not take (D other than 64 or 128, design 2
-// over float pages). split: design 2.
+// -1 for a combination it does not take (a head dim off the rule, a key
+// split it is not built for). split: design 2.
 long long paged_tiles_smem_bytes(int q_dtype, int kv_dtype, int D,
                                  int key_split, int split) {
   long long n = -1;
@@ -851,21 +953,24 @@ const char* paged_tiles_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// B2 (float pages, design 1) and B4 (int8 pages, design 1 or 2). The
-// caller's plan gives key_split, n_split and split_pages; part_acc and
-// part_ml are design 2's scratch (null for design 1): (B, h_kv, n_split,
-// rows, D) and (2, B, h_kv, n_split, rows) f32.
+// B1, B2 and B4 (pages through the table) and B5 (contig: a cache, table
+// null, bs 1, nb S; design 2 only). The caller's plan gives key_split,
+// n_split and split_pages; part_acc and part_ml are design 2's scratch
+// (null for design 1): (B, h_kv, n_split, rows, D_pad) and (2, B, h_kv,
+// n_split, rows) f32.
 int paged_tiles(const void* q, const void* k, const void* v,
                 const void* k_scale, const void* v_scale, const void* table,
                 const void* kv_len, void* out, void* part_acc, void* part_ml,
-                int q_dtype, int kv_dtype, int sc_dtype, int B, int T, int H,
-                int h_kv, int D, int bs, int nb, int window, float scale,
-                int key_split, int n_split, int split_pages, long long q_sb,
-                long long q_st, long long q_sh, long long kv_sp,
-                long long kv_ss, long long kv_sh, long long sc_sp,
-                long long sc_ss, long long sc_sh, void* stream) {
+                int q_dtype, int kv_dtype, int sc_dtype, int contig, int B,
+                int T, int H, int h_kv, int D, int bs, int nb, int window,
+                float scale, int key_split, int n_split, int split_pages,
+                long long q_sb, long long q_st, long long q_sh,
+                long long kv_sp, long long kv_ss, long long kv_sh,
+                long long sc_sp, long long sc_ss, long long sc_sh,
+                void* stream) {
   Geo g;
-  g.T = T; g.H = H; g.h_kv = h_kv; g.bs = bs; g.nb = nb; g.window = window;
+  g.T = T; g.H = H; g.h_kv = h_kv; g.D = D; g.bs = bs; g.nb = nb;
+  g.window = window;
   g.n_rep = H / h_kv;
   g.rows = T * g.n_rep;
   g.n_split = n_split; g.split_pages = split_pages;
@@ -878,11 +983,11 @@ int paged_tiles(const void* q, const void* k, const void* v,
   const bool partial = part_acc != nullptr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == kF32)
-    return by_pool<float>(a, g, B, D, kv_dtype, sc_dtype, key_split,
-                          partial, s);
+    return by_pool<float>(a, g, B, kv_dtype, sc_dtype, key_split, partial,
+                          contig != 0, s);
   if (q_dtype == kBF16)
-    return by_pool<__nv_bfloat16>(a, g, B, D, kv_dtype, sc_dtype, key_split,
-                                  partial, s);
+    return by_pool<__nv_bfloat16>(a, g, B, kv_dtype, sc_dtype, key_split,
+                                  partial, contig != 0, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -1,5 +1,6 @@
-"""Dispatch of the port's kernels: paged attention (B1, B2, B4),
-contiguous-cache attention (B5), the q4 matmul (B3) and the SSD scan (B6).
+"""Dispatch of the port's kernels: paged attention (B1, B2, B4) and
+contiguous-cache attention (B5), all four on ``csrc/paged_tiles.cu``, the
+q4 matmul (B3) and the SSD scan (B6).
 
 A tensor on the CPU goes to the kernel's plain torch version; a CUDA
 tensor launches the CUDA kernel, which raises when it cannot run — there
@@ -59,16 +60,22 @@ def ssd_scan(x, dt, A, Bmat, Cmat, *, chunk: int = 128):
     return _ssd.ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk)
 
 
-def flash_verify(q, k, v, kv_len, *, window: Optional[int] = None):
+def flash_verify(q, k, v, kv_len, *, window: Optional[int] = None,
+                 k_scale=None, v_scale=None):
     if not kernels_active(q):
-        return _fd.flash_verify_ref(q, k, v, kv_len, window=window)
-    return _fd.flash_verify(q, k, v, kv_len, window=window)
+        return _fd.flash_verify_ref(q, k, v, kv_len, window=window,
+                                    k_scale=k_scale, v_scale=v_scale)
+    return _fd.flash_verify(q, k, v, kv_len, window=window, k_scale=k_scale,
+                            v_scale=v_scale)
 
 
-def flash_decode(q, k, v, kv_len, *, window: Optional[int] = None):
+def flash_decode(q, k, v, kv_len, *, window: Optional[int] = None,
+                 k_scale=None, v_scale=None):
     if not kernels_active(q):
-        return _fd.flash_decode_ref(q, k, v, kv_len, window=window)
-    return _fd.flash_decode(q, k, v, kv_len, window=window)
+        return _fd.flash_decode_ref(q, k, v, kv_len, window=window,
+                                    k_scale=k_scale, v_scale=v_scale)
+    return _fd.flash_decode(q, k, v, kv_len, window=window, k_scale=k_scale,
+                            v_scale=v_scale)
 
 
 def paged_verify(q, k_pages, v_pages, table, kv_len, *,

@@ -335,7 +335,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         if dense != paged:
             bad = [u for u in dense if dense[u] != paged.get(u)]
             raise SystemExit(f"paged vs dense parity FAILED for uids {bad}")
-        print(f"  dense engine: tokens identical for {len(dense)} requests")
+        print(f"  dense engine: tokens identical for {len(dense)} "
+              f"requests; kernel launches {ops.launch_counts()}")
     return res
 
 

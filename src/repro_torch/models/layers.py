@@ -241,15 +241,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: torch.Tensor, *, window: Optional[int]
+                     kv_len: torch.Tensor, *, window: Optional[int],
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """Dispatch attention over a contiguous cache (decode and verify): the
     CUDA kernel B5 for tensors on the card (unless
-    ``ops.use_kernels(False)``), ``verify_attention`` otherwise."""
+    ``ops.use_kernels(False)``), which reads an int8 cache with its scales
+    as it is stored; otherwise ``verify_attention``, over an int8 cache
+    dequantized to q's dtype first, as in the reference."""
     from ..kernels import flash_decode, ops
     if ops.kernels_active(q):
         return flash_decode.flash_verify(q, k, v, kv_len.int(),
-                                         window=window)
+                                         window=window, k_scale=k_scale,
+                                         v_scale=v_scale)
+    if k_scale is not None:
+        k = dequantize_kv(k, k_scale, q.dtype)
+        v = dequantize_kv(v, v_scale, q.dtype)
     return verify_attention(q, k, v, kv_len, window=window)
 
 
@@ -299,8 +307,9 @@ def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
     ``cache``: {"k": (B,Smax,hk,hd), "v": ..., "len": (B,)} (+ int8
     ``k_scale``/``v_scale``). Decode writes the S new lines in place at
     ``len`` (rolling for a window-sized buffer) and attends over the
-    cache through ``_dense_attention`` (an int8 cache is dequantized
-    first, as in the reference); prefill runs causal attention over ``x``
+    cache through ``_dense_attention`` (an int8 cache goes with its
+    scales: B5 reads it as stored, the plain path dequantizes it first, as
+    in the reference); prefill runs causal attention over ``x``
     and fills the cache in place. Returns (out, cache) with the cache's
     ``len`` advanced.
     """
@@ -335,14 +344,15 @@ def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
                 cache["v_scale"][bidx, slot] = vsc[:, t].to(
                     cache["v_scale"].dtype)
         new_cache = {**cache, "len": ln + S}
-        if quantized:
-            k_at = dequantize_kv(kc, cache["k_scale"], q.dtype)
-            v_at = dequantize_kv(vc, cache["v_scale"], q.dtype)
-        else:
-            k_at, v_at = kc.to(q.dtype), vc.to(q.dtype)
         kv_len = torch.clamp(ln + S, max=Smax) if window is not None \
             else ln + S
-        out = _dense_attention(q, k_at, v_at, kv_len, window=window)
+        if quantized:
+            out = _dense_attention(q, kc, vc, kv_len, window=window,
+                                   k_scale=cache["k_scale"],
+                                   v_scale=cache["v_scale"])
+        else:
+            out = _dense_attention(q, kc.to(q.dtype), vc.to(q.dtype), kv_len,
+                                   window=window)
     else:
         out = chunked_causal_attention(q, k, v, window=window)
         if cache is not None:

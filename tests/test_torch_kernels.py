@@ -184,7 +184,7 @@ def test_build_is_keyed_by_source_and_needs_nvcc(monkeypatch):
 
 
 # --------------------------------------------------------------------------- #
-#  B2 / B4 on the tensor cores: the precision contract and the route plan
+#  the tile kernels (B1, B2, B4, B5): precision, route plan, head dims
 # --------------------------------------------------------------------------- #
 
 def _within(out, want, dtype):
@@ -214,21 +214,32 @@ def _piece_products(a, b, eq):
 
 
 def _emulate_tiles(q, k, v, kv_len, *, k_scale=None, v_scale=None,
-                   round_p=False):
+                   round_p=False, d_pad=None):
     """The rounding of ``csrc/paged_tiles.cu`` on the CPU, over gathered
     pages k/v (B, S, h_kv, D): q and f32 pages enter the products as three
-    bf16 pieces, bf16 and int8 as one; S = Q.K^T (k_scale on the f32
-    score after the product, then the softmax scale); P (v_scale folded
-    in) as hi + lo for a bf16 result or three pieces for an f32 one --
-    or, with ``round_p``, as one bf16 rounding, the habit the design
-    rejects; the result rounded once to q's dtype."""
+    bf16 pieces, bf16 and int8 as one; S = Q.K^T summed over 16-wide steps
+    of D in order (k_scale on the f32 score after the product, then the
+    softmax scale); P (v_scale folded in) as hi + lo for a bf16 result or
+    three pieces for an f32 one -- or, with ``round_p``, as one bf16
+    rounding, the habit the design rejects -- times V, 16 output columns a
+    group; the result rounded once to q's dtype. ``d_pad``: q, k and v
+    staged zero-padded to that width, as the kernel stages a head, and
+    the output cut back to D."""
     B, T, H, D = q.shape
     S, n_rep = k.shape[1], H // k.shape[2]
+    if d_pad is not None:
+        q, k, v = (torch.nn.functional.pad(t, (0, d_pad - D))
+                   for t in (q, k, v))
     f32_q, f32_kv = q.dtype == torch.float32, k.dtype == torch.float32
     kx = k.float().repeat_interleave(n_rep, dim=2)
     vx = v.float().repeat_interleave(n_rep, dim=2)
-    s = _piece_products(_pieces(q.float(), 3 if f32_q else 1),
-                        _pieces(kx, 3 if f32_kv else 1), "bthd,bshd->bhts")
+    qp, kp = _pieces(q.float(), 3 if f32_q else 1), \
+        _pieces(kx, 3 if f32_kv else 1)
+    s = 0.0
+    for c in range(0, q.shape[-1], 16):
+        s = s + _piece_products([x[..., c:c + 16] for x in qp],
+                                [x[..., c:c + 16] for x in kp],
+                                "bthd,bshd->bhts")
     if k_scale is not None:
         s = s * k_scale.float().repeat_interleave(n_rep, 2).permute(
             0, 2, 1)[:, :, None]
@@ -245,10 +256,12 @@ def _emulate_tiles(q, k, v, kv_len, *, k_scale=None, v_scale=None,
             0, 2, 1)[:, :, None]
     P = [p.to(torch.bfloat16).float()] if round_p else \
         _pieces(p, 3 if f32_q else 2)
-    acc = _piece_products(P, _pieces(vx, 3 if f32_kv else 1),
-                          "bhts,bshd->bhtd")
+    vp = _pieces(vx, 3 if f32_kv else 1)
+    acc = torch.cat([_piece_products(P, [x[..., c:c + 16] for x in vp],
+                                     "bhts,bshd->bhtd")
+                     for c in range(0, vx.shape[-1], 16)], -1)
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.transpose(1, 2).to(q.dtype)
+    return out.transpose(1, 2)[..., :D].to(q.dtype)
 
 
 #: a small GQA chunk (n_rep 5) at chip_smoke's data scale: q std 1, pages
@@ -304,26 +317,53 @@ def test_tile_precision_bf16_rounded_p_fails(quant):
 @pytest.mark.parametrize("T", [1, 5, 256])
 def test_tile_plan_is_a_function_of_shapes(T):
     """qwen2.5-14b's heads (40 over 8, D 128), 16-token pages, a table of
-    128: decode and verify rows (T * 5 <= 64) split the pages across CTAs
-    (design 2: 8 splits of 16 pages, the 4 warps sharing a 16- or 32-row
-    tile), chunk rows take design 1; B2 is always design 1. The plan reads
-    no tensor, so kv_len cannot move it."""
+    128: decode and verify rows (T * 5 <= 64) split the keys across CTAs
+    (design 2: 8 splits of 16 pages). B1's key split is fixed by the pool
+    (4 warps on 16-row tiles; 2 for f32 pages), so its key partition is
+    the same at T = 1 and T = 5; B4 keeps the plan of its rows (the 4
+    warps sharing a 16- or 32-row tile). Chunk rows take design 1; B2 is
+    always design 1; B5 is always design 2, its cache's lines split 256 at
+    a time. The plan reads no tensor, so kv_len cannot move it."""
     from repro_torch.kernels.paged_decode import TilePlan, tile_plan
 
     B, H, h_kv, D, bs, nb = 8, 40, 8, 128, 16, 128
-    plan = tile_plan(B, T, H, h_kv, D, bs, nb, quant=True)
-    assert plan == tile_plan(B, T, H, h_kv, D, bs, nb, quant=True)
     rows = T * 5
-    if T == 256:
-        assert plan == TilePlan(1, 1, 1, nb, None)
-    else:
-        key_split = {1: 4, 5: 2}[T]
-        assert plan == TilePlan(2, key_split, 8, 16,
-                                ((B, h_kv, 8, rows, D),
+    for kernel, pool in (("paged_verify_quant", torch.int8),
+                         ("paged_verify", torch.bfloat16),
+                         ("paged_verify", torch.float32)):
+        plan = tile_plan(B, T, H, h_kv, D, bs, nb, pool=pool, kernel=kernel)
+        assert plan == tile_plan(B, T, H, h_kv, D, bs, nb, pool=pool,
+                                 kernel=kernel)
+        if T == 256:
+            assert plan == TilePlan(1, 1, 1, nb, 128, None)
+            continue
+        if kernel == "paged_verify_quant":
+            key_split = {1: 4, 5: 2}[T]
+            assert 16 * 4 // key_split >= rows  # one row tile per split
+        else:
+            key_split = 2 if pool == torch.float32 else 4
+            one = tile_plan(B, 1, H, h_kv, D, bs, nb, pool=pool,
+                            kernel=kernel)
+            five = tile_plan(B, 5, H, h_kv, D, bs, nb, pool=pool,
+                             kernel=kernel)
+            assert (one.design, one.key_split, one.n_split,
+                    one.split_pages) == (five.design, five.key_split,
+                                         five.n_split, five.split_pages)
+        assert plan == TilePlan(2, key_split, 8, 16, 128,
+                                ((B, h_kv, 8, rows, 128),
                                  (2, B, h_kv, 8, rows)))
-        assert 16 * 4 // key_split >= rows      # one row tile per split
-    assert tile_plan(B, T, H, h_kv, D, bs, nb, quant=False) == \
-        TilePlan(1, 1, 1, nb, None)
+    assert tile_plan(B, T, H, h_kv, D, bs, nb, pool=torch.bfloat16,
+                     kernel="paged_prefill") == TilePlan(1, 1, 1, nb, 128,
+                                                         None)
+    # B5 over a contiguous cache of 1000 lines (bs 1, nb S), any T
+    plan = tile_plan(2, T, 40, 40, 128, 1, 1000, pool=torch.int8,
+                     kernel="flash_verify")
+    assert (plan.design, plan.key_split, plan.n_split, plan.split_pages) \
+        == (2, 4, 4, 256)
+    # other head dims: staged zero-padded to the next tile width
+    for d, d_pad in ((16, 64), (64, 64), (96, 128), (144, 256), (256, 256)):
+        assert tile_plan(B, T, H, h_kv, d, bs, nb, pool=torch.bfloat16,
+                         kernel="paged_verify").d_pad == d_pad
 
 
 def test_tile_wrappers_check_alignment():
@@ -339,6 +379,71 @@ def test_tile_wrappers_check_alignment():
     wide = torch.zeros(4, 16, 2, 130, dtype=torch.bfloat16)[..., :128]
     with pytest.raises(ValueError, match="16-byte aligned"):
         _check_aligned("t", pool=wide)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["pages", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 96, 256])
+def test_tile_zero_padding_is_exact(D, dtype, quant):
+    """A head of width D runs on a tile D_pad wide (64, 128, 256) with its
+    columns D..D_pad zero-filled in q, K and V: the emulated tile gives
+    the unpadded emulation's result to the bit, and meets the precision
+    contract at that D."""
+    from repro_torch.kernels.paged_decode import check_head_dim
+    from repro_torch.models.layers import gather_pages, quantize_kv
+
+    q, kp, vp, table, kv = _case(41, **{**TILE_CHUNK, "D": D})
+    q, table, kv = _t(q).to(dtype), _t(table), _t(kv)
+    kp, vp = _t(kp) * 0.5, _t(vp) * 0.5
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+        ks, vs = ks.to(dtype), vs.to(dtype)
+        want = ops.paged_verify_quant(q.float(), kq, vq, ks, vs, table, kv)
+        args = dict(q=q, k=gather_pages(kq, table),
+                    v=gather_pages(vq, table), kv_len=kv,
+                    k_scale=gather_pages(ks, table),
+                    v_scale=gather_pages(vs, table))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+        want = ops.paged_prefill(q.float(), kp.float(), vp.float(), table,
+                                 kv)
+        args = dict(q=q, k=gather_pages(kp, table),
+                    v=gather_pages(vp, table), kv_len=kv)
+    d_pad = check_head_dim("test", D)
+    padded = _emulate_tiles(**args, d_pad=d_pad)
+    plain = _emulate_tiles(**args)
+    assert padded.shape == plain.shape == want.shape
+    assert torch.equal(padded, plain)
+    assert _within(padded, want, dtype) <= 0.6
+
+
+@pytest.mark.parametrize("D", [8, 24, 272])
+def test_tile_wrappers_reject_head_dims(D):
+    """Every tile wrapper (B1, B2, B4, B5) refuses a head dim off the rule
+    D % 16 == 0 and 16 <= D <= 256, naming the rule, before it looks at
+    devices; so does the plan."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as pp
+
+    q, kp, vp, table, kv = (_t(a) for a in _case(
+        42, **{**CASES[1], "D": D}))
+    kq = torch.zeros(kp.shape, dtype=torch.int8)
+    sc = torch.ones(kp.shape[:3])
+    cache = torch.zeros((q.shape[0], 12) + kp.shape[2:])
+    calls = [lambda: pd.paged_verify(q, kp, vp, table, kv),
+             lambda: pd.paged_decode(q[:, 0], kp, vp, table, kv),
+             lambda: pp.paged_prefill(q, kp, vp, table, kv),
+             lambda: pd.paged_verify_quant(q, kq, kq, sc, sc, table, kv),
+             lambda: fd.flash_verify(q, cache, cache, kv),
+             lambda: fd.flash_decode(q[:, 0], cache, cache, kv),
+             lambda: pd.tile_plan(3, 4, 10, 2, D, 8, 6, pool=torch.float32,
+                                  kernel="paged_verify")]
+    for call in calls:
+        with pytest.raises(ValueError, match=rf"head dim {D} .*"
+                                             rf"D % 16 == 0 and 16 <= D"):
+            call()
 
 
 # --------------------------------------------------------------------------- #
@@ -559,3 +664,209 @@ def test_flash_kernel_wrapper_checks_its_inputs():
         ops.use_kernels(True)
     torch.testing.assert_close(forced, fd.flash_verify_ref(*args))
     assert ops.launch_counts()["flash_verify"] == 0
+
+
+def _emulate_split_walk(q, k, v, kv_len, *, window=None, k_scale=None,
+                        v_scale=None):
+    """Design 2 of ``csrc/paged_tiles.cu`` in its contiguous addressing
+    mode, in f32 on the CPU: per (sequence, kv head, row tile), the splits
+    ``tile_plan`` gives, each walked in blocks of N keys from a block
+    boundary counted from the split's start over the tile's live range
+    [k_lo, k_hi) (keys outside it zero-filled, never read), line j read
+    at ``base + b*sb + j*ss + h*sh`` through k's own strides; each of the
+    key_split warps keeps an online softmax over its part of every block,
+    the warps merge in order, then the splits in split order."""
+    from repro_torch.kernels.paged_decode import tile_plan
+
+    B, T, H, D = q.shape
+    S, h_kv = k.shape[1], k.shape[2]
+    n_rep, rows = H // h_kv, T * (H // h_kv)
+    plan = tile_plan(B, T, H, h_kv, D, 1, S, pool=k.dtype,
+                     kernel="flash_verify")
+    KS, N = plan.key_split, 32 if k.dtype == torch.float32 else 64
+    TR, split_keys = 64 // KS, plan.split_pages
+    scale = torch.tensor(1.0 / np.sqrt(D), dtype=torch.float32)
+    out = torch.zeros(B, T, H, D)
+
+    def lines(t, sc, b, h):
+        x = torch.as_strided(t, (S, D), (t.stride(1), 1),
+                             t.storage_offset() + b * t.stride(0)
+                             + h * t.stride(2))
+        if sc is not None:
+            x = x.float() * torch.as_strided(
+                sc, (S,), (sc.stride(1),),
+                sc.storage_offset() + b * sc.stride(0)
+                + h * sc.stride(2)).float()[:, None]
+        return x.float()
+
+    def merge(stats):
+        """(m, l, acc) parts merged in order; a part with m = -inf adds
+        nothing."""
+        M = torch.stack([m for m, _, _ in stats]).amax(0)
+        Ms = torch.where(torch.isfinite(M), M, 0.0)
+        L, A = torch.zeros_like(M), 0.0
+        for m, l, a in stats:
+            f = torch.where(torch.isfinite(m), torch.exp(m - Ms), 0.0)
+            L, A = L + l * f, A + a * f[:, None]
+        return M, L, A
+
+    for b in range(B):
+        n = int(kv_len[b])
+        for h in range(h_kv):
+            kl, vl = lines(k, k_scale, b, h), lines(v, v_scale, b, h)
+            for r0 in range(0, rows, TR):
+                rr = torch.arange(r0, min(r0 + TR, rows))
+                t, rep = rr // n_rep, rr % n_rep
+                qr = q[b, t, h * n_rep + rep].float()
+                qpos = n - T + t
+                lo, hi = int(qpos[0]), int(qpos[-1])
+                splits = []
+                for sp in range(plan.n_split):
+                    s0 = sp * split_keys
+                    k_lo = max(0, lo - window + 1) if window else 0
+                    k_lo = max(k_lo, s0)
+                    k_hi = min(min(S, hi + 1) if hi >= 0 else 0,
+                               s0 + split_keys)
+                    kw = s0 + (k_lo - s0) // N * N
+                    n_blocks = -(-(k_hi - kw) // N) if k_hi > k_lo else 0
+                    parts = [(torch.full((len(rr),), -torch.inf),
+                              torch.zeros(len(rr)), torch.zeros(len(rr), D))
+                             for _ in range(KS)]
+                    for j in range(n_blocks):
+                        pos = kw + j * N + torch.arange(N)
+                        live = (pos >= k_lo) & (pos < k_hi)
+                        at = pos.clamp(0, S - 1)
+                        kb = torch.where(live[:, None], kl[at], 0.0)
+                        vb = torch.where(live[:, None], vl[at], 0.0)
+                        for kg in range(KS):
+                            sl = slice(kg * N // KS, (kg + 1) * N // KS)
+                            see = live[sl] & (pos[sl] <= qpos[:, None])
+                            if window:
+                                see &= pos[sl] > qpos[:, None] - window
+                            sc = torch.where(see, qr @ kb[sl].T * scale,
+                                             -torch.inf)
+                            m, l, a = parts[kg]
+                            mn = torch.maximum(m, sc.amax(-1))
+                            ms = torch.where(torch.isfinite(mn), mn, 0.0)
+                            corr = torch.where(torch.isfinite(m),
+                                               torch.exp(m - ms), 0.0)
+                            p = torch.exp(sc - ms[:, None])
+                            parts[kg] = (mn, l * corr + p.sum(-1),
+                                         a * corr[:, None] + p @ vb[sl])
+                    splits.append(merge(parts))
+                _, L, A = merge(splits)
+                out[b, t, h * n_rep + rep] = A / torch.clamp(
+                    L, min=1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+#: B5's walk: (B, T, H, h_kv, D, S, kv_len, window). Ragged S (40, 300,
+#: 500: the last block and the last split are partial), kv_len past S,
+#: two splits, a window, and fully masked rows: kv_len 2 < T puts rows
+#: before position 0, and kv_len 200 with window 8 puts every row past the
+#: window's reach of a 64-line cache
+WALK_CASES = [
+    (2, 5, 8, 2, 64, 300, [300, 310], None),
+    (3, 3, 4, 4, 16, 40, [2, 40, 45], None),
+    (2, 5, 8, 2, 96, 500, [260, 505], 64),
+    (2, 4, 4, 2, 32, 64, [64, 200], 8),
+    (1, 1, 16, 16, 128, 300, [299], None),
+]
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", range(len(WALK_CASES)))
+def test_contiguous_walk_matches_pallas(case, pool):
+    """The contiguous addressing mode's walk (emulated), over a cache
+    that is a strided layer of a stacked buffer whose lines past kv_len,
+    past S and behind every row's window are NaN, against the Pallas
+    ``flash_verify`` in interpret mode on the clean cache, atol 1e-5: the
+    live range is right, nothing outside it is read, and fully masked
+    rows come out 0."""
+    from repro_torch.models.layers import quantize_kv
+
+    B, T, H, h_kv, D, S, kv_len, window = WALK_CASES[case]
+    q, k, v, kv = _flash_case(95 + case, B, T, H, h_kv, D, S, kv_len)
+    scales = {}
+    if pool == "int8":
+        (kq, ks), (vq, vs) = quantize_kv(_t(k)), quantize_kv(_t(v))
+        scales = dict(k_scale=ks.to(torch.bfloat16),
+                      v_scale=vs.to(torch.bfloat16))
+        k = (kq.float() * scales["k_scale"].float()[..., None]).numpy()
+        v = (vq.float() * scales["v_scale"].float()[..., None]).numpy()
+        tk, tv = kq, vq
+    else:
+        tk, tv = (_t(a).to(getattr(torch, pool)) for a in (k, v))
+        k, v = tk.float().numpy(), tv.float().numpy()
+    # a layer (index 1 of 3) of a buffer S + 8 lines long; NaN where the
+    # walk must not read (int8 cannot hold NaN: its scales carry it)
+    poisoned = []
+    for t, sc in ((tk, scales.get("k_scale")), (tv, scales.get("v_scale"))):
+        buf = torch.zeros((3, B, S + 8) + t.shape[2:], dtype=t.dtype)
+        sbuf = torch.zeros((3, B, S + 8, h_kv), dtype=torch.bfloat16)
+        buf[1, :, :S] = t
+        if sc is not None:
+            sbuf[1, :, :S] = sc
+        for b, n in enumerate(kv_len):
+            dead = torch.ones(S + 8, dtype=torch.bool)
+            lo = max(0, n - T - window + 1) if window else 0
+            dead[lo:min(n, S)] = False
+            (sbuf if sc is not None else buf)[1, b, dead] = torch.nan
+        poisoned.append((buf[1, :, :S], sbuf[1, :, :S] if sc is not None
+                         else None))
+    (pk, pks), (pv, pvs) = poisoned
+    out = _emulate_split_walk(_t(q), pk, pv, _t(kv), window=window,
+                              k_scale=pks, v_scale=pvs)
+    pallas = j_flash_verify(*(jnp.asarray(a) for a in (q, k, v, kv)),
+                            window=window, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(
+        out.numpy(), ops.flash_verify(_t(q), tk, tv, _t(kv), window=window,
+                                      **scales).numpy(), **TOL)
+    for b, t in fully_masked_rows(kv_len, T, S, window):
+        assert torch.equal(out[b, t], torch.zeros(H, D))
+
+
+def fully_masked_rows(kv_len, T, S, window):
+    """(sequence, row) pairs that see no cache line."""
+    out = []
+    for b, n in enumerate(kv_len):
+        for t in range(T):
+            qpos = n - T + t
+            lo = max(qpos - window + 1, 0) if window else 0
+            if min(qpos + 1, S) <= lo:
+                out.append((b, t))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_verify_int8_plain_matches_jax_dequantize(dtype):
+    """The int8 plain version (the int8 cache and its bf16 scales inflated
+    to f32, then ``verify_attention``) against the JAX package's own
+    dequantize-then-attend on the same int8 cache: ``dequantize_kv`` to
+    f32, then the Pallas ``flash_verify`` in interpret mode, q in f32
+    (atol 1e-5) or bf16 (the bf16 tolerance, per element 1e-5 + 2^-7
+    |ref|). The fused kernel reads the int8 values as they are, as B4
+    does; the JAX model path's dequantize to a bf16 q's dtype rounds K and
+    V first, and the plain model path on the CPU keeps that."""
+    from repro.models.layers import dequantize_kv as j_dequantize_kv
+    from repro_torch.models.layers import quantize_kv
+
+    q, k, v, kv = _flash_case(99, 2, 5, 8, 2, 64, 96, [40, 96])
+    (kq, ks), (vq, vs) = quantize_kv(_t(k)), quantize_kv(_t(v))
+    ks, vs = ks.to(torch.bfloat16), vs.to(torch.bfloat16)
+    qt = _t(q).to(getattr(torch, dtype))
+    out = ops.flash_verify(qt, kq, vq, _t(kv), k_scale=ks, v_scale=vs)
+    assert out.dtype == qt.dtype
+    jks = jnp.asarray(ks.view(torch.int16).numpy()).view(jnp.bfloat16)
+    jvs = jnp.asarray(vs.view(torch.int16).numpy()).view(jnp.bfloat16)
+    jk = j_dequantize_kv(jnp.asarray(kq.numpy()), jks, jnp.float32)
+    jv = j_dequantize_kv(jnp.asarray(vq.numpy()), jvs, jnp.float32)
+    want = np.asarray(j_flash_verify(jnp.asarray(q, getattr(jnp, dtype)),
+                                     jk, jv, jnp.asarray(kv),
+                                     interpret=True), np.float32)
+    got = out.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        assert (np.abs(got - want) <= 1e-5 + 2.0 ** -7 * np.abs(want)).all()

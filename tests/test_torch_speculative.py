@@ -238,16 +238,21 @@ def test_card_route_of_dense_attention(world, arch, monkeypatch):
     """The route a CUDA tensor takes through ``_dense_attention``: with
     kernels reported active, every decode and verify pass of every layer
     calls B5's wrapper (replaced here by its plain version, the CPU has no
-    kernel) with int32 lengths, the int8 cache dequantized to q's dtype
-    first; the logits still match the JAX package's."""
+    kernel) with int32 lengths; an int8 cache goes to it as stored, with
+    its scales (the kernel widens it, no dequantized copy is made); the
+    logits still match the JAX package's."""
     from repro_torch.kernels import flash_decode, ops
 
     jcfg, tcfg, jp, tp = world[arch]
     calls = []
 
-    def stand_in(q, k, v, kv_len, *, window=None):
-        calls.append((q.shape[1], k.dtype, kv_len.dtype))
-        return flash_decode.flash_verify_ref(q, k, v, kv_len, window=window)
+    def stand_in(q, k, v, kv_len, *, window=None, k_scale=None,
+                 v_scale=None):
+        calls.append((q.shape[1], k.dtype, kv_len.dtype,
+                      k_scale is not None and v_scale is not None))
+        return flash_decode.flash_verify_ref(q, k, v, kv_len, window=window,
+                                             k_scale=k_scale,
+                                             v_scale=v_scale)
 
     monkeypatch.setattr(flash_decode, "flash_verify", stand_in)
     monkeypatch.setattr(ops, "kernels_active", lambda t: True)
@@ -266,8 +271,9 @@ def test_card_route_of_dense_attention(world, arch, monkeypatch):
         assert np.abs(a - b).max() / np.abs(b).max() < REL
         np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
     L = tcfg.n_layers
-    assert calls == [(T, torch.float32, torch.int32) for T in (1, 3)
-                     for _ in range(L)]
+    int8 = tcfg.kv_dtype == "int8"
+    assert calls == [(T, torch.int8 if int8 else torch.float32, torch.int32,
+                      int8) for T in (1, 3) for _ in range(L)]
 
 
 def test_rollback_then_decode_matches_prefix(world):
