@@ -8,7 +8,7 @@ Phase 1  build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 Phase 2  hold each kernel against its plain torch version on the card and
          time the kernel, the plain version and one library call that the
          port never calls (``library_ms``), beside the least time the card
-         could take (the attention kernels and their library calls also
+         could take (every kernel, and the library calls of B1-B5, also
          replayed from a CUDA graph: the device's time alone, without the
          host's work of the call):
          * B1 paged_verify, B2 paged_prefill, B4 paged_verify_quant at the
@@ -28,7 +28,11 @@ Phase 2  hold each kernel against its plain torch version on the card and
            sums in another order over K <= 13824); the check must reject
            a weight with one group's scale doubled; the library call is
            cuBLAS ``x @ w`` on the weight dequantized beforehand; also at
-           qwen1.5-32b's projection shapes at M = 2 and 10 (its verify);
+           qwen1.5-32b's projection shapes at M = 2 and 10 (its verify) and
+           mamba2-780m's in_proj and out_proj at M = 1 and 1024; each line
+           names the plan that ran (path, K split, tile, CTAs, CUDA kernels
+           a call) and the call replayed from a CUDA graph (device alone),
+           beside cuBLAS's;
          * B5 flash_verify (design 2 of the same tile kernel over the
            contiguous cache) at qwen1.5-32b's verify (T 5, 40 heads MHA, D
            128, kv_len 128-1024; also over its int8 cache with bf16
@@ -49,8 +53,10 @@ Phase 2  hold each kernel against its plain torch version on the card and
            ``ssd_block`` passes them (S 1024 also contiguous), f32 (1e-5
            of max|ref| + 1e-5 |ref|) and bf16 (per element 1e-5 + 2^-7
            |ref|), y and h both; the check must reject a state reset at
-           the second chunk's boundary; no single PyTorch call computes
-           the scan, so its ``library_ms`` is null.
+           the second chunk's boundary; each line gives the call replayed
+           from a CUDA graph (device alone), the chunks, CTAs and CUDA
+           kernels a call; no single PyTorch call computes the scan, so its
+           ``library_ms`` is null.
 Phase 3  serve 16 requests (prompts 256-1024, up to 32 new tokens) through
          the paged engine with chunked admission at qwen2.5-14b's full
          width, 48 layers, bf16, random weights from a seed — then the same
@@ -498,6 +504,11 @@ Q4_MS = (1, 8, 37, 256, 512)
 #: w_down) at its decode (M = 2) and its verify pass (M = 10, 2 slots x 5)
 Q4_SHAPES_32B = ((5120, 5120), (5120, 27392), (27392, 5120))
 Q4_MS_32B = (2, 10)
+#: B3 at mamba2-780m's in_proj (d_model 1536 -> 2 d_inner + 2 N + nh) and
+#: out_proj (d_inner 3072 -> 1536), at decode (M = 1) and a 1024-token
+#: prefill, as phase 9's q4 runs launch them
+Q4_SHAPES_SSM = ((1536, 6448), (3072, 1536))
+Q4_MS_SSM = (1, 1024)
 Q4_GROUP = 64
 #: the JSON row: a decode step of 8 slots at w_gate / w_up, bf16 x
 Q4_ROW = (8, 5120, 13824)
@@ -522,6 +533,18 @@ def q4_bound_ms(M, K, N, x_elt):
                                        else "operations")
 
 
+def q4_plan_label(q4, M, K, N, dtype) -> str:
+    """The route a B3 call takes, as phase 2 names it."""
+    plan = q4.q4_plan(M, K, N, Q4_GROUP, x_dtype=dtype)
+    rows = (q4.TILE[0] if plan.path == "tile"
+            else 8 if M <= 8 else q4.DECODE_ROWS)
+    tile = f"{rows}x{q4.TILE[1]}"
+    ctas = plan.grid[0] * plan.grid[1] * plan.grid[2]
+    return (f"[{plan.path}, split-K {plan.n_split}, tile {tile}, {ctas} "
+            f"CTAs, {plan.kernels} CUDA kernel{'s' * (plan.kernels > 1)} "
+            f"a call]")
+
+
 def check_q4(torch, timer, rng):
     """Phase 2, B3; returns its JSON row (the bf16 decode measurement)."""
     from repro_torch.kernels import q4_matmul as q4
@@ -529,7 +552,8 @@ def check_q4(torch, timer, rng):
 
     row = None
     cases = [(K, N, Q4_MS) for K, N in Q4_SHAPES] + \
-        [(K, N, Q4_MS_32B) for K, N in Q4_SHAPES_32B]
+        [(K, N, Q4_MS_32B) for K, N in Q4_SHAPES_32B] + \
+        [(K, N, Q4_MS_SSM) for K, N in Q4_SHAPES_SSM]
     for K, N, m_list in cases:
         w = torch.from_numpy(rng.standard_normal(
             (K, N), dtype=np.float32)).cuda() / np.sqrt(K)
@@ -545,7 +569,8 @@ def check_q4(torch, timer, rng):
                 (M, K), dtype=np.float32)).cuda()
             for dtype in ("float32", "bfloat16"):
                 x = x32.to(getattr(torch, dtype))
-                label = f"B3 M={M} K={K} N={N} {dtype}"
+                label = (f"B3 M={M} K={K} N={N} {dtype} "
+                         f"{q4_plan_label(q4, M, K, N, x.dtype)}")
                 kern = lambda: q4.q4_matmul(x, qt.packed, qt.scale,
                                             group=Q4_GROUP)
                 plain = lambda s=qt.scale: q4.q4_matmul_ref(
@@ -567,13 +592,16 @@ def check_q4(torch, timer, rng):
                                          f"a doubled group scale "
                                          f"({control:.3g}x the tolerance)")
                 ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
+                dev_ms, dev_lib = timer.graph(kern), timer.graph(lib)
                 bms, by = q4_bound_ms(M, K, N, x.element_size())
                 log(f"  {label}: max|err| {err:.3g} (max|ref| "
                     f"{float(want.abs().max()):.3g}), {ratio:.3g}x the "
                     f"tolerance (a doubled group scale: {control:.3g}x); "
                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS "
                     f"on the dequantized weight (library_ms) {lib_ms:.4f} "
-                    f"ms, bound {bms * 1e3:.2f} us ({by})")
+                    f"ms, bound {bms * 1e3:.2f} us ({by}); replayed from a "
+                    f"CUDA graph (device alone): kernel {dev_ms:.4f} ms, "
+                    f"cuBLAS {dev_lib:.4f} ms")
                 if dtype == "bfloat16" and (M, K, N) == Q4_ROW:
                     row = {"name": "q4_matmul", "route": "cuda",
                            "source": Q4_SOURCE,
@@ -960,16 +988,20 @@ def check_ssd(torch, timer, rng):
                         f"reset at position 128 ({control:.3g}x the "
                         f"tolerance)")
             ms, plain_ms = timer(kern), timer(plain)
+            dev_ms = timer.graph(kern)
             bms, by = ssd_bound_ms(B, S, dtype, x.element_size())
+            plan = ss.ssd_plan(B, S, SSD_NH)
             log(f"  {label} B={B} nh={SSD_NH} P={SSD_P} N={SSD_N} "
                 f"{'strided' if strided else 'contiguous'} {dtype}: "
                 f"max|err| {err:.3g} (y and h), {ratio:.3g}x the "
                 f"tolerance (a state reset at 128: "
                 f"{'n/a' if control is None else f'{control:.3g}x'}); "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bms * 1e3:.2f} us ({by}); {B * SSD_NH} CTAs on "
-                f"{torch.cuda.get_device_properties(0).multi_processor_count}"
-                f" SMs")
+                f"{bms * 1e3:.2f} us ({by}); replayed from a CUDA graph "
+                f"(device alone): kernel {dev_ms:.4f} ms [{plan.n_chunks} "
+                f"chunks, {plan.grid} CTAs in each (b, chunk, head) kernel "
+                f"on {torch.cuda.get_device_properties(0).multi_processor_count}"
+                f" SMs, {plan.kernels} CUDA kernels a call]")
             if dtype == "bfloat16" and label == SSD_ROW:
                 # no single PyTorch call computes the scan: library_ms null
                 row = {"name": "ssd_scan", "route": "cuda",

@@ -3,11 +3,11 @@
 ``nvcc`` compiles each source under ``csrc/`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. The
 libraries land in ``build/kernels/`` at the repository root (git-ignored),
-each under a name keyed by a hash of all sources and the flags, so an edit
-rebuilds them. Nothing is built at import: the first launch of any kernel
-builds every library, one ``nvcc`` process per source, all started
-together. A missing ``nvcc`` or a failed build raises — there is no
-fallback.
+each under a name keyed by a hash of all sources, the header they share
+(``csrc/tc_common.cuh``) and the flags, so an edit rebuilds them. Nothing
+is built at import: the first launch of any kernel builds every library,
+one ``nvcc`` process per source, all started together. A missing ``nvcc``
+or a failed build raises — there is no fallback.
 """
 from __future__ import annotations
 
@@ -53,9 +53,9 @@ def find_nvcc() -> str:
 
 def _key() -> str:
     h = hashlib.sha256()
-    for name in sorted(SOURCES):
-        h.update(name.encode())
-        h.update(SOURCES[name].read_bytes())
+    for path in sorted(_CSRC.glob("*.cu*")):     # the sources and headers
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -109,14 +109,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     err.argtypes = [I]
     err.restype = ctypes.c_char_p
     if name == "q4_matmul":
-        lib.q4_matmul.argtypes = [P, P, P, P, I, I, I, I, I, P]
+        lib.q4_matmul.argtypes = [P] * 5 + [I] * 8 + [P]
         lib.q4_matmul.restype = I
         return
     if name == "ssd_scan":
-        lib.ssd_scan.argtypes = [P] * 7 + [I] * 7 + [L] * 10 + [P]
+        lib.ssd_scan.argtypes = [P] * 10 + [I] * 8 + [L] * 10 + [P]
         lib.ssd_scan.restype = I
-        lib.ssd_scan_smem_bytes.argtypes = [I, I, I]
-        lib.ssd_scan_smem_bytes.restype = L
         return
     lib.paged_tiles.argtypes = [P] * 10 + [I] * 12 + [F] + [I] * 3 + \
         [L] * 9 + [P]

@@ -1,34 +1,65 @@
 """Mamba-2 SSD chunked scan from the zero state: the CUDA kernel B6 and its
 plain torch versions.
 
-Counterpart of ``repro/kernels/ssd_scan.py`` (Pallas). The kernel lives in
-``csrc/ssd_scan.cu``; the wrapper checks what it is given, allocates the
-outputs and launches on the current stream without synchronising. It takes
-CUDA tensors only — ``kernels.ops`` routes CPU tensors to the plain
+Counterpart of ``repro/kernels/ssd_scan.py`` (Pallas). The kernels live in
+``csrc/ssd_scan.cu`` (three a call: cumsums, chunk states and C B^T; the
+state hand-over; outputs); the wrapper checks what it is given, allocates
+the outputs and the f32 workspaces and launches on the current stream
+without synchronising (safe to capture in a CUDA graph). It takes CUDA
+tensors only — ``kernels.ops`` routes CPU tensors to the plain
 version beside it. Unlike the Pallas wrapper it takes any S (the last
 chunk is ragged) and reads x, B and C through their strides, in the
 layout ``models.layers.ssd_block`` leaves them (views of one conv output).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import _build
-from .paged_decode import SMEM_LIMIT, _code
+from .paged_decode import _code
 
 _FLOATS = (torch.float32, torch.bfloat16)
+#: the kernels' head geometry (mamba2-780m's SSD heads) and largest chunk
+HEAD_DIM, STATE_DIM, MAX_CHUNK = 64, 128, 128
+
+
+class SSDPlan(NamedTuple):
+    """The work of one B6 call, from shapes alone. ``n_chunks`` chunks;
+    ``grid``: CTAs of the chunk-state and output kernels, (b, chunk,
+    head); ``workspace``: f32 elements of the three workspaces (cumsums,
+    C B^T, chunk states); ``kernels``: CUDA kernels a call issues."""
+    n_chunks: int
+    grid: int
+    workspace: Tuple[int, int, int]
+    kernels: int
+
+
+def ssd_plan(B: int, S: int, nh: int, *, chunk: int = 128) -> SSDPlan:
+    nc = -(-S // chunk)
+    return SSDPlan(nc, B * nc * nh,
+                   (B * nc * nh * MAX_CHUNK, B * nc * MAX_CHUNK * MAX_CHUNK,
+                    B * nc * nh * HEAD_DIM * STATE_DIM), 3)
+
+
+def _rows_aligned(t: torch.Tensor, lead: int) -> bool:
+    """Every row of ``t`` (the leading ``lead`` strides) starts 16-byte
+    aligned: the kernels then stage it with cp.async."""
+    elt = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st * elt % 16 == 0 for st in t.stride()[:lead])
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor, *, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B6. x: (B, S, nh, P) f32/bf16; dt: (B, S, nh) f32; A: (nh,) f32
-    (<= 0); Bmat/Cmat: (B, S, N) in x's dtype. Each may be a strided view
+    """B6. x: (B, S, nh, 64) f32/bf16; dt: (B, S, nh) f32; A: (nh,) f32
+    (<= 0); Bmat/Cmat: (B, S, 128) in x's dtype. Each may be a strided view
     with a contiguous last dim. Returns (y (B, S, nh, P), h_final
     (B, nh, P, N)), both contiguous in x.dtype: the scan from the zero
-    state, summed in f32 chunk by chunk (``chunk`` positions at a time)."""
+    state, chunks of ``chunk`` <= 128 positions in parallel, summed in f32
+    in a fixed order."""
     name = "ssd_scan"
     for t in (x, dt, A, Bmat, Cmat):
         if t.device.type != "cuda" or t.device != x.device:
@@ -54,21 +85,25 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             or not A.is_contiguous():
         raise ValueError(f"{name}: x, B and C need a contiguous last dim, "
                          f"A contiguous")
-    if Bsz == 0 or S == 0 or nh == 0 or chunk < 1:
-        raise ValueError(f"{name}: empty batch, sequence or heads, or "
-                         f"chunk < 1")
-    lib = _build.load(name)
-    smem = lib.ssd_scan_smem_bytes(P, N, chunk)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {smem} B of shared memory per CTA "
-                         f"(P={P}, N={N}, chunk={chunk}); limit "
-                         f"{SMEM_LIMIT}")
+    if Bsz == 0 or S == 0 or nh == 0:
+        raise ValueError(f"{name}: empty batch, sequence or heads")
+    if P != HEAD_DIM or N != STATE_DIM or not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"{name}: the kernel takes P = {HEAD_DIM}, N = "
+                         f"{STATE_DIM} and 1 <= chunk <= {MAX_CHUNK} (got "
+                         f"P = {P}, N = {N}, chunk = {chunk})")
+    plan = ssd_plan(Bsz, S, nh, chunk=chunk)
     y = torch.empty((Bsz, S, nh, P), dtype=x.dtype, device=x.device)
     h = torch.empty((Bsz, nh, P, N), dtype=x.dtype, device=x.device)
+    cum, cb, st = (torch.empty(n, dtype=torch.float32, device=x.device)
+                   for n in plan.workspace)
+    aligned = all(_rows_aligned(t, lead) for t, lead in
+                  ((x, 3), (Bmat, 2), (Cmat, 2)))
+    lib = _build.load(name)
     code = lib.ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
-        Cmat.data_ptr(), y.data_ptr(), h.data_ptr(), xc, Bsz, S, nh, P, N,
-        chunk, *x.stride()[:3], *dt.stride(), *Bmat.stride()[:2],
+        Cmat.data_ptr(), y.data_ptr(), h.data_ptr(), cum.data_ptr(),
+        cb.data_ptr(), st.data_ptr(), xc, Bsz, S, nh, P, N, chunk,
+        int(aligned), *x.stride()[:3], *dt.stride(), *Bmat.stride()[:2],
         *Cmat.stride()[:2], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, name, name)
     _build.LAUNCHES[name] += 1

@@ -183,6 +183,25 @@ def test_build_is_keyed_by_source_and_needs_nvcc(monkeypatch):
         _build.find_nvcc()
 
 
+def test_build_key_covers_the_shared_header(monkeypatch, tmp_path):
+    """The three sources include csrc/tc_common.cuh: an edit of the header
+    alone renames every library, so a stale build is never loaded."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    monkeypatch.setattr(_build, "SOURCES", {
+        name: csrc / path.name for name, path in _build.SOURCES.items()})
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    header = csrc / "tc_common.cuh"
+    header.write_text(header.read_text() + "\n")
+    for name, path in before.items():
+        assert _build.library_path(name) != path
+
+
 # --------------------------------------------------------------------------- #
 #  the tile kernels (B1, B2, B4, B5): precision, route plan, head dims
 # --------------------------------------------------------------------------- #
