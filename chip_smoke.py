@@ -63,7 +63,15 @@ Phase 3  serve 16 requests (prompts 256-1024, up to 32 new tokens) through
          with int8 pages — and show that every chunk and decode step of
          every layer launched its kernel; then the dense-cache engine on
          the same requests (the ``--check-dense`` path), 48 B5 launches a
-         decode step.
+         decode step. Every engine of phases 3, 5, 7 and 9 replays its
+         fixed-shape decode step (and the paged engine its full chunks)
+         from CUDA graphs, the port's counterpart of the JAX package's
+         jitted steps; the launch counts are the graphs' replays times
+         what each capture launched. While the weights are on the card,
+         phase 12's runs: each page type again eager and graphed, keeping
+         every token's logits, timing every step and chunk between
+         syncs, the engine's 30th step in a ``torch.profiler`` window
+         (the main run's launches and streams, both ways).
 Phase 4  a 4-layer full-width f32 copy: the paged engine (chunked, f32
          and int8 pages) with kernels against ``use_kernels(False)``:
          every launch agrees with its plain version on the same inputs;
@@ -106,7 +114,11 @@ Phase 7  speculative serve of qwen1.5-32b at full width and depth (64
          difference there (no flip is possible otherwise), and before any
          split the logits agree to 5e-2 of max|ref| (bf16, 64 layers).
          Asserts per cycle 64 B5 launches at T = 5, 120 at T = 1 (5
-         draft steps x 24 layers) and 448 B3 launches.
+         draft steps x 24 layers) and 448 B3 launches. The resident runs
+         replay the target's step and the draft's from CUDA graphs and run
+         again eagerly for phase 12 (equal streams); the vanilla streamed
+         run (its layers come in rotating buffers: eager) carries a
+         ``Tracer`` and CUDA events around each layer's H2D copy.
          With random weights the draft and target rarely agree: the phase
          shows cost and correctness, not acceptance.
 Phase 8  spec parity at 4 layers, full width, f32 and an f32 cache: (a)
@@ -144,6 +156,21 @@ Phase 11 the CI smokes' shapes on the card: the reduced configs (head_dim
          (c) ``--arch qwen1.5-32b --stream-window 2 --store-quant q4
          --check-resident`` (its int8 dense cache through the fused B5,
          and B3; streamed tokens equal resident).
+Phase 12 steps replayed from CUDA graphs against eager, recorded in phases
+         3 and 7 and printed beside the card's name and power limit: phase
+         3's paged runs (bf16 and int8 pages) both ways -- wall, TPOT and
+         TTFT p50, the median decode step, full and ragged chunk, equal
+         streams, graphed-vs-eager logit max|d|, the exact launch counts
+         (2688 B1 and 2160 B2, 4848 B4, asserted), chunks graphed and
+         eager, captures, their seconds and memory; one profiler window a
+         way (a step's wall, the device's busy time as
+         the union of kernel intervals, the idle share, the top five
+         device and host ops; traces in ``chiprun_out/``); phase 7's
+         resident vanilla step and spec draft and verify ms both ways;
+         and the traced vanilla streamed run's stall split per token
+         (compute, disk_wait, sched_idle), its prefetcher spans and the
+         H2D copy's device time, its trace checked by the port's
+         ``validate_chrome_trace`` with the decode and prefetcher tracks.
 
 Prints the card's name and power limit again, the kernels' JSON line, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
@@ -1036,13 +1063,17 @@ def check_served(res) -> None:
 
 
 def serve_full(torch, ops, serve):
-    """Phase 3: the main path at full width; returns launch counts.
+    """Phase 3: the main path at full width; returns the launch counts of
+    its two main runs (bf16 and int8 pages).
 
     Every layer calls one kernel per prompt chunk and one per decode step.
     Float pages admit through B2 and decode through B1; int8 pages do both
     through B4. Each request runs to ``max_new`` (checked), so the schedule
     depends on lengths alone and the int8 run makes exactly the bf16 run's
-    B1 + B2 launches, all of them B4."""
+    B1 + B2 launches, all of them B4. The engine replays its decode step
+    and its full chunks from CUDA graphs (the counts are the graphs'
+    replays times what each capture launched). With the weights on the
+    card, phase 12's runs follow (``graphed_against_eager``)."""
     ops.reset_launch_counts()
     deltas = {}
     for quant in (False, True):
@@ -1082,13 +1113,78 @@ def serve_full(torch, ops, serve):
         if not quant and delta["paged_verify"] < cfg.n_layers:
             raise AssertionError("bf16 run: paged_verify never launched")
         deltas[quant] = delta
-        log(f"  launches in this run: {delta} ({chunks} layer-chunks)")
+        eng = res["engine"]
+        log(f"  launches in this run: {delta} ({chunks} layer-chunks); "
+            f"graphs: {graph_note(eng)}")
+        graphed_against_eager(torch, ops, serve, params, cfg, reqs, args,
+                              res, delta, "int8" if quant else "bf16")
         if not quant:
             check_dense_bf16(torch, ops, serve, params, cfg, reqs, args, res)
-        del params, res
+        del params, res, eng
         gc.collect()
         torch.cuda.empty_cache()
-    return ops.launch_counts()
+    return {k: deltas[False][k] + deltas[True][k] for k in deltas[False]}
+
+
+def graph_note(eng) -> str:
+    """An engine's graphs: chunks each way, captures, their seconds and
+    the device memory they reserved."""
+    sg, cs = eng.graphs, eng.chunk_step
+    note = (f"{sg.captures} captures in {sg.capture_s:.3f} s, "
+            f"{sg.pool_bytes / 1e6:.1f} MB reserved by them, replays "
+            f"{dict(sg.replays)}")
+    if hasattr(cs, "graphed"):
+        note += f"; chunks graphed {cs.graphed}, eager {cs.eager}"
+    return note
+
+
+def warm_profiler(torch) -> None:
+    """Start and stop ``torch.profiler`` once over a small product, so its
+    first start (the CUDA tracer's set-up, seconds) lands in no timed
+    run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones((64, 64), device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        (x @ x).sum().item()
+
+
+def graphed_against_eager(torch, ops, serve, params, cfg, reqs, args, res,
+                          delta, label):
+    """Phase 12's paged runs (recorded in ``PHASE12``): the same requests
+    eagerly (``graphs=False``) and graphed again, both keeping every
+    token's logits (max|d| between them: the same kernels run in the same
+    order), timing every step and chunk and running the engine's
+    ``PROFILE_STEP``-th step in a profiler window. The eager run must
+    make the main run's exact launches, and both its streams."""
+    traced, main = {}, {f.uid: f.tokens for f in res["finished"]}
+    warm_profiler(torch)
+    for graphs in (False, True):
+        way = "graphed" if graphs else "eager"
+        before = ops.launch_counts()
+        traced[way] = traced_paged_run(
+            torch, params, cfg, reqs, args, graphs=graphs,
+            dtype=torch.bfloat16,
+            profile_step=(PROFILE_STEP, f"profile_{label}_{way}"))
+        after = ops.launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        if traced[way][0] != main or got != delta:
+            raise AssertionError(f"{label} pages, {way} run: launches {got}"
+                                 f" (the main run's: {delta}); streams equal"
+                                 f" to the main run's: "
+                                 f"{traced[way][0] == main}")
+        PHASE12["profile"][(label, way)] = traced[way][3]
+    worst = max(float((traced["graphed"][1][k] - v).abs().max())
+                for k, v in traced["eager"][1].items())
+    PHASE12["paged"][label] = dict(
+        serve._p50_summary(res["finished"], res["wall_s"]),
+        wall_s=res["wall_s"], steps=res["steps"], launches=delta,
+        logit_max_abs_d=worst, n_logits=len(traced["eager"][1]),
+        graphs=graph_note(res["engine"]))
+    log(f"  {label} pages, eager and graphed again (logits kept, steps "
+        f"timed): the main run's launches and streams; logits max|d| "
+        f"{worst:.3g} over {len(traced['eager'][1])} tokens")
+    del traced
 
 
 def check_dense_bf16(torch, ops, serve, params, cfg, reqs, args, res):
@@ -1137,18 +1233,111 @@ def check_dense_bf16(torch, ops, serve, params, cfg, reqs, args, res):
 LOGIT_REL = 2e-4      # the repo's logit bound (tests/test_torch_model.py)
 
 
-def traced_paged_run(torch, params, cfg, reqs, args):
-    """The paged engine as ``serve.serve_paged`` builds it, keeping the
-    logits behind every greedy token by (uid, token index): the last
-    chunk's last row for token 0, the decode step's row after that."""
+#: the engine step (``eng.step`` calls, chunk-interleaved ones included)
+#: that phase 12 runs inside a profiler window: a decode step of the
+#: second wave of admissions, every slot busy
+PROFILE_STEP = 30
+#: phase 12's record: filled by phases 3 and 7 while their weights are on
+#: the card, printed and checked by phase 12
+PHASE12 = {"paged": {}, "profile": {}, "spec": {}, "trace": None}
+
+
+def out_path(name: str) -> str:
+    """A file under the git-ignored ``chiprun_out/``."""
+    d = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, name)
+
+
+def device_busy(events) -> float:
+    """Microseconds covered by the union of ``events``' [ts, ts + dur)."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+class profile_window:
+    """Run an engine's n-th step inside a ``torch.profiler`` window (after
+    a device sync, so no earlier work is in it): the step's host wall (a
+    step ends in its host sync), the device's busy time (the union of the
+    kernel, memcpy and memset intervals of the trace), the idle share (1 -
+    busy / wall), the five device ops with most time and the five host
+    ops with most self time. The trace goes to ``chiprun_out/<label>.json``,
+    written by ``result()`` once the run is over."""
+
+    def __init__(self, torch, eng, n, label):
+        self.window, self.label = None, label
+        step, count = eng.step, [0]
+
+        def step_(cache, tokens):
+            count[0] += 1
+            if count[0] != n:
+                return step(cache, tokens)
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = step(cache, tokens)
+                wall = time.perf_counter() - t0
+            self.window = (prof, wall)
+            return out
+        eng.step = step_
+
+    @staticmethod
+    def _summarize(prof, wall, label):
+        path = out_path(f"{label}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+               ("kernel", "gpu_memcpy", "gpu_memset")]
+        busy_ms = device_busy(dev) / 1e3
+        by_name = {}
+        for e in dev:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        top_dev = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        host = sorted(prof.key_averages(),
+                      key=lambda a: -a.self_cpu_time_total)[:5]
+        return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
+                "idle": max(0.0, 1.0 - busy_ms / (wall * 1e3)),
+                "device_events": len(dev), "trace": os.path.relpath(path,
+                                                                   ROOT),
+                "top_device": [(n[:60], d / 1e3) for n, d in top_dev],
+                "top_host": [(a.key[:60], a.self_cpu_time_total / 1e3,
+                              a.count) for a in host]}
+
+    def result(self):
+        if self.window is None:
+            raise AssertionError("the profiled step never ran")
+        return self._summarize(*self.window, self.label)
+
+
+def traced_paged_run(torch, params, cfg, reqs, args, *, graphs=False,
+                     dtype=None, profile_step=None):
+    """The paged engine as ``serve.serve_paged`` builds it (f32 pages
+    unless ``dtype``), keeping the logits behind every greedy token by
+    (uid, token index): the last chunk's last row for token 0, the decode
+    step's row after that. ``graphs``: replay the steps from CUDA graphs
+    (only with the kernels' own wrappers in place). ``profile_step``:
+    (n, label) runs the engine's n-th step inside a ``torch.profiler``
+    window (``profile_window``) and times every step and chunk between
+    device syncs (median ms of decode steps, full chunks and ragged
+    chunks), and the run's wall, TTFT and TPOT p50 (the logit copies,
+    the timers' syncs and the profiled step included). Returns (streams,
+    logits, pages, the window's summary with those numbers, or None)."""
     from repro_torch.runtime.kvcache import make_paged_engine
 
     B, bs = args.batch, args.page_tokens
     eng, kv = make_paged_engine(params, cfg, B, args.ctx,
                                 n_pages=2 + B * (-(-args.ctx // bs)),
-                                page_tokens=bs, cache_dtype=torch.float32,
+                                page_tokens=bs,
+                                cache_dtype=dtype or torch.float32,
                                 prefill_chunk=args.prefill_chunk,
-                                device=args.device)
+                                graphs=graphs, device=args.device)
     logits, admitting = {}, []
     admit, chunk_step, decode = eng.admit, eng.chunk_step, eng.decode
 
@@ -1170,11 +1359,42 @@ def traced_paged_run(torch, params, cfg, reqs, args):
         return out
 
     eng.admit, eng.chunk_step, eng.decode = admit_, chunk_step_, decode_
+    window, times = None, {"step": [], "chunk": [], "ragged": []}
+    if profile_step is not None:
+        window = profile_window(torch, eng, *profile_step)
+
+        def timed(fn, key):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                kind = key(*a) if callable(key) else key
+                times[kind].append(1e3 * (time.perf_counter() - t0))
+                return out
+            return call
+        eng.step = timed(eng.step, "step")
+        eng.chunk_step = timed(eng.chunk_step, lambda view, t, *a: (
+            "chunk" if t.shape[1] == eng.prefill_chunk else "ragged"))
     cache = kv.init_cache()
-    fin, _ = eng.run(cache, reqs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin, steps = eng.run(cache, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     check_served({"finished": fin, "rejected": eng.rejected,
                   "requests": reqs})
-    return {f.uid: f.tokens for f in fin}, logits, cache["pages"]
+    summary = None
+    if window is not None:
+        tpots = [f.tpot_s for f in fin if len(f.tokens) > 1]
+        summary = dict(window.result(), **{
+            f"{k}_ms": (float(np.median(v)), len(v))
+            for k, v in times.items()}, wall_s=wall, steps=steps,
+            ttft_p50_s=float(np.median([f.ttft_s for f in fin])),
+            tpot_p50_s=float(np.median(tpots)),
+            graphs=graph_note(eng) if graphs else None)
+    return ({f.uid: f.tokens for f in fin}, logits, cache["pages"],
+            summary)
 
 
 def compare_runs(kern, plain):
@@ -1332,7 +1552,8 @@ def parity(torch, ops, serve) -> None:
                 f"{n_equal} of {len(reqs)}; splits: {splits}")
         del kern, plain
     eng = make_dense_engine(params, cfg, args.batch, args.ctx,
-                            cache_dtype=torch.float32, device=args.device)
+                            cache_dtype=torch.float32, graphs=False,
+                            device=args.device)
     errs = {}
     before = ops.launch_counts()["flash_verify"]
     with substituted(ops, "shadow", errs):
@@ -1632,7 +1853,7 @@ def traced_stream_run(torch, source, cfg, reqs, args):
     from repro_torch.runtime.streaming import make_streaming_engine
 
     eng = make_streaming_engine(source, cfg, args.batch, args.ctx,
-                                cache_dtype=torch.float32,
+                                cache_dtype=torch.float32, graphs=False,
                                 device=args.device)
     try:
         run = logged_run(torch, eng, "prefill_layerwise",
@@ -1745,8 +1966,12 @@ class CallTimer:
 @contextlib.contextmanager
 def rows_by_T(counts):
     """Count the B5 and B1 wrapper calls by query rows a sequence (T);
-    each call goes on to the wrapper in place (kernel or stand-in)."""
-    from repro_torch.kernels import flash_decode, paged_decode
+    each call goes on to the wrapper in place (kernel or stand-in). The
+    counts live in ``_build.LAUNCHES`` under ``name@T`` keys while the
+    block runs, so a step replayed from a CUDA graph adds what its
+    capture counted, as it does for the kernels' own counts; they move to
+    ``counts`` as {(name, T): calls} on exit."""
+    from repro_torch.kernels import _build, flash_decode, paged_decode
 
     saved = []
     for mod, name in ((flash_decode, "flash_verify"),
@@ -1754,8 +1979,8 @@ def rows_by_T(counts):
         fn = getattr(mod, name)
 
         def spy(q, *a, fn=fn, name=name, **k):
-            counts[(name, q.shape[1])] = counts.get((name, q.shape[1]),
-                                                    0) + 1
+            key = f"{name}@T{q.shape[1]}"
+            _build.LAUNCHES[key] = _build.LAUNCHES.get(key, 0) + 1
             return fn(q, *a, **k)
 
         saved.append((mod, name, fn))
@@ -1765,17 +1990,23 @@ def rows_by_T(counts):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+        for key in [k for k in _build.LAUNCHES if "@T" in k]:
+            name, T = key.split("@T")
+            n = _build.LAUNCHES.pop(key)
+            if n:
+                counts[(name, int(T))] = counts.get((name, int(T)), 0) + n
 
 
-def make_spec(torch, dparams, dcfg, batch, ctx, dtype, verify=None):
+def make_spec(torch, dparams, dcfg, batch, ctx, dtype, verify=None, *,
+              graphs=True):
     """A ``SpeculativeDecoder`` over a resident draft with its own dense
-    cache (``verify`` may be set later, as the paged engine needs)."""
+    cache (``verify`` may be set later, as the paged engine needs); its
+    T = 1 step is replayed from CUDA graphs unless ``graphs=False``."""
     from repro_torch.models import model as M
-    from repro_torch.runtime.engine import write_dense_slot
+    from repro_torch.runtime.engine import dense_decode, write_dense_slot
     from repro_torch.runtime.speculative import SpeculativeDecoder
 
-    def draft_decode(c, t):
-        return M.decode_step(dparams, dcfg, c, t)
+    draft_decode = dense_decode(dparams, dcfg, graphs=graphs)
 
     def draft_prefill_one(prompt):
         c1 = M.init_cache(dcfg, 1, ctx, dtype=dtype, device="cuda")
@@ -1862,6 +2093,59 @@ def compare_traced(a, b):
     return worst, n_equal, splits
 
 
+@contextlib.contextmanager
+def h2d_events(torch):
+    """CUDA events on the prefetcher's side stream around each layer's
+    host-to-device copy (``LayerPrefetcher._to_card`` enqueues it there):
+    the copy's device time, which the tracer's ``h2d`` span (the enqueue)
+    does not hold. Yields the list of (start, end) event pairs."""
+    from repro_torch.runtime.streaming import LayerPrefetcher
+
+    to_card, pairs = LayerPrefetcher._to_card, []
+
+    def timed(self, buf, nbytes):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record(self._side)
+        out = to_card(self, buf, nbytes)
+        ev[1].record(self._side)
+        pairs.append(ev)
+        return out
+
+    LayerPrefetcher._to_card = timed
+    try:
+        yield pairs
+    finally:
+        LayerPrefetcher._to_card = to_card
+
+
+def streamed_trace(torch, tracer, copies):
+    """Phase 12's reading of the traced vanilla streamed run: the trace
+    (written to ``chiprun_out/``) checked by the port's validator with the
+    decode and prefetcher tracks, the mean stall split per token, the
+    prefetcher track's median spans and the copies' median device time."""
+    from repro_torch.runtime.telemetry import validate_chrome_trace
+
+    path = out_path("phase7_vanilla_streamed_trace.json")
+    tracer.export_chrome_trace(path)
+    info = validate_chrome_trace(path, ("decode", "prefetcher"))
+    spans = {}
+    for ev in tracer.events():
+        if ev.track == "prefetcher" and hasattr(ev, "t_end"):
+            spans.setdefault(ev.name.split("[")[0], []).append(ev.duration)
+    torch.cuda.synchronize()
+    h2d = [a.elapsed_time(b) for a, b in copies]
+    if not h2d or "layer_read" not in spans or "h2d" not in spans:
+        raise AssertionError(f"traced streamed run: {len(h2d)} timed copies"
+                             f", prefetcher spans {sorted(spans)}")
+    return {"stall": tracer.summary(), "tracks": info["tracks"],
+            "events": info["n_events"], "evicted": info["evicted"],
+            "trace": os.path.relpath(path, ROOT),
+            "layer_read_ms": 1e3 * float(np.median(spans["layer_read"])),
+            "h2d_span_ms": 1e3 * float(np.median(spans["h2d"])),
+            "h2d_device_ms": float(np.median(h2d)), "copies": len(h2d)}
+
+
 def serve_spec_full(torch, ops, serve):
     """Phase 7; returns the spec streamed run's launch counts."""
     from repro_torch.configs import get_config
@@ -1870,6 +2154,7 @@ def serve_spec_full(torch, ops, serve):
     from repro_torch.runtime.paramstore import ParamStore, ResidentSource
     from repro_torch.runtime.streaming import (StreamingParamSource,
                                                make_streaming_engine)
+    from repro_torch.runtime.telemetry import Tracer
 
     args = serve.parse_args(SPEC_ARGS)
     cfg = get_config(args.arch)                # 64 layers, int8 cache
@@ -1897,32 +2182,42 @@ def serve_spec_full(torch, ops, serve):
             f"layers; bf16 head {head / 1e9:.2f} GB")
         store.close()
         reqs = serve.make_requests(cfg, args)
-        for name in ("spec streamed", "spec resident", "vanilla resident",
+        # the resident runs replay their steps (the draft's too) from CUDA
+        # graphs; phase 12 reruns them eagerly, and traces the vanilla
+        # streamed run
+        for name in ("spec streamed", "spec resident", "spec resident eager",
+                     "vanilla resident", "vanilla resident eager",
                      "vanilla streamed"):
+            graphs = not name.endswith("eager")
+            tracer = Tracer() if name == "vanilla streamed" else None
             src = StreamingParamSource(ParamStore(sdir),
-                                       window=args.stream_window) \
+                                       window=args.stream_window,
+                                       tracer=tracer) \
                 if name.endswith("streamed") else ResidentSource(tree)
             spec = None
             if name.startswith("spec"):
-                spec = make_spec(torch, dparams, dcfg, B, ctx, bf16)
+                spec = make_spec(torch, dparams, dcfg, B, ctx, bf16,
+                                 graphs=graphs)
                 spec.draft_decode = CallTimer(torch, spec.draft_decode)
-                spec.verify = CallTimer(
-                    torch, lambda c, t, src=src: M.decode_step_layerwise(
-                        src, cfg, c, t))
             eng = make_streaming_engine(src, cfg, B, ctx, spec=spec,
-                                        cache_dtype=bf16)
+                                        cache_dtype=bf16, tracer=tracer,
+                                        graphs=graphs)
             step_timer = None
             if spec is None:
                 eng.decode = step_timer = CallTimer(torch, eng.decode)
+            else:
+                spec.verify = CallTimer(torch, eng.decode)
             by_T = {}
             ops.reset_launch_counts()
             try:
-                with rows_by_T(by_T):
+                with rows_by_T(by_T), h2d_events(torch) as copies:
                     run = traced(torch, eng, init_cache(
                         cfg, B, ctx, dtype=bf16, device="cuda"), reqs, spec)
                 st = eng.streaming_stats()
             finally:
                 src.close()
+            if tracer is not None:
+                PHASE12["trace"] = streamed_trace(torch, tracer, copies)
             counts = ops.launch_counts()
             # a pass of the target (a prefill, a decode step or a verify
             # pass) is 7 B3 launches a layer; a cycle is one verify pass
@@ -1972,21 +2267,37 @@ def serve_spec_full(torch, ops, serve):
                         f"{1e3 * float(np.median(step_timer.times)):.2f} ms"
                         f" (median)")
             log(msg)
-            log(f"  {name}: launches {counts}; by rows a sequence {by_T}")
+            log(f"  {name}: launches {counts}; by rows a sequence {by_T}"
+                + (f"; graphs: {eng.graphs.captures} captures in "
+                   f"{eng.graphs.capture_s:.3f} s, replays "
+                   f"{dict(eng.graphs.replays)}" if eng.graphs else ""))
             launches[name] = counts
             runs[name] = run
+            if "resident" in name:
+                rec = {"wall_s": run["wall"], "steps": steps,
+                       "tpot_p50_s": summ["tpot_p50_s"]}
+                if spec is not None:
+                    # medians: a first call of each T holds its capture
+                    rec.update(draft_ms=(SPEC_GAMMA + 1) * 1e3 * float(
+                        np.median(spec.draft_decode.times)),
+                        verify_ms=1e3 * float(np.median(spec.verify.times)))
+                else:
+                    rec["step_ms"] = 1e3 * float(np.median(
+                        step_timer.times))
+                PHASE12["spec"][name] = rec
     finally:
         shutil.rmtree(sdir, ignore_errors=True)
     del tree
     for kind in ("spec", "vanilla"):
-        if runs[f"{kind} streamed"]["streams"] != \
-                runs[f"{kind} resident"]["streams"]:
-            raise AssertionError(f"{kind} streamed and {kind} resident "
-                                 f"streams differ")
+        for other in ("streamed", "resident eager"):
+            if runs[f"{kind} {other}"]["streams"] != \
+                    runs[f"{kind} resident"]["streams"]:
+                raise AssertionError(f"{kind} {other} and {kind} resident "
+                                     f"(graphed) streams differ")
     worst, n_equal, splits = compare_traced(runs["spec resident"],
                                             runs["vanilla resident"])
-    log(f"  streamed and resident streams equal for {len(reqs)} requests "
-        f"(spec and vanilla); spec against vanilla: streams equal for "
+    log(f"  streamed, resident and resident eager streams equal for "
+        f"{len(reqs)} requests (spec and vanilla); spec against vanilla: streams equal for "
         f"{n_equal} of {len(reqs)}, logits within {worst:.3g} of max|ref| "
         f"up to each stream's first difference; splits (uid, token, "
         f"vanilla top-2 gap, logit difference there, both / max|ref|): "
@@ -2073,6 +2384,32 @@ def parity_case(torch, ops, label, build, reqs, vanilla, want_kernels,
     return rate, True
 
 
+def graphed_spec_case(torch, label, build, reqs, vanilla, verify_kernel,
+                      layers):
+    """Phase 8, one spec engine again with its steps replayed from CUDA
+    graphs (the target's verify at T = gamma + 1, the draft's T = 1):
+    streams equal to vanilla greedy, and the calls by rows a sequence that
+    each cycle implies, counted through the graphs' replays."""
+    by_T = {}
+    with rows_by_T(by_T):
+        eng, cache, spec, close = build(True, graphs=True)
+        try:
+            run = traced(torch, eng, cache, reqs, spec)
+        finally:
+            close()
+    want_T = {(verify_kernel, SPEC_GAMMA + 1): layers[0] * spec.cycles,
+              ("flash_verify", 1): (SPEC_GAMMA + 1) * layers[1]
+              * spec.cycles}
+    if by_T != want_T or run["streams"] != vanilla["streams"]:
+        raise AssertionError(f"{label}, graphed: calls by rows {by_T} "
+                             f"(wanted {want_T}); streams equal to vanilla "
+                             f"{run['streams'] == vanilla['streams']}")
+    log(f"  {label}, graphed: {spec.cycles} cycles replayed from CUDA "
+        f"graphs ({dict(eng.graphs.replays)}, the draft's "
+        f"{dict(spec.draft_decode.graphs.replays)}); streams equal to "
+        f"vanilla greedy; calls by rows {by_T}")
+
+
 def spec_parity(torch, ops, serve) -> None:
     """Phase 8: (a) the dense engine, (b) the paged engine with chunked
     admission, (c) the streamed q4 engine, all with spec, at 4 layers, full
@@ -2104,15 +2441,15 @@ def spec_parity(torch, ops, serve) -> None:
     B, ctx = args.batch, args.ctx
 
     def dense_build(draft):
-        def build(with_spec):
+        def build(with_spec, graphs=False):
             spec = None
             if with_spec:
                 dp, dc = draft
-                spec = make_spec(torch, dp, dc, B, ctx, f32,
-                                 lambda c, t: M.decode_step(params, cfg, c,
-                                                            t))
+                spec = make_spec(torch, dp, dc, B, ctx, f32, graphs=graphs)
             eng = make_dense_engine(params, cfg, B, ctx, spec=spec,
-                                    cache_dtype=f32)
+                                    cache_dtype=f32, graphs=graphs)
+            if spec is not None:
+                spec.verify = eng.decode
             return eng, init_cache(cfg, B, ctx, dtype=f32,
                                    device="cuda"), spec, lambda: None
         return build
@@ -2123,6 +2460,9 @@ def spec_parity(torch, ops, serve) -> None:
     parity_case(torch, ops, "(a) qwen1.5-32b dense, distinct draft",
                 dense_build((dparams, dcfg)), reqs, vanilla,
                 ["flash_verify"], "flash_verify", layers)
+    graphed_spec_case(torch, "(a) qwen1.5-32b dense, distinct draft",
+                      dense_build((dparams, dcfg)), reqs, vanilla,
+                      "flash_verify", layers)
     pert = copy.deepcopy(params)
     lo, hi = ACCEPT_RANGE
     done = False
@@ -2155,13 +2495,13 @@ def spec_parity(torch, ops, serve) -> None:
     bs = args.page_tokens
     n_pages = 2 + B * (-(-ctx // bs))
 
-    def paged_build(with_spec):
-        spec = make_spec(torch, dparams, dcfg, B, ctx, f32) \
+    def paged_build(with_spec, graphs=False):
+        spec = make_spec(torch, dparams, dcfg, B, ctx, f32, graphs=graphs) \
             if with_spec else None
         eng, kv = make_paged_engine(params, cfg, B, ctx, n_pages=n_pages,
                                     page_tokens=bs, cache_dtype=f32,
                                     prefill_chunk=args.prefill_chunk,
-                                    spec=spec)
+                                    spec=spec, graphs=graphs)
         if spec is not None:
             spec.verify = eng.decode
         return eng, kv.init_cache(), spec, kv.pool.check
@@ -2172,6 +2512,9 @@ def spec_parity(torch, ops, serve) -> None:
                 "distinct draft", paged_build, reqs, vanilla,
                 ["flash_verify", "paged_prefill", "paged_verify"],
                 "paged_verify", (cfg.n_layers, dcfg.n_layers))
+    graphed_spec_case(torch, "(b) qwen2.5-14b paged, chunked admission, "
+                      "distinct draft", paged_build, reqs, vanilla,
+                      "paged_verify", (cfg.n_layers, dcfg.n_layers))
     del params, vanilla
     gc.collect()
     torch.cuda.empty_cache()
@@ -2188,10 +2531,10 @@ def spec_parity(torch, ops, serve) -> None:
             src = StreamingParamSource(ParamStore(sdir), window=2)
             spec = make_spec(
                 torch, dparams, dcfg, B, ctx, f32,
-                lambda c, t: M.decode_step_layerwise(src, cfg, c, t)) \
-                if with_spec else None
+                lambda c, t: M.decode_step_layerwise(src, cfg, c, t),
+                graphs=False) if with_spec else None
             eng = make_streaming_engine(src, cfg, B, ctx, spec=spec,
-                                        cache_dtype=f32)
+                                        cache_dtype=f32, graphs=False)
             return eng, init_cache(cfg, B, ctx, dtype=f32,
                                    device="cuda"), spec, src.close
 
@@ -2278,7 +2621,9 @@ def serve_ssm_full(torch, ops, serve):
         ops.use_kernels(name == "kernels")
         ops.reset_launch_counts()
         try:
-            eng = make_dense_engine(params, cfg, Bn, ctx, cache_dtype=bf16)
+            # the plain versions read lengths on the host: no graphs
+            eng = make_dense_engine(params, cfg, Bn, ctx, cache_dtype=bf16,
+                                    graphs=name == "kernels")
             runs[name] = logged_run(torch, eng, "prefill", init_cache(
                 cfg, Bn, ctx, dtype=bf16, device="cuda"), reqs)
         finally:
@@ -2388,18 +2733,20 @@ def ssm_parity(torch, ops, serve) -> None:
     reqs = serve.make_requests(cfg, args)
     sdir, tree = write_store(torch, cfg, f32, seed=4)
 
+    # every engine eager: each launch is shadowed by its plain version
     def dense():
-        return make_dense_engine(params, cfg, Bn, ctx, cache_dtype=f32), \
-            "prefill"
+        return make_dense_engine(params, cfg, Bn, ctx, cache_dtype=f32,
+                                 graphs=False), "prefill"
 
     def streamed():
         src = StreamingParamSource(ParamStore(sdir), window=2)
-        return make_streaming_engine(src, cfg, Bn, ctx, cache_dtype=f32), \
-            "prefill_layerwise"
+        return make_streaming_engine(src, cfg, Bn, ctx, cache_dtype=f32,
+                                     graphs=False), "prefill_layerwise"
 
     def resident():
         return make_streaming_engine(ResidentSource(tree), cfg, Bn, ctx,
-                                     cache_dtype=f32), "prefill_layerwise"
+                                     cache_dtype=f32, graphs=False), \
+            "prefill_layerwise"
 
     def run(build):
         eng, fn = build()
@@ -2509,6 +2856,76 @@ def ci_smokes() -> None:
 
 
 # --------------------------------------------------------------------------- #
+#  phase 12: graphed against eager, and where a step's time goes
+# --------------------------------------------------------------------------- #
+
+def report_graphs() -> None:
+    """Phase 12: print (and check) what phases 3 and 7 recorded in
+    ``PHASE12``, beside the card's name and power limit."""
+    log(f"  card: {card()}")
+    paged = PHASE12["paged"]
+    for label in ("bf16", "int8"):
+        rec = paged[label]
+        log(f"  phase 3, {label} pages, main run (graphed): wall "
+            f"{rec['wall_s']:.3f} s, TPOT p50 {rec['tpot_p50_s'] * 1e3:.2f} "
+            f"ms, TTFT p50 {rec['ttft_p50_s'] * 1e3:.2f} ms, "
+            f"{rec['tokens_per_s']:.1f} tokens/s, {rec['steps']} steps; "
+            f"launches {({k: v for k, v in rec['launches'].items() if v})}; "
+            f"graphs: {rec['graphs']}")
+        for way in ("eager", "graphed"):
+            w = PHASE12["profile"][(label, way)]
+            log(f"  phase 3, {label} pages, {way} (logits kept, steps timed"
+                f"): wall {w['wall_s']:.3f} s, TPOT p50 "
+                f"{w['tpot_p50_s'] * 1e3:.2f} ms, TTFT p50 "
+                f"{w['ttft_p50_s'] * 1e3:.2f} ms; median ms between syncs "
+                f"(count): decode step {w['step_ms']}, full chunk "
+                f"{w['chunk_ms']}, ragged chunk {w['ragged_ms']}"
+                + (f"; graphs: {w['graphs']}" if w["graphs"] else ""))
+        log(f"  phase 3, {label} pages: streams equal both ways; graphed vs "
+            f"eager logits max|d| {rec['logit_max_abs_d']:.3g} over "
+            f"{rec['n_logits']} tokens")
+        for way in ("eager", "graphed"):
+            w = PHASE12["profile"][(label, way)]
+            log(f"  profiler, {label} pages, {way}, engine step "
+                f"{PROFILE_STEP}: wall {w['wall_ms']:.2f} ms under the "
+                f"profiler, device busy {w['busy_ms']:.2f} ms "
+                f"({w['device_events']} device events), idle share "
+                f"{w['idle']:.3f}; trace {w['trace']}")
+            log(f"    top device ops (ms): {w['top_device']}")
+            log(f"    top host ops (self ms, calls): {w['top_host']}")
+    want = {"paged_verify": 2688, "paged_prefill": 2160}
+    bf16 = {k: paged["bf16"]["launches"][k] for k in want}
+    int8 = paged["int8"]["launches"]["paged_verify_quant"]
+    log(f"  exact launch counts under graphs: bf16 {bf16}, int8 B4 {int8} "
+        f"(phase 3's before graphs: {want}, 4848)")
+    if bf16 != want or int8 != 4848:
+        raise AssertionError("graphed launch counts differ from phase 3's "
+                             "exact counts before graphs")
+    spec = PHASE12["spec"]
+    for kind, what in (("vanilla", "step_ms"), ("spec", "verify_ms")):
+        g, e = spec[f"{kind} resident"], spec[f"{kind} resident eager"]
+        extra = "" if kind == "vanilla" else (
+            f"; draft {e['draft_ms']:.2f} -> {g['draft_ms']:.2f} ms a "
+            f"cycle ({SPEC_GAMMA + 1} x the median step)")
+        log(f"  phase 7, {kind} resident, eager -> graphed: wall "
+            f"{e['wall_s']:.3f} -> {g['wall_s']:.3f} s, TPOT p50 "
+            f"{e['tpot_p50_s'] * 1e3:.2f} -> {g['tpot_p50_s'] * 1e3:.2f} "
+            f"ms, {what.split('_')[0]} (median) {e[what]:.2f} -> "
+            f"{g[what]:.2f} ms"
+            f"{extra}; streams equal")
+    t = PHASE12["trace"]
+    st = t["stall"]
+    log(f"  phase 7, vanilla streamed, traced: stall split per token over "
+        f"{int(st['n'])} steps (ms): compute {st['compute'] * 1e3:.2f}, "
+        f"disk_wait {st['disk_wait'] * 1e3:.2f}, sched_idle "
+        f"{st['sched_idle'] * 1e3:.2f}, wall {st['wall'] * 1e3:.2f}; "
+        f"prefetcher medians: layer_read span {t['layer_read_ms']:.2f} ms, "
+        f"h2d span (the enqueue) {t['h2d_span_ms']:.3f} ms, the H2D copy's "
+        f"device time {t['h2d_device_ms']:.2f} ms ({t['copies']} copies, "
+        f"CUDA events)")
+    log(f"  trace {t['trace']}: valid, {t['events']} events, tracks "
+        f"{t['tracks']}, evicted {t['evicted']}")
+
 
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
@@ -2602,6 +3019,11 @@ def main() -> int:
         "on the card")
     ci_smokes()
     log(f"  phase 11 done at {time.perf_counter() - t_start:.0f} s")
+
+    log("== phase 12: steps replayed from CUDA graphs against eager, and "
+        "where a step's time goes (recorded in phases 3 and 7)")
+    report_graphs()
+    log(f"  phase 12 done at {time.perf_counter() - t_start:.0f} s")
 
     counts["q4_matmul"] = stream_counts["q4_matmul"]
     counts["flash_verify"] = spec_counts["flash_verify"]

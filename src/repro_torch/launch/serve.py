@@ -23,6 +23,16 @@ bytes per layer, the peak resident weight bytes, the prefetch stall and
 the bytes read. ``--check-resident`` also serves the same requests with
 the same (quantized) weights resident and exits nonzero on any token
 mismatch.
+
+Observability, as in the JAX driver: ``--trace OUT.json`` attaches a
+``runtime.telemetry.Tracer`` to the served engine (and the prefetcher)
+and writes its Chrome trace (open it at https://ui.perfetto.dev) with the
+per-step stall attribution; ``--metrics-out OUT.json`` collects serving
+metrics in a ``runtime.metrics.MetricsRegistry`` and writes its snapshot
+(check it with ``python -m repro_torch.runtime.metrics --validate
+OUT.json``); ``--metrics-interval N`` prints a rolling line every N decode
+steps. On the card every engine replays its fixed-shape decode steps from
+CUDA graphs (see ``runtime.engine.StepGraphs``).
 """
 from __future__ import annotations
 
@@ -44,10 +54,11 @@ from ..models import init_cache, init_params
 from ..quant.grouped import tree_tensors
 from ..runtime.engine import make_dense_engine
 from ..runtime.kvcache import make_paged_engine
+from ..runtime.metrics import MetricsRegistry, validate_metrics_snapshot
 from ..runtime.paramstore import ParamStore, ResidentSource, save_param_store
 from ..runtime.serve import quantize_ring_params
 from ..runtime.streaming import StreamingParamSource, make_streaming_engine
-from ..runtime.telemetry import clock
+from ..runtime.telemetry import Tracer, clock, format_summary
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -91,6 +102,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="with --stream-window: also serve the same "
                          "requests with the same weights resident; exit "
                          "nonzero on any token mismatch")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="capture a runtime trace (decode steps, admits, "
+                         "prefill chunks, the prefetcher) and write "
+                         "Chrome-trace JSON here; open it at "
+                         "https://ui.perfetto.dev")
+    ap.add_argument("--metrics-interval", type=int, default=0,
+                    metavar="N",
+                    help="print a rolling metrics line every N decode "
+                         "steps: stall attribution (with --trace) and "
+                         "request/step percentiles (with --metrics-out)")
+    ap.add_argument("--metrics-out", default=None, metavar="OUT.json",
+                    help="collect serving metrics (request lifecycle "
+                         "percentiles, engine counters and gauges) and "
+                         "write the JSON snapshot here; check it with "
+                         "`python -m repro_torch.runtime.metrics "
+                         "--validate OUT.json`")
     args = ap.parse_args(argv)
     if args.stream_window < 0:
         ap.error("--stream-window must be >= 0")
@@ -138,14 +165,87 @@ def make_requests(cfg, args: argparse.Namespace) -> List:
     return gen.generate(args.requests or 2 * args.batch)
 
 
+def instruments(args: argparse.Namespace):
+    """(tracer or None, registry or None) for ``--trace`` and
+    ``--metrics-out``."""
+    return (Tracer() if args.trace else None,
+            MetricsRegistry() if args.metrics_out else None)
+
+
+def _percentile_line(metrics) -> str:
+    """One line of request/step percentiles for the console."""
+    pcts = metrics.percentile_summary()
+    parts = []
+    for key, label in (("request/ttft_s", "ttft"),
+                       ("request/tpot_s", "tpot"),
+                       ("request/queue_wait_s", "queue"),
+                       ("decode/step_s", "step")):
+        if f"{key}/p50" in pcts:
+            parts.append(f"{label} p50/p99 "
+                         f"{pcts[f'{key}/p50'] * 1e3:.1f}/"
+                         f"{pcts[f'{key}/p99'] * 1e3:.1f} ms")
+    if "request/prefill_chunks/p50" in pcts:
+        parts.append(f"prefill chunks p50/p99 "
+                     f"{pcts['request/prefill_chunks/p50']:.0f}/"
+                     f"{pcts['request/prefill_chunks/p99']:.0f}")
+    stall = metrics.snapshot()["counters"].get("decode/interleave_stall_s")
+    if stall:
+        parts.append(f"interleave stall {stall * 1e3:.1f} ms")
+    return "; ".join(parts)
+
+
+def _ticking(eng, args: argparse.Namespace) -> None:
+    """``--metrics-interval N``: after every N-th decode step of ``eng``,
+    print the last N steps' stall attribution (with a tracer) and the
+    request/step percentiles (with metrics)."""
+    n = args.metrics_interval
+    if n <= 0:
+        return
+    step, count = eng.step, [0]
+
+    def step_(cache, tokens):
+        out = step(cache, tokens)
+        count[0] += 1
+        if count[0] % n == 0:
+            summ = eng.tracer.summary(last_n=n)
+            if summ.get("n"):
+                print(f"[step {count[0]}] {format_summary(summ)}")
+            if eng.metrics is not None:
+                line = _percentile_line(eng.metrics)
+                if line:
+                    print(f"[step {count[0]}] {line}")
+        return out
+    eng.step = step_
+
+
+def export_instruments(tracer, metrics, args: argparse.Namespace) -> None:
+    """Write ``--trace`` and ``--metrics-out`` and print their summaries."""
+    if tracer is not None:
+        tracer.export_chrome_trace(args.trace)
+        summ = tracer.summary()
+        if summ.get("n"):
+            print("stall attribution:", format_summary(summ))
+        print(f"trace: {len(tracer.events())} events on "
+              f"{len(tracer.tracks())} tracks -> {args.trace} "
+              f"(open at https://ui.perfetto.dev)")
+    if metrics is not None:
+        path = metrics.export_json(args.metrics_out)
+        info = validate_metrics_snapshot(path)
+        print(f"metrics: {info['counters']} counters, "
+              f"{info['gauges']} gauges, {info['histograms']} "
+              f"histograms -> {path}")
+        print(_percentile_line(metrics) or "metrics: no samples yet")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def serve_paged(params, cfg, reqs, args: argparse.Namespace) -> Dict:
+def serve_paged(params, cfg, reqs, args: argparse.Namespace, *,
+                tracer=None, metrics=None) -> Dict:
     """Serve ``reqs`` through the paged engine; returns the streams and
-    what was measured."""
+    what was measured (``engine``: the engine, for its graphs' counts)."""
     device = torch.device(args.device)
     B, ctx, bs = args.batch, args.ctx, args.page_tokens
     n_pages = 2 + B * (-(-ctx // bs))
@@ -153,7 +253,9 @@ def serve_paged(params, cfg, reqs, args: argparse.Namespace) -> Dict:
                                 page_tokens=bs,
                                 cache_dtype=DTYPES[args.dtype],
                                 prefill_chunk=args.prefill_chunk or None,
+                                tracer=tracer, metrics=metrics,
                                 device=device)
+    _ticking(eng, args)
     cache = kv.init_cache()
     _sync(device)
     t0 = clock()
@@ -161,16 +263,19 @@ def serve_paged(params, cfg, reqs, args: argparse.Namespace) -> Dict:
     _sync(device)
     wall = clock() - t0
     return {"finished": fin, "rejected": eng.rejected, "steps": steps,
-            "wall_s": wall, "kv": kv.stats()}
+            "wall_s": wall, "kv": kv.stats(), "engine": eng}
 
 
-def serve_dense(params, cfg, reqs, args: argparse.Namespace) -> Dict:
+def serve_dense(params, cfg, reqs, args: argparse.Namespace, *,
+                tracer=None, metrics=None) -> Dict:
     """Serve ``reqs`` through the dense-cache engine (the ssm family's
     resident path); returns the streams and what was measured."""
     device = torch.device(args.device)
     dtype = DTYPES[args.dtype]
     eng = make_dense_engine(params, cfg, args.batch, args.ctx,
-                            cache_dtype=dtype, device=device)
+                            cache_dtype=dtype, tracer=tracer,
+                            metrics=metrics, device=device)
+    _ticking(eng, args)
     cache = init_cache(cfg, args.batch, args.ctx, dtype=dtype, device=device)
     _sync(device)
     t0 = clock()
@@ -236,13 +341,16 @@ def store_tree(params, cfg, args: argparse.Namespace):
     return tree, raw
 
 
-def serve_layerwise(source, cfg, reqs, args: argparse.Namespace) -> Dict:
+def serve_layerwise(source, cfg, reqs, args: argparse.Namespace, *,
+                    tracer=None, metrics=None) -> Dict:
     """Serve ``reqs`` through the layer-wise engine over ``source`` on a
     dense cache; returns the streams and what was measured."""
     device = torch.device(args.device)
     dtype = DTYPES[args.dtype]
     eng = make_streaming_engine(source, cfg, args.batch, args.ctx,
-                                cache_dtype=dtype, device=device)
+                                cache_dtype=dtype, tracer=tracer,
+                                metrics=metrics, device=device)
+    _ticking(eng, args)
     cache = init_cache(cfg, args.batch, args.ctx, dtype=dtype, device=device)
     _sync(device)
     t0 = clock()
@@ -254,9 +362,11 @@ def serve_layerwise(source, cfg, reqs, args: argparse.Namespace) -> Dict:
             "summary": _p50_summary(fin, wall)}
 
 
-def serve_streamed(params, cfg, reqs, args: argparse.Namespace) -> Dict:
+def serve_streamed(params, cfg, reqs, args: argparse.Namespace, *,
+                   tracer=None, metrics=None) -> Dict:
     """Write the store, serve from it with ``--stream-window`` layers
-    staged ahead, and (``--check-resident``) serve again resident."""
+    staged ahead, and (``--check-resident``) serve again resident; the
+    instruments see the streamed run."""
     W = args.stream_window
     tree, raw = store_tree(params, cfg, args)
     sdir = tempfile.mkdtemp(prefix="paramstore_")
@@ -268,9 +378,10 @@ def serve_streamed(params, cfg, reqs, args: argparse.Namespace) -> Dict:
               f"v{store.version}, {store.layer_nbytes / 1e6:.3f} MB/layer "
               f"packed vs {raw / 1e6:.3f} MB/layer unquantized "
               f"({store.layer_nbytes / raw:.3f}x)")
-        with StreamingParamSource(store, window=W,
-                                  device=args.device) as src:
-            res = serve_layerwise(src, cfg, reqs, args)
+        with StreamingParamSource(store, window=W, device=args.device,
+                                  tracer=tracer) as src:
+            res = serve_layerwise(src, cfg, reqs, args, tracer=tracer,
+                                  metrics=metrics)
         st, summ = res["stats"], res["summary"]
         print(f"streamed serve on {args.device} ({args.dtype}, window "
               f"{W}/{cfg.n_layers} layers): {summ['requests']} requests "
@@ -305,20 +416,18 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
     cfg, params = build_model(args)
     reqs = make_requests(cfg, args)
+    tracer, metrics = instruments(args)
     if args.stream_window:
-        res = serve_streamed(params, cfg, reqs, args)
-        if res["rejected"]:
-            raise SystemExit(f"{len(res['rejected'])} requests shed: "
-                             f"{res['rejected'][0].reason}")
-        return res
-    if cfg.family == "ssm":
-        res = serve_dense(params, cfg, reqs, args)
-        if res["rejected"]:
-            raise SystemExit(f"{len(res['rejected'])} requests shed: "
-                             f"{res['rejected'][0].reason}")
-        return res
-    res = serve_paged(params, cfg, reqs, args)
-    res["summary"] = report(res, args)
+        res = serve_streamed(params, cfg, reqs, args, tracer=tracer,
+                             metrics=metrics)
+    elif cfg.family == "ssm":
+        res = serve_dense(params, cfg, reqs, args, tracer=tracer,
+                          metrics=metrics)
+    else:
+        res = serve_paged(params, cfg, reqs, args, tracer=tracer,
+                          metrics=metrics)
+        res["summary"] = report(res, args)
+    export_instruments(tracer, metrics, args)
     if res["rejected"]:
         raise SystemExit(f"{len(res['rejected'])} requests shed: "
                          f"{res['rejected'][0].reason}")

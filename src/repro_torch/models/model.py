@@ -20,7 +20,9 @@ Caches (device tensors, written in place):
            dense GQA only)
 
 Every function returns a new cache dict (``len`` advanced) over the same
-tensors, so callers keep the JAX package's ``cache = f(cache, ...)`` flow.
+tensors, so callers keep the JAX package's ``cache = f(cache, ...)`` flow
+(``rollback_cache`` resets ``len`` in place, and the graphed steps of
+``runtime`` write the advanced ``len`` into the cache's own tensor).
 An ssm prefill into a cache no token has entered yet (``len`` 0
 everywhere: ``init_cache``'s zero state) runs the SSD scan through kernel
 B6 on the card; the recurrent state cannot roll back, so decode takes one
@@ -507,7 +509,7 @@ def prefill_chunk_paged(params: DenseModel, cfg: ModelConfig, cache: Dict,
 
 def rollback_cache(cache: Dict, new_len) -> Dict:
     """Roll rejected speculative positions out of a KV cache: entries past
-    ``len`` are never attended, so this resets the counter."""
-    ln = cache["len"]
-    return {**cache, "len": torch.as_tensor(new_len, device=ln.device).to(
-        ln.dtype)}
+    ``len`` are never attended, so this resets the counter, in place (a
+    step replayed from a CUDA graph reads the same ``len`` tensor)."""
+    cache["len"].copy_(torch.as_tensor(new_len))
+    return cache

@@ -15,7 +15,7 @@ Counterpart of ``repro.runtime.kvcache`` with a torch page pool:
 Device state lives in the engine-threaded cache dict
 (``{"pages", "block_table", "len"}``). Page contents are written in place.
 Host offload, the disk tier, session parking, ``TierManager`` leasing and
-cost-model eviction are not ported yet (ROADMAP Queue A item 8).
+cost-model eviction are not ported yet (ROADMAP Queue A item 4).
 """
 from __future__ import annotations
 
@@ -26,6 +26,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .engine import (ContinuousBatcher, GraphedDecode, StepGraphs,
+                     cache_tensors, saved)
+
 #: page id 0 is a write sink: freed slots keep decoding junk into it (the
 #: batch is fixed-width, inactive rows still run), so it is never handed
 #: out by the allocator and its content is never read unmasked.
@@ -33,7 +36,18 @@ SINK_PAGE = 0
 
 _TIERS_ITEM = ("host offload, the disk tier, session parking and "
                "budget-derived pool sizes are not ported yet "
-               "(ROADMAP Queue A item 8)")
+               "(ROADMAP Queue A item 4)")
+
+
+def _upload(dst: torch.Tensor, src: np.ndarray) -> None:
+    """Host array -> device tensor, in place and without a sync: staged
+    through pinned memory, which the caching host allocator keeps until
+    the copy has run."""
+    t = torch.from_numpy(src)
+    if dst.is_cuda:
+        dst.copy_(t.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(t)
 
 
 class PoolExhausted(RuntimeError):
@@ -72,6 +86,7 @@ class BlockPool:
         self._hash_of: Dict[int, Any] = {}       # pid -> registered key
         self._pid_of: Dict[Any, int] = {}        # content key -> pid
         self._cached: "OrderedDict[int, None]" = OrderedDict()  # LRU, ref 0
+        self.alloc_count = 0
         self.evictions = 0
 
     def refcount(self, pid: int) -> int:
@@ -82,8 +97,16 @@ class BlockPool:
         return self._pid_of.get(h)
 
     @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
     def n_active(self) -> int:
         return len(self._ref)
+
+    @property
+    def n_cached(self) -> int:
+        return len(self._cached)
 
     def alloc(self) -> int:
         """Take a page (refcount 1), evicting the LRU cached page when the
@@ -100,6 +123,7 @@ class BlockPool:
                 f"KV block pool exhausted: {self.n_pages - 1} pages, "
                 f"{self.n_active} active, none cached/free")
         self._ref[pid] = 1
+        self.alloc_count += 1
         return pid
 
     def retain(self, pid: int) -> None:
@@ -251,6 +275,9 @@ class PagedKVCache:
         self._reserved = [0] * batch
         self._usable = n_pages - 1
         self._dirty = set(range(batch))          # table rows to (re)write
+        #: host mirror of the device block table (only ``_sync_tables``
+        #: writes either)
+        self._table = np.full((batch, self.max_pages), SINK_PAGE, np.int32)
         #: slot -> [(page kind, content key)] for the admit in flight
         self._admit_meta: Dict[int, List[Tuple[str, Any]]] = {}
         #: slots mid chunked admission: their device table row stays all
@@ -324,24 +351,26 @@ class PagedKVCache:
         return cache
 
     def _sync_tables(self, cache):
-        """Write dirty slots' page lists (and lengths) into the device
-        cache. Runs before the decode writes of a step, when the host
-        mirror and the device counter agree for every live slot."""
+        """Write dirty slots' page lists into the host mirror, then the
+        mirror and the lengths into the device cache's own tensors, one
+        copy each, no read-back: their addresses never change (a graphed
+        step reads them). Runs before the decode writes of a step, when
+        the host and device lengths agree for every live slot (free and
+        mid-chunk slots, which decode into the sink, restart at 0)."""
         if not self._dirty:
             return cache
-        table = cache["block_table"].cpu().numpy().copy()
-        lens = cache["len"].cpu().numpy().copy()
         for slot in self._dirty:
-            row = np.full((self.max_pages,), SINK_PAGE, np.int32)
+            row = self._table[slot]
+            row[:] = SINK_PAGE
             if slot not in self._chunking:       # mid-chunk: stay masked
                 pids = self._slot_pages[slot][:self.max_pages]
                 row[:len(pids)] = pids
-            table[slot] = row
-            lens[slot] = 0 if slot in self._chunking else self._len[slot]
         self._dirty.clear()
-        return {**cache,
-                "block_table": torch.from_numpy(table).to(self.device),
-                "len": torch.from_numpy(lens).to(self.device)}
+        lens = np.asarray([0 if s in self._chunking else self._len[s]
+                           for s in range(self.B)], np.int32)
+        _upload(cache["block_table"], self._table)
+        _upload(cache["len"], lens)
+        return cache
 
     # -- admit ------------------------------------------------------------- #
 
@@ -567,11 +596,64 @@ class PagedKVCache:
 #  continuous-batching integration
 # --------------------------------------------------------------------------- #
 
+def paged_scrub(cache, T: int = 0):
+    """A paged cache's capture scrub: an all-sink table and zero lengths,
+    so every write of a step lands on the sink page, whose content is
+    saved and restored with the table and lengths."""
+    sink = [arr[:, SINK_PAGE] for arr in cache["pages"].values()]
+    return saved([cache["block_table"], cache["len"], *sink],
+                 zero=[cache["block_table"], cache["len"]])  # SINK_PAGE 0
+
+
+class GraphedChunk:
+    """``chunk_step(view, tokens (1, S), write)`` of chunked admission,
+    the counterpart of ``_prefill_chunk_jit``: a full chunk (S =
+    ``chunk``) is replayed from a CUDA graph per ``write`` value, its
+    table row, start and tokens copied into static buffers; a ragged last
+    chunk (and the one-row ``write=False`` re-derivation) runs eagerly.
+    ``graphed``/``eager`` count the chunks each way."""
+
+    def __init__(self, fn, graphs: StepGraphs, chunk: int, max_pages: int,
+                 device):
+        self.fn = fn
+        self.graphs = graphs
+        self.chunk = chunk
+        self.table = torch.full((1, max_pages), SINK_PAGE, dtype=torch.int32,
+                                device=device)
+        self.len = torch.zeros((1,), dtype=torch.int32, device=device)
+        self.tokens: Optional[torch.Tensor] = None
+        self._sig = None
+        self.graphed = 0
+        self.eager = 0
+
+    def __call__(self, view, tokens: torch.Tensor, write: bool = True):
+        if tokens.shape[1] != self.chunk:
+            self.eager += 1
+            return self.fn(view, tokens, write)
+        pages = view["pages"]
+        sig = tuple(t.data_ptr() for t in cache_tensors(pages))
+        if sig != self._sig:
+            self.graphs.reset("chunk")
+            self._sig = sig
+        if self.tokens is None:
+            self.tokens = torch.zeros_like(tokens)
+        self.table.copy_(view["block_table"])
+        self.len.copy_(view["len"])
+        self.tokens.copy_(tokens)
+        static = {"pages": pages, "block_table": self.table, "len": self.len}
+        logits = self.graphs.run(
+            ("chunk", write), lambda: self.fn(static, self.tokens, write)[0],
+            lambda: paged_scrub(static))
+        self.graphed += 1
+        return logits, view
+
+
 def make_paged_engine(params, cfg, batch: int, ctx: int, *,
                       n_pages: Optional[int] = None, page_tokens: int = 16,
                       eos_id: Optional[int] = None, spec=None,
                       cache_dtype=torch.float32, offload: bool = False,
-                      prefill_chunk: Optional[int] = None, device="cuda"):
+                      prefill_chunk: Optional[int] = None, tracer=None,
+                      metrics=None, graphs: bool = True, device="cuda"):
     """Build a ``ContinuousBatcher`` over a paged KV cache; returns
     ``(engine, kv)``. Drive it with ``engine.run(kv.init_cache(), reqs)``.
 
@@ -583,9 +665,16 @@ def make_paged_engine(params, cfg, batch: int, ctx: int, *,
     decode step at T = gamma + 1 (set ``spec.verify = engine.decode``),
     which reserves gamma + 1 positions a cycle (copy-on-write of a shared
     last page included) and returns pages past the accepted length.
+
+    ``graphs`` (the default): the decode step (at every T it is called
+    with) and the full-size chunk step are replayed from CUDA graphs on
+    the card, the counterparts of the JAX package's ``_decode_paged_jit``
+    and ``_prefill_chunk_jit`` (``GraphedDecode``, ``GraphedChunk``);
+    the one-shot prefill stays eager. ``graphs=False`` runs every step
+    eagerly, as a run with ``ops.use_kernels(False)`` on the card must.
+    ``tracer``/``metrics``: see ``ContinuousBatcher``.
     """
     from ..models import model as M
-    from .engine import ContinuousBatcher
 
     kv = PagedKVCache(cfg, batch=batch, ctx=ctx, n_pages=n_pages,
                       page_tokens=page_tokens, dtype=cache_dtype,
@@ -609,8 +698,16 @@ def make_paged_engine(params, cfg, batch: int, ctx: int, *,
         # chunk boundaries align with page boundaries so fresh pages are
         # filled whole before a future admit may share them
         prefill_chunk = max(prefill_chunk // page_tokens, 1) * page_tokens
+    sg = None
+    if graphs:
+        sg = StepGraphs(device)
+        decode = GraphedDecode(decode, sg, paged_scrub)
+        if prefill_chunk is not None:
+            chunk_step = GraphedChunk(chunk_step, sg, prefill_chunk,
+                                      kv.max_pages, device)
     eng = ContinuousBatcher(batch, prefill_one, write_slot, decode,
                             eos_id=eos_id, spec=spec, kv=kv,
                             prefill_chunk=prefill_chunk,
-                            chunk_step=chunk_step, device=device)
+                            chunk_step=chunk_step, tracer=tracer,
+                            metrics=metrics, device=device, graphs=sg)
     return eng, kv

@@ -3,7 +3,7 @@
 A copy of ``repro.runtime.memory``: the port's layer prefetcher leases its
 host staging and device bytes from a ``TierManager``. The paged KV pool
 and its offload tiers lease from it once they are ported (ROADMAP Queue A
-item 8).
+item 4).
 
 The paper's "OOM-free with <6% memory pressure" claim rests on treating
 disk, RAM and VRAM as a single coordinated hierarchy. The repo grew

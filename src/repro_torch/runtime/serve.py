@@ -1,6 +1,6 @@
 """Ring serving of the port — so far only the packed-int4 layer bank
 (``repro.runtime.serve.quantize_ring_params``); the ring itself is ROADMAP
-Queue A item 12.
+Queue A item 7.
 
 The serve driver quantizes the layer store with it at ``tp=1``: every
 matmul weight of the bank goes to packed q4 with bf16 group scales, which

@@ -17,8 +17,11 @@ resetting the per-slot ``len`` counter (``models.rollback_cache``):
 entries past ``len`` are position-masked and the next write lands at
 ``len``.
 
-The port's caches are written in place, so the lengths before a cycle are
-cloned, not kept as views of a counter a later write could change.
+The port's caches are written in place, lengths included, so the lengths
+before a cycle are cloned, not kept as views of a counter a later write
+could change. The draft's step and the verify pass may be graphed steps
+(``runtime.engine.GraphedDecode``): each cycle reads their logits before
+their next replay, and the rollback writes the cache's own ``len``.
 """
 from __future__ import annotations
 

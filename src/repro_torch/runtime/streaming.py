@@ -26,8 +26,16 @@ layer's device memory is marked in use by the compute stream
 compute stream has passed the work queued on it. Quantized (v2) stores
 flow through unchanged: only the packed bytes are staged and copied.
 
+With a ``telemetry.Tracer`` attached the prefetcher emits on the JAX
+prefetcher's tracks: ``layer_read[i]`` spans (mmap to staging) and ``h2d``
+spans on ``prefetcher``, ``disk_wait[i]`` phases on ``decode`` (the
+compute front blocked in ``get``) and the ``store/released_bytes``
+counter. The ``h2d`` span times the *enqueue* of a ``non_blocking`` copy
+on the side stream, not the copy: the copy's own time is a device time,
+which ``chip_smoke.py`` measures with CUDA events around ``_to_card``.
+
 ``RingBankPrefetcher`` and ``StreamingRingDriver`` (the streamed SPMD
-ring) are not ported yet (ROADMAP Queue A item 12).
+ring) are not ported yet (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -463,17 +471,25 @@ class StreamingParamSource(ParamSource):
 def make_streaming_engine(source: ParamSource, cfg, batch: int, ctx: int,
                           *, eos_id: Optional[int] = None, spec=None,
                           cache_dtype=torch.float32, tracer=None,
-                          metrics=None, device="cuda"):
+                          metrics=None, graphs: bool = True, device="cuda"):
     """A ``ContinuousBatcher`` whose prefill and decode pull weights from
     ``source`` layer by layer (resident or streamed: the same engine),
     over a dense cache. Drive it with
     ``eng.run(init_cache(cfg, batch, ctx, cache_dtype, device), reqs)``.
     ``spec``: a ``SpeculativeDecoder`` whose verify is
-    ``decode_step_layerwise`` over the same source at T = gamma + 1, so
-    each layer is read once for the whole draft block.
+    ``decode_step_layerwise`` over the same source at T = gamma + 1 (set
+    ``spec.verify = eng.decode``), so each layer is read once for the
+    whole draft block.
+
+    ``graphs`` (the default): over a ``ResidentSource`` (every layer at
+    a fixed address) the decode step is replayed from CUDA graphs
+    (``engine.GraphedDecode``), one per T. A streamed source hands out
+    layers in rotating device buffers, so its step stays eager.
     """
     from ..models import model as M
-    from .engine import ContinuousBatcher, write_dense_slot
+    from .engine import (ContinuousBatcher, GraphedDecode, StepGraphs,
+                         dense_scrub, write_dense_slot)
+    from .paramstore import ResidentSource
 
     def prefill_one(prompt):
         c1 = M.init_cache(cfg, 1, ctx, dtype=cache_dtype, device=device)
@@ -483,7 +499,11 @@ def make_streaming_engine(source: ParamSource, cfg, batch: int, ctx: int,
     def decode(cache, tokens):
         return M.decode_step_layerwise(source, cfg, cache, tokens)
 
+    sg = None
+    if graphs and isinstance(source, ResidentSource):
+        sg = StepGraphs(device)
+        decode = GraphedDecode(decode, sg, dense_scrub)
     return ContinuousBatcher(batch, prefill_one, write_dense_slot, decode,
                              eos_id=eos_id, spec=spec, source=source,
                              ctx=ctx, tracer=tracer, metrics=metrics,
-                             device=device)
+                             device=device, graphs=sg)

@@ -149,14 +149,26 @@ def test_prefix_share_and_cow_match_jax(world, chunk):
 
 
 def test_deferred_features_raise():
-    """What later slices port raises instead of being ignored."""
+    """What later slices port raises instead of being ignored; what is
+    ported is kept."""
     from repro_torch.runtime.engine import ContinuousBatcher
     from repro_torch.runtime.kvcache import PagedKVCache
+    from repro_torch.runtime.metrics import MetricsRegistry
+    from repro_torch.runtime.telemetry import NULL_TRACER, Tracer
 
     tcfg = _cfg(t_get_config)
-    for kw in ({"tracer": object()}, {"metrics": object()}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ContinuousBatcher(2, None, None, None, device=CPU, **kw)
+    # the span tracer and serving metrics are ported: both are kept
+    tracer, reg = Tracer(), MetricsRegistry()
+    eng = ContinuousBatcher(2, None, None, None, device=CPU, tracer=tracer,
+                            metrics=reg)
+    assert eng.telemetry() is tracer and eng.metrics is reg
+    assert ContinuousBatcher(2, None, None, None,
+                             device=CPU).telemetry() is NULL_TRACER
+    with pytest.raises(TypeError, match="Tracer"):
+        ContinuousBatcher(2, None, None, None, device=CPU, tracer=object())
+    # session parking waits for tiered memory
+    with pytest.raises(NotImplementedError, match="item 4"):
+        eng.admit(None, None, 0, np.arange(4), 2, session="s")
     # speculative decoding is ported: the decoder is kept and drives step()
     spec = object()
     assert ContinuousBatcher(2, None, None, None, device=CPU,
@@ -165,6 +177,6 @@ def test_deferred_features_raise():
     src = type("Src", (), {"stats": lambda self: "stats"})()
     assert ContinuousBatcher(2, None, None, None, device=CPU,
                              source=src).streaming_stats() == "stats"
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         PagedKVCache(tcfg, batch=2, ctx=64, n_pages=8, offload=True,
                      device=CPU)

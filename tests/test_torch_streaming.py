@@ -298,13 +298,31 @@ def test_prefetcher_staging_failure_raises_not_hangs(q4_store):
 
 
 def test_tracer_is_not_ported_yet(q4_store):
+    """The span tracer is ported: the prefetcher and the tier manager
+    emit into a real ``Tracer`` on the JAX prefetcher's tracks and names,
+    and refuse anything else."""
+    from repro_torch.runtime.telemetry import Tracer
+
     store = ParamStore(q4_store[3])
+    tracer = Tracer()
     try:
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(TypeError, match="Tracer"):
             StreamingParamSource(store, window=1, device="cpu",
                                  tracer=object())
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(TypeError, match="Tracer"):
             TierManager(tracer=object())
+        with StreamingParamSource(store, window=2, device="cpu",
+                                  tracer=tracer) as src:
+            for i in (0, 1, 2, 0):
+                src.layer(i)
+        names = {(ev.track, ev.name.split("[")[0])
+                 for ev in tracer.events()}
+        assert ("prefetcher", "layer_read") in names
+        assert ("prefetcher", "store/released_bytes") in names
+        mem = TierManager(tracer=tracer, name="kv-memory")
+        mem.lease("device", 64, "kv")
+        assert ("kv-memory", "mem/device/used") in {
+            (ev.track, ev.name) for ev in tracer.events()}
     finally:
         store.close()
 
