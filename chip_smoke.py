@@ -149,13 +149,22 @@ Phase 10 ssm parity at 4 layers, full width, f32 and an f32 cache: the
          max|ref| and tokens are equal.
 Phase 11 the CI smokes' shapes on the card: the reduced configs (head_dim
          16) through ``python -m repro_torch.launch.serve --smoke --dtype
-         f32``, each in its own process, must exit 0 having launched
+         f32``, each in its own process (all started together), must
+         exit 0 having launched
          their kernels: (a) ``--prefill-chunk 8 --check-dense`` (B2, B1,
          and B5 in the dense engine; equal tokens), (b) ``--prefill-chunk
          8 --kv-quant-kernel`` (B4; no dense comparison, ROADMAP Queue C),
          (c) ``--arch qwen1.5-32b --stream-window 2 --store-quant q4
          --check-resident`` (its int8 dense cache through the fused B5,
-         and B3; streamed tokens equal resident).
+         and B3; streamed tokens equal resident), (d) ``--chaos transient
+         --stream-window 2 --store-quant q4`` (3 injected layer-read
+         faults retried; tokens equal the clean run's), (e)
+         ``--prefill-chunk 16 --device-budget 0.1 --host-budget 0.07
+         --park-idle-s 0`` (the requests and then their prompts again
+         through the tiers: evicted pages spill, the repeats recall pages
+         from the host and from disk, and the tokens equal unbudgeted
+         runs'; a parked session equals one run) and (f) the same with
+         int8 pages (``--kv-quant-kernel``, 0.04 and 0.017 MB).
 Phase 12 steps replayed from CUDA graphs against eager, recorded in phases
          3 and 7 and printed beside the card's name and power limit: phase
          3's paged runs (bf16 and int8 pages) both ways -- wall, TPOT and
@@ -171,6 +180,35 @@ Phase 12 steps replayed from CUDA graphs against eager, recorded in phases
          (compute, disk_wait, sched_idle), its prefetcher spans and the
          H2D copy's device time, its trace checked by the port's
          ``validate_chrome_trace`` with the decode and prefetcher tracks.
+Phase 13 tiered KV memory at qwen2.5-14b's full width and depth (48
+         layers, bf16 pages of 3 MiB, 8 slots, ctx 2048, 256-token chunks,
+         graphed steps, the phase-3 weights' seed): 24 requests, 4 groups
+         of 6 sharing a 768-token prefix each, a unique suffix of 32-224
+         tokens (seed 13), 16 new tokens, round-robin over the groups.
+         The reference run (a pool for every slot, nothing evicted), then
+         the tiered run: ``TierManager(MemoryBudget(device=192 pages,
+         host=64 pages))``, the pool sized from it, cost eviction, a disk
+         tier in a temporary directory (free space checked first, deleted
+         at the end). Every page recalled from host or disk must hold the
+         bytes it held when evicted (a device copy taken at eviction,
+         compared bit for bit after the admit wrote it back); evictions,
+         host recalls, spills and disk recalls all above 0; the books
+         balance, the device and host peaks stay within their budgets and
+         the host and disk tiers are empty after close; streams equal the
+         reference's or split only at near ties (phase 7's rule). A
+         second tiered run with two transient faults on each of
+         ``kv_d2disk``, ``kv_disk2h`` and ``kv_h2d``: streams equal the
+         tiered run's, the retries counted in ``KVStats.fetch_retries`` and
+         the page files' ``WorkerHealth``. A parked session
+         (``park_idle_s`` 0, a 1000-token prompt, two turns of 16 tokens,
+         demoted to disk between them) equals one 32-token run, and
+         restored from a page file with flipped bytes its logits differ.
+         Prints each run's wall, TTFT and TPOT p50, the bytes each tier
+         moved, the fetch stall, the device time of a page's D2H and H2D
+         copies (CUDA events: in the run, and a page's copy alone between
+         a pinned buffer and the card), the modeled against measured recall
+         seconds (``core.latency.tier_recall_crosscheck``), park, demote
+         and restore ms, beside the card's name and power limit.
 
 Prints the card's name and power limit again, the kernels' JSON line, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
@@ -184,6 +222,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2820,39 +2859,74 @@ CI_SMOKES = (
      "window of 2, tokens equal to resident",
      ["--arch", "qwen1.5-32b", "--stream-window", "2", "--store-quant",
       "q4", "--check-resident"], ("flash_verify", "q4_matmul")),
+    ("(d) streamed q4 with 3 transient layer-read faults, tokens equal to "
+     "the clean run",
+     ["--chaos", "transient", "--stream-window", "2", "--store-quant", "q4"],
+     ("flash_verify", "q4_matmul")),
+    ("(e) tiered: 0.1 MB device (12 pages), 0.07 MB host, the requests "
+     "and then their prompts again (recalled from host and disk), parking, "
+     "tokens equal to the unbudgeted runs and the parked session to one run",
+     ["--prefill-chunk", "16", "--device-budget", "0.1", "--host-budget",
+      "0.07", "--park-idle-s", "0"], ("paged_prefill", "paged_verify")),
+    ("(f) the same with int8 pages, 0.04 MB device (15 pages), 0.017 MB "
+     "host",
+     ["--prefill-chunk", "16", "--device-budget", "0.04", "--host-budget",
+      "0.017", "--park-idle-s", "0", "--kv-quant-kernel"],
+     ("paged_verify_quant",)),
 )
 
 
 def ci_smokes() -> None:
     """Phase 11: each CI smoke shape must exit 0 on the card, having
-    launched its kernels (the last ``kernel launches`` line it prints)."""
+    launched its kernels (the last ``kernel launches`` line it prints).
+    The smokes run as processes of their own, all started together (the
+    reduced models leave the card idle, a process's start is most of
+    its time)."""
     import ast
 
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    procs = []
     for label, flags, kernels in CI_SMOKES:
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
                "--dtype", "f32", *flags]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"{label}: {' '.join(cmd[1:])} exited "
-                                 f"{proc.returncode}\n{proc.stdout[-4000:]}"
-                                 f"\n{proc.stderr[-4000:]}")
-        lines = [ln for ln in proc.stdout.splitlines()
-                 if "kernel launches" in ln]
-        counts = ast.literal_eval(lines[-1].split("kernel launches", 1)[1]
-                                  .strip()) if lines else {}
-        idle = [k for k in kernels if not counts.get(k)]
-        if idle:
-            raise AssertionError(f"{label}: {idle} never launched "
-                                 f"({counts})")
-        checks = [ln.strip() for ln in proc.stdout.splitlines()
-                  if "identical" in ln]
-        log(f"  {label}: exit 0 in {time.perf_counter() - t0:.1f} s; "
-            f"launches {counts}; {'; '.join(checks)}")
+        procs.append((label, cmd, kernels, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    try:
+        for label, cmd, kernels, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"{label}: {' '.join(cmd[1:])} exited "
+                                     f"{proc.returncode}\n{out[-4000:]}"
+                                     f"\n{err[-4000:]}")
+            lines = [ln for ln in out.splitlines()
+                     if "kernel launches" in ln]
+            counts = ast.literal_eval(lines[-1].split("kernel launches", 1)[1]
+                                      .strip()) if lines else {}
+            idle = [k for k in kernels if not counts.get(k)]
+            if idle:
+                raise AssertionError(f"{label}: {idle} never launched "
+                                     f"({counts})")
+            checks = [ln.strip() for ln in out.splitlines()
+                      if "identical" in ln]
+            if "--device-budget" in cmd:
+                recalled = [ln for ln in checks
+                            if ln.startswith("tiered paged decode")]
+                m = re.search(r"\((\d+) pages from host, (\d+) from disk\)",
+                              recalled[-1] if recalled else "")
+                if not m or not (int(m[1]) and int(m[2])):
+                    raise AssertionError(f"{label}: no page recalled from "
+                                         f"the host and from disk: {checks}")
+            log(f"  {label}: exit 0 by {time.perf_counter() - t0:.1f} s; "
+                f"launches {counts}; {'; '.join(checks)}")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 # --------------------------------------------------------------------------- #
@@ -2925,6 +2999,438 @@ def report_graphs() -> None:
         f"CUDA events)")
     log(f"  trace {t['trace']}: valid, {t['events']} events, tracks "
         f"{t['tracks']}, evicted {t['evicted']}")
+
+
+# --------------------------------------------------------------------------- #
+#  phase 13: tiered KV memory at full width
+# --------------------------------------------------------------------------- #
+
+#: phase 13's traffic: 4 groups of 6 requests, each group sharing a
+#: 768-token prefix (48 pages, 3 chunks of 256), a unique suffix of
+#: 32-224 tokens, 16 new tokens, arriving round-robin over the groups
+TIER_GROUPS, TIER_PER, TIER_PREFIX, TIER_NEW = 4, 6, 768, 16
+#: the tiered run's budget in pages: a request reserves up to 64, so two
+#: are admitted at a time and the other groups' prefixes cannot stay on
+#: the device; cost eviction takes the unshared suffix pages first, then
+#: those prefixes, to the host, whose 64 pages spill to disk. Every prefix
+#: hit is then a recall (the allocation does not depend on the weights:
+#: the same traffic through a one-layer reduced model on the CPU makes
+#: 1159 evictions, 960 recalls, 141 of them from disk, 316 spills)
+TIER_DEVICE_PAGES, TIER_HOST_PAGES = 192, 64
+#: the fault run: two transient faults on each tier copy it makes
+TIER_FAULT_OPS = ("kv_d2disk", "kv_disk2h", "kv_h2d")
+#: phase 13's record, printed at its end beside the card
+PHASE13 = {}
+
+
+def tier_requests(serve, vocab):
+    """Phase 13's requests (seed 13)."""
+    from repro_torch.data import Request
+    rng = np.random.default_rng(13)
+    prefixes = [rng.integers(0, vocab, TIER_PREFIX)
+                for _ in range(TIER_GROUPS)]
+    reqs = []
+    for i in range(TIER_GROUPS * TIER_PER):
+        suffix = rng.integers(0, vocab, int(rng.integers(32, 225)))
+        reqs.append(Request(
+            i, np.concatenate([prefixes[i % TIER_GROUPS], suffix]),
+            TIER_NEW, 0.0))
+    return reqs
+
+
+def keep_logits(eng):
+    """Keep the logits behind every greedy token of ``eng`` by (uid, token
+    index): the last chunk's last row for token 0, the decode step's row
+    after that (a restored session's first step is its token 0). Returns
+    the dict the run fills."""
+    logits, admitting = {}, []
+    admit, chunk_step, decode = eng.admit, eng.chunk_step, eng.decode
+
+    def admit_(cache, tokens, uid, *a, **k):
+        admitting.append(uid)
+        return admit(cache, tokens, uid, *a, **k)
+
+    def chunk_step_(*a, **k):
+        out = chunk_step(*a, **k)
+        logits[(admitting[-1], 0)] = out[0][0, -1].float().clone()
+        return out
+
+    def decode_(cache, tokens):
+        out = decode(cache, tokens)
+        for i in eng.active():
+            st = eng.slots[i]
+            logits[(st.uid, len(st.generated))] = out[0][i, 0].float().clone()
+        return out
+
+    eng.admit, eng.chunk_step, eng.decode = admit_, chunk_step_, decode_
+    return logits
+
+
+def watch_recalls(torch, kv):
+    """Keep a device copy of every page the offloader evicts (taken at
+    the eviction, before the page is reused), and compare every page a
+    chunked admit fetched back (the device page, after
+    ``begin_chunked_admit`` wrote it) with it, bit for bit; returns the
+    record: ``checked`` pages, ``bad`` ones whose bytes differ."""
+    rec = {"evicted": {}, "checked": 0, "bad": []}
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+    def bits(t):
+        return t.contiguous().view(ints[t.element_size()])
+    off = kv.offloader
+    offload, begin = off.offload, kv.begin_chunked_admit
+
+    def offload_(h, tree):
+        rec["evicted"][h] = {n: t.clone() for n, t in tree.items()}
+        return offload(h, tree)
+
+    def begin_(cache, slot, prompt_len):
+        fetched = [(pid, h) for pid, (kind, h) in
+                   zip(kv._slot_pages[slot], kv._admit_meta[slot])
+                   if kind == "fetched"]
+        out = begin(cache, slot, prompt_len)
+        for pid, h in fetched:
+            rec["checked"] += 1
+            page, was = kv._page(out[0], pid), rec["evicted"].get(h)
+            if was is None or not all(torch.equal(bits(page[n]),
+                                                  bits(was[n]))
+                                      for n in page):
+                rec["bad"].append(pid)
+        return out
+
+    off.offload, kv.begin_chunked_admit = offload_, begin_
+    return rec
+
+
+def tier_run(torch, serve, params, cfg, reqs, args, *, memory=None,
+             disk_dir=None, injector=None, policy=None, watch=False):
+    """One phase-13 run of the paged engine (graphed, chunked, bf16
+    pages): the reference (no budget, a pool for every slot's context) or
+    tiered (``memory``: the pool sized from its device budget, cost
+    eviction, ``disk_dir``). Keeps every token's logits; returns the
+    streams, logits, stats, tier stats (before close), copy device ms,
+    the recall record and the timings."""
+    from repro_torch.runtime.kvcache import make_paged_engine
+
+    B, bs = args.batch, args.page_tokens
+    eng, kv = make_paged_engine(
+        params, cfg, B, args.ctx,
+        n_pages=None if memory is not None else 2 + B * (-(-args.ctx // bs)),
+        page_tokens=bs, cache_dtype=torch.bfloat16,
+        prefill_chunk=args.prefill_chunk, memory=memory,
+        evict_policy="cost" if memory is not None else "lru",
+        disk_dir=disk_dir, io_policy=policy, injector=injector,
+        device=args.device)
+    logits = keep_logits(eng)
+    rec = watch_recalls(torch, kv) if watch else None
+    cache = kv.init_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        fin, steps = eng.run(cache, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_served({"finished": fin, "rejected": eng.rejected,
+                      "requests": reqs})
+        st = kv.stats()
+        tiers = kv.memory.stats()
+        kv.memory.audit()
+        off = kv.offloader
+        out = {"streams": {f.uid: f.tokens for f in fin}, "logits": logits,
+               "stats": st, "tiers": tiers, "steps": steps, "wall": wall,
+               "summary": serve._p50_summary(fin, wall), "recalls": rec,
+               "d2h_ms": off.copy_device_ms("d2h"),
+               "h2d_ms": off.copy_device_ms("h2d"),
+               "host_events": list(off.events),
+               "disk_events": list(kv.disk.events) if kv.disk else [],
+               "disk_retries": kv.disk.health.retries if kv.disk else 0,
+               "recall_costs": kv.recall_costs,
+               "pinned_bytes": kv._host_pages.pinned_bytes}
+    finally:
+        kv.close()
+    for tier in ("host", "disk"):
+        if kv.memory.used(tier):
+            raise AssertionError(f"{tier} tier holds {kv.memory.used(tier)}"
+                                 f" B after close")
+    return out
+
+
+def session_check(torch, serve, params, cfg, args, disk_dir):
+    """Phase 13's parked session: a 1000-token prompt, two turns of 16
+    new tokens parked between them (demoted to disk by ``sweep_parked``,
+    park_idle_s 0) against one uninterrupted 32-token run; then the same
+    with one parked page file's bytes flipped: the restored step's logits
+    must differ. Returns the timings and the logit difference."""
+    from repro_torch.data import Request
+    from repro_torch.runtime.kvcache import make_paged_engine
+
+    B, bs = args.batch, args.page_tokens
+    prompt = np.random.default_rng(14).integers(0, cfg.vocab, 1000)
+    common = dict(n_pages=2 + B * (-(-args.ctx // bs)), page_tokens=bs,
+                  cache_dtype=torch.bfloat16,
+                  prefill_chunk=args.prefill_chunk, device=args.device)
+    eng, kv = make_paged_engine(params, cfg, B, args.ctx, **common)
+    try:
+        full, _ = eng.run(kv.init_cache(),
+                          [Request(900, prompt, 2 * TIER_NEW, 0.0)])
+    finally:
+        kv.close()
+    eng, kv = make_paged_engine(params, cfg, B, args.ctx, disk_dir=disk_dir,
+                                park_idle_s=0.0, **common)
+    logits = keep_logits(eng)
+    ms = {"park": [], "restore": [], "demote": []}
+
+    def timed(fn, key, keep=lambda out: True):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            if keep(out):
+                ms[key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+    kv.park_session = timed(kv.park_session, "park")
+    kv.restore_session = timed(kv.restore_session, "restore")
+    kv.sweep_parked = timed(kv.sweep_parked, "demote", lambda n: n > 0)
+    cache = kv.init_cache()
+    turns = {}
+    try:
+        for uid, sid in ((901, "s"), (902, "s"), (903, "flipped"),
+                         (904, "flipped")):
+            if uid == 904:
+                # flip a mantissa bit of every bf16 value of the parked
+                # session's first page file (finite values, other bytes)
+                path = kv.disk.path(("sess", sid, 0))
+                data = np.fromfile(path, dtype=np.uint8)
+                data[0::2] ^= 0x40
+                data.tofile(path)
+            fin, _ = eng.run(cache, [Request(uid, prompt, TIER_NEW, 0.0,
+                                             sid)])
+            turns[uid] = [f for f in fin if f.uid == uid][0].tokens
+            if uid in (901, 903) and not (kv.is_parked(sid)
+                                          and kv._parked[sid].tier == "disk"):
+                raise AssertionError(f"session {sid} was not parked on disk "
+                                     f"after its first turn")
+        st = kv.stats()
+    finally:
+        kv.close()
+    got, ref = turns[901] + turns[902], full[0].tokens
+    if got != ref:
+        raise AssertionError(f"parked session: {got} != the uninterrupted "
+                             f"run's {ref}")
+    if turns[903] != turns[901]:
+        raise AssertionError("the second session's first turn differs from "
+                             "the first's")
+    clean, flipped = logits[(902, 0)], logits[(904, 0)]
+    d = float((clean - flipped).abs().max())
+    if not d > 0:
+        raise AssertionError(f"negative control: flipped page file restored "
+                             f"with logits max|d| {d} from the clean restore")
+    return {"ms": ms, "max_abs_d": d, "tokens": len(ref), "stats": st}
+
+
+def page_copy_ms(torch, nbytes, reps=50):
+    """A page's H2D and D2H copy alone: a pinned buffer of the offloader's
+    pool to a device page and back, timed with CUDA events on an idle
+    stream, median ms of ``reps`` each. (In a run the worker's event pair
+    around its H2D copy also holds its waits for the interpreter lock
+    between the two events, which the engine loop holds.)"""
+    from repro_torch.runtime.kvcache import HostPages
+
+    pool = HostPages(pin=True)
+    host = pool.take(nbytes)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = {}
+    for kind, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        ms = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        out[kind] = float(np.median(ms))
+    pool.close()
+    return out
+
+
+def serve_tiered_full(torch, ops, serve):
+    """Phase 13: tiered KV at qwen2.5-14b's full width and depth (48
+    layers, bf16 pages of 3 MiB, 8 slots, ctx 2048, 256-token chunks,
+    graphed steps). The reference run (a pool for every slot, nothing
+    evicted), the tiered run (192 device pages, 64 host pages, cost
+    eviction, a disk tier; half of the 384/96 first planned, at which
+    cost eviction keeps every active prefix on the device and nothing is
+    recalled), a tiered run with transient faults on its
+    disk writes, disk reads and host-to-device copies, and a parked
+    session. Checks recalled bytes, the counters, the books, the streams
+    (near ties only, phase 7's rule), the retries, the session and its
+    negative control; records what phase 13 prints."""
+    from repro_torch.runtime.faults import FaultInjector, FaultSpec
+    from repro_torch.runtime.iopolicy import IOPolicy
+    from repro_torch.runtime.memory import MemoryBudget, TierManager
+
+    args = serve.parse_args(SERVE_ARGS + ["--dtype", "bf16"])
+    t0 = time.perf_counter()
+    cfg, params = serve.build_model(args)
+    torch.cuda.synchronize()
+    log(f"  weights: qwen2.5-14b, {cfg.n_layers} layers, bf16, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = tier_requests(serve, cfg.vocab)
+    pb = 2 * cfg.n_layers * args.page_tokens * cfg.kv_heads * cfg.head_dim \
+        * 2                                      # K and V, bf16
+    budget = MemoryBudget(device=TIER_DEVICE_PAGES * pb,
+                          host=TIER_HOST_PAGES * pb)
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    need = len(reqs) * 64 * pb
+    if free < need + (4 << 30):
+        raise AssertionError(f"{tmp}: {free / 1e9:.1f} GB free, the disk "
+                             f"tier may need {need / 1e9:.1f} GB + 4 GB")
+    ddir = tempfile.mkdtemp(prefix="chip_smoke_kvdisk_")
+    try:
+        before = ops.launch_counts()
+        ref = tier_run(torch, serve, params, cfg, reqs, args)
+        tier = tier_run(torch, serve, params, cfg, reqs, args,
+                        memory=TierManager(budget),
+                        disk_dir=os.path.join(ddir, "tiered"), watch=True)
+        after = ops.launch_counts()
+        for name in ("paged_verify", "paged_prefill"):
+            if after[name] == before[name]:
+                raise AssertionError(f"phase 13: {name} never launched")
+        injector = FaultInjector([FaultSpec(op=op, times=2)
+                                  for op in TIER_FAULT_OPS])
+        fault = tier_run(torch, serve, params, cfg, reqs, args,
+                         memory=TierManager(budget),
+                         disk_dir=os.path.join(ddir, "faults"),
+                         injector=injector,
+                         policy=IOPolicy(backoff_base_s=0.002,
+                                         backoff_max_s=0.02))
+        sess = session_check(torch, serve, params, cfg, args,
+                             os.path.join(ddir, "session"))
+    finally:
+        shutil.rmtree(ddir, ignore_errors=True)
+    st, rec = tier["stats"], tier["recalls"]
+    if st.page_bytes != pb or st.n_pages != TIER_DEVICE_PAGES:
+        raise AssertionError(f"tiered pool: {st.n_pages} pages of "
+                             f"{st.page_bytes} B, wanted "
+                             f"{TIER_DEVICE_PAGES} of {pb}")
+    fetched = st.fetched_bytes // pb
+    host_fetched = fetched - st.fetched_disk_pages
+    if rec["bad"] or rec["checked"] != fetched:
+        raise AssertionError(f"recalled pages: {len(rec['bad'])} of "
+                             f"{rec['checked']} differ from their bytes at "
+                             f"eviction ({fetched} fetched)")
+    if not (st.evictions > 0 and host_fetched > 0 and st.spilled_pages > 0
+            and st.fetched_disk_pages > 0):
+        raise AssertionError(f"tiers unused: evictions {st.evictions}, host "
+                             f"fetches {host_fetched}, spilled "
+                             f"{st.spilled_pages}, disk fetches "
+                             f"{st.fetched_disk_pages}")
+    for run in (tier, fault):
+        for name in ("device", "host"):
+            s = run["tiers"][name]
+            if s.peak > s.capacity:
+                raise AssertionError(f"{name} peak {s.peak} > budget "
+                                     f"{s.capacity}")
+    worst, n_equal, splits = near_tie_only(
+        "phase 13, tiered against the reference",
+        (tier["streams"], tier["logits"]), (ref["streams"], ref["logits"]),
+        SPEC_BF16_REL)
+    if fault["streams"] != tier["streams"]:
+        raise AssertionError("the fault run's streams differ from the "
+                             "tiered run's")
+    fst = fault["stats"]
+    fired = {op: sum(f.op == op for f in injector.fired)
+             for op in TIER_FAULT_OPS}
+    if fired != {op: 2 for op in TIER_FAULT_OPS} \
+            or fst.fetch_retries < 2 or fault["disk_retries"] < 4:
+        raise AssertionError(f"fault run: fired {fired}, kv_h2d retries "
+                             f"{fst.fetch_retries}, page-file retries "
+                             f"{fault['disk_retries']}")
+    PHASE13.update(ref=ref, tier=tier, fault=fault, session=sess,
+                   worst=worst, n_equal=n_equal, splits=splits, fired=fired,
+                   host_fetched=host_fetched, page_bytes=pb,
+                   alone=page_copy_ms(torch, pb))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def report_tiers() -> None:
+    """Phase 13's numbers, beside the card's name and power limit."""
+    from repro_torch.core.latency import tier_recall_crosscheck
+
+    r = PHASE13
+    pb = r["page_bytes"]
+    log(f"  card: {card()}")
+    for name in ("ref", "tier", "fault"):
+        run = r[name]
+        s = run["summary"]
+        log(f"  {name} run: wall {run['wall']:.3f} s, {run['steps']} steps, "
+            f"TTFT p50 {s['ttft_p50_s'] * 1e3:.2f} ms, TPOT p50 "
+            f"{s['tpot_p50_s'] * 1e3:.2f} ms, {s['tokens_per_s']:.1f} "
+            f"tokens/s; pool {run['stats'].n_pages} pages")
+    for name in ("tier", "fault"):
+        st, run = r[name]["stats"], r[name]
+        t = run["tiers"]
+        log(f"  {name} run: evictions {st.evictions}, prefix hits "
+            f"{st.prefix_hits}; offloaded {st.offloaded_bytes} B, fetched "
+            f"{st.fetched_bytes} B ({st.fetched_bytes // pb} pages, "
+            f"{st.fetched_disk_pages} from disk), spilled "
+            f"{st.spilled_pages} pages, disk written "
+            f"{st.disk_bytes_written} B, disk read {st.disk_bytes_read} B; "
+            f"fetch stall {st.fetch_stall_s:.4f} s; peaks device "
+            f"{t['device'].peak} / {t['device'].capacity} B, host "
+            f"{t['host'].peak} / {t['host'].capacity} B, disk "
+            f"{t['disk'].peak} B; pinned host buffers "
+            f"{run['pinned_bytes']} B; refusals {t['host'].refusals}")
+        for kind, where in (("d2h", "the eviction's, on the compute "
+                             "stream"),
+                            ("h2d", "the worker's, on its side stream, its "
+                             "waits between the events included")):
+            v = run[f"{kind}_ms"]
+            if v:
+                log(f"    page {kind.upper()} copy in the run ({where}; "
+                    f"CUDA events): median {float(np.median(v)):.4f} ms "
+                    f"over {len(v)} copies of {pb} B")
+        for tier, events in (("host", run["host_events"]),
+                             ("disk", run["disk_events"])):
+            c = tier_recall_crosscheck(run["recall_costs"], tier, events)
+            log(f"    recall cross-check, {tier}: modeled "
+                f"{c.predicted_layer_s * 1e3:.4f} ms a page, measured "
+                f"median {c.measured_layer_s * 1e3:.4f} ms over "
+                f"{len(events)} recalls (ratio {c.ratio:.3f}, "
+                f"{'consistent' if c.consistent else 'INCONSISTENT'} "
+                f"within 10x)")
+    log(f"  a page's copy alone (pinned host page, CUDA events, median of "
+        f"50): H2D {r['alone']['h2d']:.4f} ms "
+        f"({pb / r['alone']['h2d'] / 1e6:.2f} GB/s), D2H "
+        f"{r['alone']['d2h']:.4f} ms ({pb / r['alone']['d2h'] / 1e6:.2f} "
+        f"GB/s)")
+    rec = r["tier"]["recalls"]
+    log(f"  recalled pages byte-equal to their bytes at eviction: "
+        f"{rec['checked']} ({r['host_fetched']} from host, "
+        f"{r['tier']['stats'].fetched_disk_pages} from disk)")
+    log(f"  tiered against the reference: streams equal for "
+        f"{r['n_equal']} of {len(r['ref']['streams'])}; logits within "
+        f"{r['worst']:.3g} of max|ref| up to each stream's first difference;"
+        f" near-tie splits (uid, token, top-2 gap, logit difference there): "
+        f"{r['splits']}")
+    log(f"  fault run: fired {r['fired']}; kv_h2d retries "
+        f"{r['fault']['stats'].fetch_retries}, page-file retries "
+        f"{r['fault']['disk_retries']}; streams equal to the tiered run's")
+    s = r["session"]
+    med = {k: (float(np.median(v)) if v else None, len(v))
+           for k, v in s["ms"].items()}
+    log(f"  parked session: two turns equal one uninterrupted "
+        f"{s['tokens']}-token run; ms (median, count): park {med['park']}, "
+        f"demote to disk {med['demote']}, restore {med['restore']}; "
+        f"flipped page file: restored logits max|d| {s['max_abs_d']:.4g} "
+        f"from the clean restore")
 
 
 def card() -> str:
@@ -3024,6 +3530,12 @@ def main() -> int:
         "where a step's time goes (recorded in phases 3 and 7)")
     report_graphs()
     log(f"  phase 12 done at {time.perf_counter() - t_start:.0f} s")
+
+    log("== phase 13: tiered KV memory, qwen2.5-14b at full width, 48 "
+        "layers, bf16 pages")
+    serve_tiered_full(torch, ops, serve)
+    report_tiers()
+    log(f"  phase 13 done at {time.perf_counter() - t_start:.0f} s")
 
     counts["q4_matmul"] = stream_counts["q4_matmul"]
     counts["flash_verify"] = spec_counts["flash_verify"]

@@ -24,6 +24,22 @@ the bytes read. ``--check-resident`` also serves the same requests with
 the same (quantized) weights resident and exits nonzero on any token
 mismatch.
 
+Tiers (paged): ``--device-budget MB``, ``--host-budget MB`` and
+``--park-idle-s S`` serve the same requests again, then their prompts once
+more, through a paged engine whose every byte leases from one
+``runtime.memory.TierManager`` (the pool sized from the device budget,
+evicted prefix pages offloaded to host and spilled to page files in a
+temporary directory, cost-model eviction; the repeats recall them) and
+exit nonzero unless the tokens equal unbudgeted runs', the tier books
+balance and every peak is within its budget; with ``--park-idle-s`` a
+session's two turns, parked between them, must equal one uninterrupted
+run. Faults, as in the JAX driver: ``--chaos transient`` (with
+``--stream-window``) serves the streamed requests again from a store whose
+layer reads fail ``--chaos-faults`` times and exits nonzero unless the
+retried run's tokens equal the clean run's; ``--io-retries``,
+``--io-backoff-ms`` and ``--io-deadline-s`` set the ``IOPolicy`` of every
+store read and tier copy.
+
 Observability, as in the JAX driver: ``--trace OUT.json`` attaches a
 ``runtime.telemetry.Tracer`` to the served engine (and the prefetcher)
 and writes its Chrome trace (open it at https://ui.perfetto.dev) with the
@@ -47,13 +63,16 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..data import RequestGenerator
+from ..data import Request, RequestGenerator
 from ..kernels import ops
 from ..bridge import tree_from_params
 from ..models import init_cache, init_params
 from ..quant.grouped import tree_tensors
 from ..runtime.engine import make_dense_engine
+from ..runtime.faults import FaultInjector, FaultSpec, FaultyStore
+from ..runtime.iopolicy import IOPolicy
 from ..runtime.kvcache import make_paged_engine
+from ..runtime.memory import MemoryBudget, TierManager
 from ..runtime.metrics import MetricsRegistry, validate_metrics_snapshot
 from ..runtime.paramstore import ParamStore, ResidentSource, save_param_store
 from ..runtime.serve import quantize_ring_params
@@ -102,6 +121,43 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="with --stream-window: also serve the same "
                          "requests with the same weights resident; exit "
                          "nonzero on any token mismatch")
+    ap.add_argument("--chaos", choices=("none", "transient"),
+                    default="none",
+                    help="fault-injection smoke: 'transient' injects "
+                         "retryable disk faults into the streamed "
+                         "layer-wise decode and requires byte-identical "
+                         "recovery (exits nonzero on a failed recovery); "
+                         "needs --stream-window")
+    ap.add_argument("--chaos-faults", type=int, default=3,
+                    help="consecutive transient faults to inject "
+                         "(capped at --io-retries: retries re-hit the "
+                         "fault window)")
+    ap.add_argument("--io-retries", type=int, default=3,
+                    help="IOPolicy: max retries per I/O op before the "
+                         "error is classified fatal")
+    ap.add_argument("--io-backoff-ms", type=float, default=10.0,
+                    help="IOPolicy: base exponential-backoff delay")
+    ap.add_argument("--io-deadline-s", type=float, default=30.0,
+                    help="IOPolicy: per-op deadline; a stalled read "
+                         "surfaces as StallTimeout instead of hanging")
+    ap.add_argument("--device-budget", type=float, default=0.0,
+                    metavar="MB",
+                    help="paged: cap device-tier KV bytes; the paged pool "
+                         "sizes itself to the budget and the tier manager "
+                         "audits that the high-water never exceeds it "
+                         "(0 = unbounded)")
+    ap.add_argument("--host-budget", type=float, default=0.0,
+                    metavar="MB",
+                    help="paged: cap host-tier bytes (offloaded + parked "
+                         "pages); refusals spill the coldest pages to the "
+                         "disk tier (0 = unbounded)")
+    ap.add_argument("--park-idle-s", type=float, default=None,
+                    metavar="S",
+                    help="paged: enable session parking — finished "
+                         "sessions keep their KV on host, demote to "
+                         "per-session disk files after S idle seconds, "
+                         "and restore byte-identically on the next admit; "
+                         "runs a split-run parity check")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="capture a runtime trace (decode steps, admits, "
                          "prefill chunks, the prefetcher) and write "
@@ -129,11 +185,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     if not args.stream_window and (args.check_resident
                                    or args.store_quant != "none"):
         ap.error("--check-resident and --store-quant need --stream-window")
+    tiered = args.device_budget > 0 or args.host_budget > 0 \
+        or args.park_idle_s is not None
     if get_config(args.arch).family == "ssm" and (
-            args.check_dense or args.prefill_chunk or args.kv_quant_kernel):
+            args.check_dense or args.prefill_chunk or args.kv_quant_kernel
+            or tiered):
         ap.error(f"{args.arch} keeps a recurrent state, not KV pages: it "
-                 f"takes neither --check-dense, --prefill-chunk nor "
-                 f"--kv-quant-kernel")
+                 f"takes neither --check-dense, --prefill-chunk, "
+                 f"--kv-quant-kernel nor the tier flags")
+    if args.stream_window and tiered:
+        ap.error("--device-budget, --host-budget and --park-idle-s tier a "
+                 "paged cache: they do not take --stream-window")
+    if args.chaos != "none" and not args.stream_window:
+        ap.error("--chaos transient injects faults into the streamed "
+                 "layer reads: it needs --stream-window")
+    if args.device_budget < 0 or args.host_budget < 0:
+        ap.error("budgets must be >= 0 MB")
     return args
 
 
@@ -237,6 +304,16 @@ def export_instruments(tracer, metrics, args: argparse.Namespace) -> None:
         print(_percentile_line(metrics) or "metrics: no samples yet")
 
 
+def io_policy(args: argparse.Namespace) -> IOPolicy:
+    """The ``IOPolicy`` of ``--io-retries``, ``--io-backoff-ms`` and
+    ``--io-deadline-s`` (the JAX driver's ``_io_policy``)."""
+    return IOPolicy(max_retries=args.io_retries,
+                    backoff_base_s=args.io_backoff_ms / 1e3,
+                    backoff_max_s=max(args.io_backoff_ms / 1e3, 0.1),
+                    op_deadline_s=args.io_deadline_s,
+                    get_timeout_s=2 * args.io_deadline_s)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -253,17 +330,133 @@ def serve_paged(params, cfg, reqs, args: argparse.Namespace, *,
                                 page_tokens=bs,
                                 cache_dtype=DTYPES[args.dtype],
                                 prefill_chunk=args.prefill_chunk or None,
-                                tracer=tracer, metrics=metrics,
-                                device=device)
+                                io_policy=io_policy(args), tracer=tracer,
+                                metrics=metrics, device=device)
     _ticking(eng, args)
     cache = kv.init_cache()
     _sync(device)
     t0 = clock()
-    fin, steps = eng.run(cache, reqs)
-    _sync(device)
+    try:
+        fin, steps = eng.run(cache, reqs)
+        _sync(device)
+    finally:
+        kv.close()
     wall = clock() - t0
     return {"finished": fin, "rejected": eng.rejected, "steps": steps,
             "wall_s": wall, "kv": kv.stats(), "engine": eng}
+
+
+def serve_tiered(params, cfg, reqs, args: argparse.Namespace,
+                 reference: Dict[int, List[int]]) -> Dict:
+    """``--device-budget``/``--host-budget``/``--park-idle-s``: serve
+    ``reqs`` again, then their prompts once more under new uids, with every
+    byte leased from one ``TierManager`` (pool sized from the device
+    budget, cost eviction, a disk tier in a temporary directory), and exit
+    nonzero unless the tokens equal ``reference`` (the repeats: an
+    unbudgeted run's of the same requests), the books balance and each
+    tier's peak is within its budget. A device budget that cannot hold
+    every prompt makes the repeats recall evicted pages from the host or
+    the disk (the printed line counts them). With ``--park-idle-s``, a
+    session's two turns parked between them must equal one uninterrupted
+    run (the JAX driver's ``_tiered_smoke``). Returns the tier stats and
+    the kv stats."""
+    device = torch.device(args.device)
+    B, ctx, bs = args.batch, args.ctx, args.page_tokens
+    dtype = DTYPES[args.dtype]
+    budget = MemoryBudget.from_mb(
+        device=args.device_budget if args.device_budget > 0 else None,
+        host=args.host_budget if args.host_budget > 0 else None)
+    memory = TierManager(budget)
+    full_pages = 2 + B * (-(-ctx // bs))
+    ddir = tempfile.mkdtemp(prefix="kvdisk_")
+    common = dict(page_tokens=bs, cache_dtype=dtype, io_policy=io_policy(args),
+                  prefill_chunk=args.prefill_chunk or None, device=device)
+    base = max(r.uid for r in reqs) + 1
+    again = [Request(base + i, r.prompt, r.max_new_tokens, 0.0)
+             for i, r in enumerate(reqs)]
+    try:
+        eng_r, kv_r = make_paged_engine(params, cfg, B, ctx,
+                                        n_pages=full_pages, **common)
+        try:
+            fin_r, _ = eng_r.run(kv_r.init_cache(), list(reqs) + again)
+        finally:
+            kv_r.close()
+        want = dict(reference)
+        want.update((f.uid, f.tokens) for f in fin_r if f.uid >= base)
+        eng, kv = make_paged_engine(
+            params, cfg, B, ctx,
+            n_pages=None if budget.device is not None else full_pages,
+            memory=memory, evict_policy="cost", disk_dir=ddir,
+            park_idle_s=args.park_idle_s, **common)
+        try:
+            fin, _ = eng.run(kv.init_cache(), list(reqs) + again)
+            _sync(device)
+        finally:
+            kv.close()
+        st = kv.stats()
+        tiered = {f.uid: f.tokens for f in fin}
+        bad = [u for u in tiered if want.get(u) != tiered[u]]
+        if bad:
+            raise SystemExit(f"tiered paged-kv parity FAILED for {bad}")
+        stats = memory.stats()
+        memory.audit()
+        for tier in ("device", "host"):
+            s = stats[tier]
+            if s.capacity is not None and s.peak > s.capacity:
+                raise SystemExit(f"tiered: {tier} high-water {s.peak} > "
+                                 f"budget {s.capacity}")
+        cap = "unbounded" if budget.device is None \
+            else f"{budget.device / 1e6:.3f} MB"
+        print(f"tiered paged decode: {len(tiered)} reqs byte-identical "
+              f"({len(eng.rejected)} shed by budget); pool "
+              f"{st.n_pages} pages; device peak "
+              f"{stats['device'].peak / 1e6:.3f} MB / {cap}, host peak "
+              f"{stats['host'].peak / 1e6:.3f} MB, disk peak "
+              f"{stats['disk'].peak / 1e6:.3f} MB; refusals "
+              f"{stats['host'].refusals}; evictions {st.evictions}, "
+              f"offloaded {st.offloaded_bytes / 1e6:.3f} MB, spilled "
+              f"{st.spilled_pages} pages, fetched "
+              f"{st.fetched_bytes / 1e6:.3f} MB "
+              f"({len(st.fetch_events) - st.fetched_disk_pages} pages from "
+              f"host, {st.fetched_disk_pages} from disk)")
+        out = {"tiers": stats, "kv": st}
+        if args.park_idle_s is not None:
+            sid, half = "smoke-session", args.new_tokens
+            prompt = reqs[0].prompt
+            eng_f, kv_f = make_paged_engine(params, cfg, B, ctx,
+                                            n_pages=full_pages, **common)
+            try:
+                full, _ = eng_f.run(kv_f.init_cache(),
+                                    [Request(900, prompt, 2 * half, 0.0)])
+            finally:
+                kv_f.close()
+            eng_s, kv_s = make_paged_engine(
+                params, cfg, B, ctx, n_pages=full_pages, disk_dir=ddir,
+                park_idle_s=args.park_idle_s, **common)
+            try:
+                cache = kv_s.init_cache()
+                f1, _ = eng_s.run(cache, [Request(901, prompt, half, 0.0,
+                                                  sid)])
+                if not kv_s.is_parked(sid):
+                    raise SystemExit("session never parked at finish")
+                f2, _ = eng_s.run(cache, [Request(902, prompt, half, 0.0,
+                                                  sid)])
+            finally:
+                kv_s.close()
+            got = f1[0].tokens + [f for f in f2 if f.uid == 902][0].tokens
+            ref = full[0].tokens
+            if got != ref:
+                raise SystemExit(f"park/restore parity FAILED: {got} != "
+                                 f"{ref}")
+            ss = kv_s.stats()
+            print(f"session parking: split run byte-identical to one "
+                  f"uninterrupted run ({len(ref)} tokens); parked "
+                  f"{ss.parked_sessions}, restored {ss.restored_sessions}, "
+                  f"disk written {ss.disk_bytes_written / 1e6:.3f} MB")
+            out["session"] = ss
+    finally:
+        shutil.rmtree(ddir, ignore_errors=True)
+    return out
 
 
 def serve_dense(params, cfg, reqs, args: argparse.Namespace, *,
@@ -379,6 +572,7 @@ def serve_streamed(params, cfg, reqs, args: argparse.Namespace, *,
               f"packed vs {raw / 1e6:.3f} MB/layer unquantized "
               f"({store.layer_nbytes / raw:.3f}x)")
         with StreamingParamSource(store, window=W, device=args.device,
+                                  policy=io_policy(args),
                                   tracer=tracer) as src:
             res = serve_layerwise(src, cfg, reqs, args, tracer=tracer,
                                   metrics=metrics)
@@ -407,9 +601,38 @@ def serve_streamed(params, cfg, reqs, args: argparse.Namespace, *,
                                  f"uids {bad}")
             print(f"  resident weights: tokens identical for "
                   f"{len(resident)} requests")
+        if args.chaos == "transient":
+            res["chaos"] = serve_chaos(sdir, cfg, reqs, args, res)
     finally:
         shutil.rmtree(sdir, ignore_errors=True)
     return res
+
+
+def serve_chaos(sdir: str, cfg, reqs, args: argparse.Namespace,
+                clean: Dict) -> Dict:
+    """``--chaos transient``: serve ``reqs`` again from the store at
+    ``sdir`` with ``--chaos-faults`` (at most ``--io-retries``)
+    consecutive layer-read faults injected after the 4th read, and exit
+    nonzero unless the tokens equal the ``clean`` run's (the JAX driver's
+    ``_chaos_smoke``). Returns the fired faults and the prefetch stats."""
+    policy = io_policy(args)
+    n = min(args.chaos_faults, policy.max_retries)
+    inj = FaultInjector([FaultSpec(op="layer_read", after=4, times=n)])
+    with StreamingParamSource(FaultyStore(ParamStore(sdir), inj),
+                              window=args.stream_window, device=args.device,
+                              policy=policy) as src:
+        res = serve_layerwise(src, cfg, reqs, args)
+    want = {f.uid: f.tokens for f in clean["finished"]}
+    got = {f.uid: f.tokens for f in res["finished"]}
+    if got != want:
+        bad = [u for u in want if want[u] != got.get(u)]
+        raise SystemExit(f"chaos transient: tokens DIVERGED after retry "
+                         f"recovery for uids {bad}")
+    st = res["stats"]
+    print(f"chaos transient: {len(inj.fired)} injected disk faults "
+          f"absorbed by retry/backoff ({st.retries} retries in "
+          f"PrefetchStats); tokens byte-identical to the clean run")
+    return {"fired": list(inj.fired), "stats": st}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
@@ -446,6 +669,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             raise SystemExit(f"paged vs dense parity FAILED for uids {bad}")
         print(f"  dense engine: tokens identical for {len(dense)} "
               f"requests; kernel launches {ops.launch_counts()}")
+    if args.device_budget > 0 or args.host_budget > 0 \
+            or args.park_idle_s is not None:
+        res["tiered"] = serve_tiered(
+            params, cfg, reqs, args,
+            {f.uid: f.tokens for f in res["finished"]})
     return res
 
 

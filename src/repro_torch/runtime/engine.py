@@ -22,8 +22,10 @@ its host sync (so the component is the device's time as the host waits
 for it), ``admit[...]`` and ``prefill-chunk[...]`` spans, ``reject[...]``
 instants and the ``spec/proposed``/``spec/accepted`` counters; a
 ``metrics`` registry gets the request lifecycle (``RequestTracker``) and
-the engine's gauges. Session parking is a later slice (``session=``
-raises). The engine also stamps each request's first-token and finish
+the engine's gauges. A request's ``session`` names a multi-turn
+conversation on a parking-enabled paged cache: at finish the slot's KV
+parks under it, and the session's next admit restores it and continues
+decoding. The engine also stamps each request's first-token and finish
 times on ``clock`` (TTFT and TPOT on ``FinishedRequest``).
 
 ``StepGraphs`` is the port's counterpart of the JAX package's jitted
@@ -44,11 +46,8 @@ import numpy as np
 import torch
 
 from ..kernels import _build, ops
+from .iopolicy import BudgetExceeded
 from .telemetry import clock, resolve_tracer
-
-_SESSION_ITEM = ("session= is not ported yet: session parking needs "
-                 "tiered memory (ROADMAP Queue A item 4)")
-
 
 # --------------------------------------------------------------------------- #
 #  the compiled step: CUDA graphs of fixed-shape steps
@@ -260,6 +259,7 @@ class SlotState:
     t_submit: float = 0.0            # clock() when the request arrived
     proposed: int = 0                # draft tokens proposed (speculative)
     accepted: int = 0                # draft tokens accepted (speculative)
+    session: Optional[str] = None    # park the slot's KV under this key
 
 
 @dataclasses.dataclass
@@ -365,8 +365,9 @@ class ContinuousBatcher:
     def sample_gauges(self) -> Dict[str, float]:
         """Gauge sample for ``MetricsRegistry.add_source``: slot
         occupancy, the queue, speculative acceptance, the block pool's
-        pages and prefix-hit rate, and the streamed source's I/O retries
-        (the JAX engine's names; the tier gauges wait for tiered memory)."""
+        pages and prefix-hit rate, the KV offloader's and the streamed
+        source's I/O retries, and each memory tier's used and peak bytes
+        (the JAX engine's names)."""
         g: Dict[str, float] = {
             "slots/active": float(len(self.active())),
             "slots/free": float(len(self.free_slots())),
@@ -383,6 +384,11 @@ class ContinuousBatcher:
             g["kv/pages_cached"] = float(pool.n_cached)
             looks = self.kv.prefix_hits + pool.alloc_count
             g["kv/prefix_hit_rate"] = self.kv.prefix_hits / max(looks, 1)
+            if self.kv.offloader is not None:
+                g["io/kv_retries"] = float(self.kv.offloader.health.retries)
+            for tier, st in self.kv.memory.stats().items():
+                g[f"mem/{tier}/used_bytes"] = float(st.used)
+                g[f"mem/{tier}/peak_bytes"] = float(st.peak)
         src = self.source
         if src is not None and hasattr(src, "health"):
             g["io/stream_retries"] = float(src.health.retries)
@@ -409,9 +415,21 @@ class ContinuousBatcher:
         """Prefill ``prompt`` and place it in a free slot. Dense caches
         validate ``len(prompt) + max_new`` against ``ctx``; the paged path
         allocates on demand and raises ``PoolExhausted`` when the pool
-        cannot hold the request now."""
-        if session is not None:
-            raise NotImplementedError(_SESSION_ITEM)
+        cannot hold the request now.
+
+        ``session`` names a multi-turn conversation on a parking-enabled
+        paged cache: at finish the slot's KV parks under this key instead
+        of being dropped, and a later admit with the same key restores it
+        and continues decoding — the prompt is ignored on restore (the
+        parked state holds it) and the first decode step resumes from the
+        parked resume token, so the concatenated streams are exactly what
+        one uninterrupted request would have produced.
+        """
+        if session is not None and self.spec is not None:
+            raise ValueError(
+                "session parking and speculative decoding cannot be "
+                "combined: the draft cache is not parked, so a restored "
+                "slot would verify against a cold draft")
         free = self.free_slots()
         if not free:
             raise RuntimeError("no free slots")
@@ -422,6 +440,23 @@ class ContinuousBatcher:
         if tr is not None:                           # no-op if already seen
             tr.submit(uid, t=t_submit, prompt_len=len(prompt))
         t_admit = clock() if tr is not None else 0.0
+        if self.kv is not None and session is not None \
+                and self.kv.is_parked(session):
+            cache, meta, _ = self.kv.restore_session(cache, slot, session,
+                                                     max_new=max_new)
+            # the resume token's KV is written by the first decode step,
+            # as the last generated token's would have been: remaining
+            # counts the full max_new and generated starts empty (the
+            # token was emitted last turn)
+            tokens[slot, 0] = int(meta["resume_token"])
+            self.slots[slot] = SlotState(
+                uid=uid, remaining=max_new, generated=[], t_first=clock(),
+                t_submit=self._t_start if t_submit is None else t_submit,
+                session=session)
+            if tr is not None:
+                tr.admitted(uid, restored=True)
+                tr.prefill_done(uid, clock() - t_admit)
+            return cache, tokens
         prompt_t = torch.as_tensor(prompt, device=self.device)[None, :]
         if self.kv is not None and self.prefill_chunk is not None:
             self.kv.plan_admit(cache, slot, [int(t) for t in prompt],
@@ -457,7 +492,8 @@ class ContinuousBatcher:
         self.slots[slot] = SlotState(
             uid=uid, remaining=max_new - 1, generated=[int(first_tok)],
             t_first=clock(),
-            t_submit=self._t_start if t_submit is None else t_submit)
+            t_submit=self._t_start if t_submit is None else t_submit,
+            session=session)
         if tr is not None:
             tr.admitted(uid)
             tr.prefill_done(uid, clock() - t_admit)
@@ -520,6 +556,18 @@ class ContinuousBatcher:
             self._tracker.finished(st.uid)
         self.slots[i] = SlotState()                      # free immediately
         if self.kv is not None:
+            if st.session is not None and self.kv.parking and st.generated:
+                try:
+                    self.kv.park_session(
+                        cache, i, st.session,
+                        meta={"resume_token": int(st.generated[-1])})
+                    return cache
+                except BudgetExceeded:
+                    # no tier can hold the parked bytes: finish normally;
+                    # the next turn prefills from scratch instead of
+                    # failing this one
+                    self.tracer.instant(f"park-refused[{st.session}]",
+                                        cat="sched", track="decode")
             self.kv.release_slot(i)
         return cache
 
@@ -688,7 +736,11 @@ class ContinuousBatcher:
                 # neither decode steps nor the step budget
                 next_t = t_start + arrival[pending[0].uid]
                 time.sleep(min(max(next_t - clock(), 0.0), 0.005))
+                if self.kv is not None and self.kv.parking:
+                    self.kv.sweep_parked()
                 continue
+            if self.kv is not None and self.kv.parking:
+                self.kv.sweep_parked()
             if self.metrics is not None:
                 self.metrics.sample()
             steps += 1

@@ -32,19 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.latency import expected_tokens_per_cycle  # noqa: F401  (re-export)
 from ..models.model import rollback_cache
-
-
-def expected_tokens_per_cycle(acceptance: float, gamma: int) -> float:
-    """E[tokens emitted per draft/verify cycle] at per-draft acceptance
-    rate a: sum_{j<g} (j+1) a^j (1-a) + (g+1) a^g = (1 - a^{g+1})/(1 - a).
-    (The port's copy of ``repro.core.latency.expected_tokens_per_cycle``.)
-    """
-    if acceptance >= 1.0:
-        return gamma + 1.0
-    if acceptance <= 0.0:
-        return 1.0
-    return (1.0 - acceptance ** (gamma + 1)) / (1.0 - acceptance)
 
 
 @dataclasses.dataclass

@@ -26,9 +26,12 @@ which imports no JAX, copied).
     Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``;
     :func:`validate_chrome_trace` checks one.
 
-The JAX tracer's ``ingest_*`` adapters (fault audit trails, failover
-splits, worker health, prefetch timelines after the fact) are not copied:
-the port has none of those records yet, and its prefetcher emits live.
+Legacy record types (``PrefetchEvent`` timelines of the prefetcher and
+the KV offloader, ``FiredFault`` audit trails, ``WorkerHealth``) merge
+onto the shared timeline through the ``ingest_*`` adapters, while the hot
+paths also emit live when a tracer is attached. The JAX tracer's
+``ingest_failover_event`` waits for the ring's failover (ROADMAP Queue A
+item 7).
 
 Validator CLI::
 
@@ -398,6 +401,44 @@ class Tracer:
             self._seq = 0
             self.evicted = 0
             self.stalls_evicted = 0
+
+    # -- legacy-record ingestion ------------------------------------------- #
+
+    def ingest_prefetch_events(self, events: Iterable, *,
+                               track: str = "prefetcher",
+                               cat: str = "prefetch",
+                               name: str = "layer_read") -> int:
+        """Merge a ``PrefetchEvent`` timeline (layer prefetcher or KV
+        offloader — they share the record type and the clock) onto the
+        trace as spans. Returns events ingested."""
+        n = 0
+        for e in events:
+            self.span_event(f"{name}[{e.layer}]", e.t_start, e.t_end,
+                            cat=cat, track=track, nbytes=e.nbytes)
+            n += 1
+        return n
+
+    def ingest_fired_faults(self, fired: Iterable, *,
+                            track: str = "faults") -> int:
+        """``faults.FiredFault`` audit trail -> instant events (same
+        clock: the fault injector stamps with ``telemetry.clock``)."""
+        n = 0
+        for f in fired:
+            self.instant(f"fault:{f.mode}:{f.op}", cat="fault",
+                         track=track, t=f.t, key=f.key,
+                         call_index=f.call_index)
+            n += 1
+        return n
+
+    def ingest_worker_health(self, health, *,
+                             track: Optional[str] = None) -> None:
+        """``iopolicy.WorkerHealth`` -> an instant + counters on the
+        worker's own track."""
+        tr = track or health.name or "worker"
+        self.instant(f"health:{health.report()}", cat="health", track=tr,
+                     t=health.last_progress_t)
+        self.counter("retries", health.retries, track=tr)
+        self.counter("failures", health.failures, track=tr)
 
     # -- Chrome trace (Perfetto) export ------------------------------------ #
 

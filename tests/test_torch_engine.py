@@ -166,9 +166,11 @@ def test_deferred_features_raise():
                              device=CPU).telemetry() is NULL_TRACER
     with pytest.raises(TypeError, match="Tracer"):
         ContinuousBatcher(2, None, None, None, device=CPU, tracer=object())
-    # session parking waits for tiered memory
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eng.admit(None, None, 0, np.arange(4), 2, session="s")
+    # session parking is ported; beside speculation it is refused
+    with pytest.raises(ValueError, match="speculative"):
+        ContinuousBatcher(2, None, None, None, device=CPU,
+                          spec=object()).admit(None, None, 0, np.arange(4),
+                                               2, session="s")
     # speculative decoding is ported: the decoder is kept and drives step()
     spec = object()
     assert ContinuousBatcher(2, None, None, None, device=CPU,
@@ -177,6 +179,10 @@ def test_deferred_features_raise():
     src = type("Src", (), {"stats": lambda self: "stats"})()
     assert ContinuousBatcher(2, None, None, None, device=CPU,
                              source=src).streaming_stats() == "stats"
-    with pytest.raises(NotImplementedError, match="item 4"):
-        PagedKVCache(tcfg, batch=2, ctx=64, n_pages=8, offload=True,
-                     device=CPU)
+    # tiered memory is ported: offload is the default, as in JAX, and the
+    # pool leases its bytes from the device tier until closed
+    kv = PagedKVCache(tcfg, batch=2, ctx=64, n_pages=8, device=CPU)
+    assert kv.offloader is not None
+    assert kv.memory.used("device") == 8 * kv.page_bytes
+    kv.close()
+    assert kv.memory.used("device") == 0

@@ -45,8 +45,8 @@ def test_serve_entry_point_leaves_jax_unloaded():
 def test_walk_covers_every_port_module():
     """The import check above walks every module of the port, the q4
     streaming slice's (quant, store, prefetcher, kernel B3) and the
-    speculative slice's (decoder, kernel B5, the qwen1.5 configs)
-    included."""
+    speculative slice's (decoder, kernel B5, the qwen1.5 configs) and
+    the tiered slice's (faults, the recall-cost terms) included."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in FILES if p.name != "chip_smoke.py"}
     for want in ("quant/__init__.py", "quant/grouped.py",
@@ -54,5 +54,6 @@ def test_walk_covers_every_port_module():
                  "runtime/streaming.py", "runtime/iopolicy.py",
                  "runtime/memory.py", "runtime/serve.py",
                  "runtime/speculative.py", "kernels/flash_decode.py",
-                 "configs/qwen15_32b.py", "configs/qwen15_05b_draft.py"):
+                 "configs/qwen15_32b.py", "configs/qwen15_05b_draft.py",
+                 "runtime/faults.py", "core/latency.py"):
         assert want in names

@@ -421,7 +421,7 @@ def test_spec_decoder_rejects_gamma_zero_and_sessions(world):
     spec = _t_spec(world["draft"], 2)
     eng = ContinuousBatcher(B, None, None, None, spec=spec, device=CPU)
     assert eng.spec is spec
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="speculative"):
         eng.admit(None, None, 0, np.arange(4), 2, session="s")
 
 

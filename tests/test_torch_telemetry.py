@@ -271,15 +271,15 @@ def _check_instruments(ttr, treg, jtr, tracks, tmp_path):
 
 @pytest.mark.parametrize("chunk", [None, 8])
 def test_paged_engine_trace_and_metrics_match_jax(world, tmp_path, chunk):
-    """The JAX paged cache also leases its pool on a tier manager (a
-    ``kv-memory`` track); the port's has no tiers yet, so the decode
-    track is compared."""
+    """Both paged caches lease their pools on a tier manager and offload
+    by default (the ``kv-memory`` track, the ``mem/`` and ``io/kv_retries``
+    gauges): the names are equal, and the decode track is compared."""
     jcfg, tcfg, jp, tp = world
     reqs = _requests(jcfg.vocab)
     jtr, jreg = JT.Tracer(), JMX.MetricsRegistry()
     eng, kv = j_paged_engine(jp, jcfg, B, CTX, n_pages=N_PAGES,
-                             page_tokens=PAGE, offload=False, tracer=jtr,
-                             metrics=jreg, prefill_chunk=chunk)
+                             page_tokens=PAGE, tracer=jtr, metrics=jreg,
+                             prefill_chunk=chunk)
     try:
         fin_j, steps_j = eng.run(kv.init_cache(), reqs)
     finally:
@@ -302,8 +302,10 @@ def test_paged_engine_trace_and_metrics_match_jax(world, tmp_path, chunk):
     assert counts(snap) == counts(jsnap)
     assert {k: v["count"] for k, v in snap["histograms"].items()} == \
         {k: v["count"] for k, v in jsnap["histograms"].items()}
-    assert set(snap["gauges"]) == {g for g in jsnap["gauges"]
-                                   if not g.startswith("mem/")}
+    assert set(snap["gauges"]) == set(jsnap["gauges"])
+    assert {g for g in snap["gauges"] if g.startswith("mem/")} == {
+        f"mem/{t}/{k}_bytes" for t in ("device", "host", "disk")
+        for k in ("used", "peak")}
     assert len(ttr.stalls()) == len(jtr.stalls())
 
 
