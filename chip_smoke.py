@@ -209,6 +209,33 @@ Phase 13 tiered KV memory at qwen2.5-14b's full width and depth (48
          a pinned buffer and the card), the modeled against measured recall
          seconds (``core.latency.tier_recall_crosscheck``), park, demote
          and restore ms, beside the card's name and power limit.
+Phase 14 the piped ring (PRP) at qwen2.5-14b's full width and depth, all 4
+         stages on the card (seed 0; 8 prompts of 512 tokens, seed 7,
+         prefilled on one device, ctx 1024): (a) bf16, the resident ring
+         at k 1 (w 12) and k 2 (w 6), 32 greedy steps replayed from CUDA
+         graphs against the one-device decode of the same cache (streams
+         equal but at near ties, phase 7's rule; splits counted), 8 steps
+         eager (logits equal to the graphed steps', max|d| 0), a T = 5
+         verify pass against 5 single steps, exactly 192 B5 launches a
+         pass (48 layers x 4 microbatches); (b) phase 5's q4 store (built
+         again from the same seed) at k 2: the resident q4 ring and the
+         streamed ring (banks 2 steps ahead), 8 steps, equal tokens,
+         exactly 1344 B3 (7 x 192) and 192 B5 launches a pass; one
+         eager resident step with every B3 launch (M = 2 rows) held
+         against its plain version on the same inputs; peak
+         resident weight bytes against the resident q4 bank's, the stall,
+         the worker's staging of each bank (its trace span and the CUDA
+         events around its layers' H2D copies), the trace checked; (c)
+         stage 2 of that ring killed at the first layer read of the third
+         token's pass (prompts of 4 tokens): ``ElasticRingServer``
+         re-plans the survivors (Halda over the paper cluster's profiles),
+         rebuilds, replays; zero tokens lost and the tokens after recovery
+         equal a clean survivor-ring run's; the detect, re-solve, rebuild
+         and replay split printed, and the recovery extrapolated to (b)'s
+         history (the replay is one streamed pass a token); (d) 4 layers, f32, eager: every B5
+         launch against its plain version on the same inputs, logits
+         within 2e-4 of the ring on ``use_kernels(False)`` and equal
+         tokens. Its numbers again beside the card's name and power limit.
 
 Prints the card's name and power limit again, the kernels' JSON line, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
@@ -3433,6 +3460,412 @@ def report_tiers() -> None:
         f"from the clean restore")
 
 
+# --------------------------------------------------------------------------- #
+#  phase 14: the piped ring
+# --------------------------------------------------------------------------- #
+
+RING_ARGS = ["--arch", "qwen2.5-14b", "--batch", "8", "--ctx", "1024",
+             "--prompt-len", "512", "--new-tokens", "32", "--seed", "0",
+             "--stages", "4"]
+#: B5 launches a ring pass: every layer of every microbatch (4 stages)
+RING_B5 = 48 * 4
+#: phase 14's record, printed at its end beside the card
+RING = {}
+
+
+def by_row(run):
+    """A ``serve.greedy_steps`` run as ``compare_runs`` reads one: each
+    batch row is a stream (rows decode independently)."""
+    toks = run["tokens"][:, :, 0]
+    streams = {b: [int(t) for t in toks[b]] for b in range(toks.shape[0])}
+    logits = {(b, n): lg[b, 0] for n, lg in enumerate(run["logits"])
+              for b in range(toks.shape[0])}
+    return streams, logits
+
+
+def launched(ops, want, label):
+    """The launch counts since the last reset must be ``want`` exactly
+    (kernels not named: 0)."""
+    got = ops.launch_counts()
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{label}: launches {got}, wanted {full}")
+    return got
+
+
+def ring_resident(torch, ops, serve):
+    """Phase 14 (a): the resident ring at full width, bf16."""
+    from repro_torch.runtime.serve import RingPlan, RingServeStep, ring_params
+
+    args = serve.parse_args(RING_ARGS + ["--dtype", "bf16"])
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, params = serve.build_model(args)
+    prompts, cache, nxt, ttft = serve.ring_prefill(params, cfg, args)
+    torch.cuda.synchronize()
+    cache_bytes = sum(a.numel() * a.element_size()
+                      for a in cache["layers"].values())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"  weights {w_bytes / 1e9:.2f} GB bf16 and cache "
+        f"{cache_bytes / 1e9:.2f} GB on the card; prefill of 8 x 512 on one device in "
+        f"{ttft:.2f} s (setup {time.perf_counter() - t0:.1f} s)")
+    n = int(args.new_tokens)
+    one = serve.greedy_steps(serve.one_device_decode(params, cfg, dev),
+                             serve.clone_cache(cache), nxt, n, dev,
+                             keep=True)
+    one_ms = 1e3 * float(np.median(one["step_s"][1:]))
+    RING["one_device_ms"] = one_ms
+    for k in (1, 2):
+        plan = RingPlan.make(cfg, 4, k)
+        rp = ring_params(params, cfg, plan)
+        step = RingServeStep(cfg, plan, rp, graphs=True, device=dev)
+        ops.reset_launch_counts()
+        run = serve.greedy_steps(step, serve.to_ring_cache(cache, cfg, plan),
+                                 nxt, n, dev, keep=True)
+        launched(ops, {"flash_verify": RING_B5 * n}, f"ring k={k} graphed")
+        graphed_ms = 1e3 * float(np.median(run["step_s"][1:]))
+        worst, n_equal, splits = near_tie_only(
+            f"ring k={k} against the one-device decode", by_row(run),
+            by_row(one), SPEC_BF16_REL)
+        log(f"  ring k={k} (w {plan.w}, M 4), graphed: step p50 "
+            f"{graphed_ms:.2f} ms against the one-device step's "
+            f"{one_ms:.2f} ms; {RING_B5 * n} B5 launches ({RING_B5} a step "
+            f"x {n}); streams equal to the one-device decode's for "
+            f"{n_equal} of 8 rows, logits within {worst:.3g} of max|ref| up"
+            f" to each row's first difference; splits (row, token, top-2 "
+            f"gap, logit difference there): {splits}; graphs: "
+            f"{step.graphs.captures} capture in "
+            f"{step.graphs.capture_s:.2f} s, "
+            f"{step.graphs.pool_bytes / 1e6:.1f} MB")
+        n_eager = 8
+        eager = RingServeStep(cfg, plan, rp, graphs=False, device=dev)
+        ops.reset_launch_counts()
+        erun = serve.greedy_steps(eager, serve.to_ring_cache(cache, cfg, plan),
+                                  nxt, n_eager, dev, keep=True)
+        launched(ops, {"flash_verify": RING_B5 * n_eager},
+                 f"ring k={k} eager")
+        d = max(float((a - b).abs().max())
+                for a, b in zip(erun["logits"], run["logits"]))
+        if d != 0 or not np.array_equal(erun["tokens"],
+                                        run["tokens"][:, :n_eager]):
+            raise AssertionError(f"ring k={k}: eager logits differ from the "
+                                 f"graphed ones by {d}")
+        eager_ms = 1e3 * float(np.median(erun["step_s"][1:]))
+        # the verify pass: T = 5 rows a sequence over the decoded cache
+        T = 5
+        vstep = RingServeStep(cfg, plan, rp, n_tokens=T, graphs=True,
+                              device=dev)
+        vc = run["cache"]
+        ln0 = vc["len"].clone()
+        vt = torch.tensor(run["tokens"][:, -1], device=dev).expand(
+            -1, T).contiguous()
+        times = []
+        ops.reset_launch_counts()
+        for _ in range(6):
+            vc["len"].copy_(ln0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            vstep(vc, vt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        launched(ops, {"flash_verify": RING_B5 * 6}, f"ring k={k} verify")
+        verify_ms = 1e3 * float(np.median(times[1:]))
+        log(f"  ring k={k}, eager: step p50 {eager_ms:.2f} ms; logits max|d| "
+            f"{d} against the graphed steps ({n_eager} steps); verify pass "
+            f"T={T} (graphed) {verify_ms:.2f} ms against {T} single steps "
+            f"{T * graphed_ms:.2f} ms: amortization "
+            f"{T * graphed_ms / verify_ms:.2f}x")
+        RING[f"k{k}"] = {"graphed_ms": graphed_ms, "eager_ms": eager_ms,
+                         "verify_ms": verify_ms, "splits": len(splits),
+                         "worst": worst, "n_equal": n_equal}
+        del run, erun, vc, step, eager, vstep, rp
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, cache, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def bank_copies(torch):
+    """CUDA events around each layer's host-to-device copy of the ring's
+    bank prefetcher (``_to_card`` on its side stream); yields the pairs."""
+    from repro_torch.runtime.streaming import RingBankPrefetcher
+
+    to_card, pairs = RingBankPrefetcher._to_card, []
+
+    def timed(self, buf, nbytes):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record(self._side)
+        out = to_card(self, buf, nbytes)
+        ev[1].record(self._side)
+        pairs.append(ev)
+        return out
+
+    RingBankPrefetcher._to_card = timed
+    try:
+        yield pairs
+    finally:
+        RingBankPrefetcher._to_card = to_card
+
+
+def ring_streamed(torch, ops, serve):
+    """Phase 14 (b) and (c): phase 5's q4 store through the resident and
+    the streamed ring (M 4, k 2, banks 2 steps ahead), then a stage killed
+    mid-decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import (paper_table2_cluster,
+                                           profile_from_config)
+    from repro_torch.quant import tree_tensors
+    from repro_torch.runtime.paramstore import ParamStore
+    from repro_torch.runtime.serve import RingPlan, RingServeStep, ring_params
+    from repro_torch.runtime.streaming import StreamingRingDriver
+    from repro_torch.runtime.telemetry import (Tracer, format_summary,
+                                               validate_chrome_trace)
+
+    cfg = get_config("qwen2.5-14b")
+    dev = torch.device("cuda")
+    n = 8
+    args = serve.parse_args(RING_ARGS + ["--dtype", "bf16", "--ring-k", "2",
+                                         "--new-tokens", str(n)])
+    sdir, tree = write_store(torch, cfg, torch.bfloat16, 0)
+    try:
+        q4_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_tensors(tree["blocks"]))
+        _, cache, nxt, ttft = serve.ring_prefill(tree, cfg, args)
+        plan = RingPlan.make(cfg, 4, 2)
+        step = RingServeStep(cfg, plan, ring_params(tree, cfg, plan),
+                             graphs=True, device=dev)
+        ops.reset_launch_counts()
+        res = serve.greedy_steps(step, serve.to_ring_cache(cache, cfg, plan),
+                                 nxt, n, dev)
+        want = {"flash_verify": RING_B5 * n,
+                "q4_matmul": PROJECTIONS * RING_B5 * n}
+        launched(ops, want, "resident q4 ring")
+        res_ms = 1e3 * float(np.median(res["step_s"][1:]))
+        # B3 at the ring's own rows (a microbatch of 2 at qwen2.5-14b's
+        # shapes): one eager step with every launch held against its plain
+        # version on the same inputs
+        errs = {}
+        eager = RingServeStep(cfg, plan, step.params, graphs=False,
+                              device=dev)
+        with substituted(ops, "shadow", errs):
+            eager(serve.to_ring_cache(cache, cfg, plan), nxt)
+        if sorted(errs) != ["flash_verify", "q4_matmul"] \
+                or errs["q4_matmul"] > Q4_TOL:
+            raise AssertionError(f"resident q4 ring: launches against their "
+                                 f"plain versions {errs} (B3 max|d|/max|ref|"
+                                 f" bound {Q4_TOL})")
+        log(f"  resident q4 ring, one eager step: every B3 launch (M = 2 "
+            f"rows) within {errs['q4_matmul']:.3g} of max|ref| of its plain "
+            f"version on the same inputs (bound {Q4_TOL}); B5 (bf16 out) "
+            f"max|d| {errs['flash_verify']:.3g}")
+        del step, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        store = ParamStore(sdir)
+        tracer = Tracer()
+        drv = StreamingRingDriver(cfg, plan, store, prefetch_depth=2,
+                                  device=dev, policy=serve.io_policy(args),
+                                  tracer=tracer)
+        ops.reset_launch_counts()
+        try:
+            with bank_copies(torch) as copies:
+                run = serve.greedy_steps(drv.step,
+                                         serve.to_ring_cache(cache, cfg, plan),
+                                         nxt, n, dev)
+        finally:
+            drv.close()
+            store.close()
+        launched(ops, want, "streamed q4 ring")
+        if not np.array_equal(run["tokens"], res["tokens"]):
+            raise AssertionError("streamed ring tokens differ from the "
+                                 "resident q4 ring's")
+        st = drv.stats()
+        torch.cuda.synchronize()
+        h2d = [a.elapsed_time(b) for a, b in copies]
+        spans = [ev.duration for ev in tracer.events()
+                 if ev.track == "ring-prefetcher"
+                 and ev.name.startswith("bank[")]
+        banks = staging_by_bank(plan, cfg.n_layers, spans, h2d, n)
+        reads = [ev.duration for ev in tracer.events()
+                 if ev.track == "ring-prefetcher"
+                 and ev.name.startswith("layer_read[")]
+        path = out_path("phase14_streamed_ring_trace.json")
+        tracer.export_chrome_trace(path)
+        info = validate_chrome_trace(path, ("decode", "ring",
+                                            "ring-prefetcher"))
+        summ = tracer.summary()
+        stream_ms = 1e3 * float(np.median(run["step_s"][1:]))
+        RING.update(q4_resident_ms=res_ms, q4_streamed_ms=stream_ms,
+                    peak=st.peak_resident_bytes, q4_bytes=q4_bytes,
+                    stall=st.stall_s, bank_ms=banks["span_ms"],
+                    bank_h2d_ms=banks["h2d_ms"],
+                    h2d_ms=float(np.median(h2d)),
+                    read_ms=1e3 * float(np.median(reads)))
+        log(f"  q4 ring (k 2, w 6, M 4), 8 steps from a prefill of 8 x 512 "
+            f"({ttft:.2f} s): resident graphed step p50 {res_ms:.2f} ms; "
+            f"streamed (2 banks ahead) {stream_ms:.2f} ms; tokens equal; "
+            f"{want} launches each run ({PROJECTIONS} x {RING_B5} B3 a "
+            f"pass)")
+        log(f"  streamed: peak resident weights "
+            f"{st.peak_resident_bytes / 1e9:.3f} GB against the resident "
+            f"q4 bank's {q4_bytes / 1e9:.3f} GB "
+            f"({st.peak_resident_bytes / q4_bytes:.3f}); stall "
+            f"{st.stall_s:.3f} s over {n} passes; {len(reads)} layer reads "
+            f"({st.total_bytes_read / 1e9:.2f} GB), median read "
+            f"{RING['read_ms']:.2f} ms; the worker's staging of a bank "
+            f"that reads layers (trace span; {banks['n']} of {len(spans)} "
+            f"banks, {banks['layers']} layers each, median): "
+            f"{banks['span_ms']:.2f} ms, its H2D copies "
+            f"{banks['h2d_ms']:.3f} ms device time (CUDA events); a "
+            f"layer's H2D copy {RING['h2d_ms']:.3f} ms ({len(h2d)} "
+            f"copies); stall split "
+            f"per token: {format_summary(summ)}; trace "
+            f"{os.path.relpath(path, ROOT)} ({info['n_events']} events, "
+            f"tracks {info['tracks']})")
+        del tree, cache, res, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) a stage dies mid-decode; Halda re-plans over the paper
+        # cluster's survivors
+        fargs = serve.parse_args(["--arch", "qwen2.5-14b", "--batch", "8",
+                                  "--ctx", "64", "--prompt-len", "4",
+                                  "--new-tokens", "6", "--seed", "0",
+                                  "--stages", "4", "--ring-k", "2",
+                                  "--dtype", "bf16"])
+        fo = serve.serve_failover(
+            sdir, cfg, fargs, stage=2,
+            device_profiles=paper_table2_cluster(),
+            model_profile=profile_from_config(cfg))
+        ev = fo["event"]
+        if ev.failed_stage != 2 or ev.tokens_lost or ev.halda is None:
+            raise AssertionError(f"failover: {ev}")
+        RING["failover"] = ev
+        # the replay re-prefills the history one streamed pass a token, so
+        # recovery grows with the history: at (b)'s 512-token prompts it
+        # is the history times a pass
+        per_pass = ev.replay_s / ev.replayed_tokens
+        hist_b = int(args.prompt_len) + ev.token_index
+        RING["replay_pass_s"] = per_pass
+        RING["recovery_b_s"] = ev.recovery_s - ev.replay_s \
+            + hist_b * per_pass
+        log(f"  failover: stage 2 killed at token {ev.token_index} (a layer "
+            f"read of the third pass); ring 4 -> {ev.n_stages_after} stages"
+            f", plan {ev.plan}, Halda over the survivors {ev.halda}; "
+            f"recovered in {ev.recovery_s:.3f} s with a history of "
+            f"{ev.replayed_tokens} tokens ({fargs.prompt_len}-token prompts)"
+            f": detect {ev.detect_s * 1e3:.2f} ms, re-solve "
+            f"{ev.resolve_s * 1e3:.1f} ms, rebuild {ev.rebuild_s * 1e3:.1f} "
+            f"ms, replay {ev.replay_s:.3f} s ({per_pass:.3f} s a streamed "
+            f"pass); 0 tokens lost; the tokens after recovery equal a clean"
+            f" survivor-ring run's")
+        log(f"  recovery is the history times a pass: at (b)'s history of "
+            f"{hist_b} tokens ({args.prompt_len}-token prompts) it would "
+            f"take {RING['recovery_b_s']:.1f} s (extrapolated from this "
+            f"replay's pass; {hist_b} x (b)'s streamed step "
+            f"{stream_ms / 1e3:.3f} s = {hist_b * stream_ms / 1e3:.1f} s)")
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+
+
+def staging_by_bank(plan, n_layers, spans, h2d, passes):
+    """The worker's staging per bank of the streamed ring: a bank stages
+    the layers its rows first need in the pass (the others are staged
+    already), so its ``bank[t]`` span holds their reads and the copies
+    of those layers (in staging order) are its own. Medians over the
+    banks that read a layer: span ms, the summed H2D device ms of its
+    copies, and the layers it read."""
+    from repro_torch.runtime.serve import ring_bank_layers
+
+    seen, new = set(), []
+    for t in range(plan.n_steps):
+        fresh = {int(x) for x in ring_bank_layers(plan, t)
+                 if x < n_layers} - seen
+        new.append(len(fresh))
+        seen |= fresh
+    if len(spans) != passes * plan.n_steps \
+            or len(h2d) != passes * sum(new):
+        raise AssertionError(f"{len(spans)} bank spans and {len(h2d)} "
+                             f"copies for {passes} passes of {new}")
+    span_ms, dev_ms, layers, i = [], [], [], 0
+    for p in range(passes):
+        for t, k in enumerate(new):
+            if k:
+                span_ms.append(1e3 * spans[p * plan.n_steps + t])
+                dev_ms.append(sum(h2d[i:i + k]))
+                layers.append(k)
+            i += k
+    return {"span_ms": float(np.median(span_ms)),
+            "h2d_ms": float(np.median(dev_ms)),
+            "layers": int(np.median(layers)), "n": len(span_ms)}
+
+
+def ring_parity(torch, ops, serve) -> None:
+    """Phase 14 (d): 4 layers at full width, f32, eager: the ring with
+    every launch shadowed by its plain version on the same inputs against
+    the ring on ``use_kernels(False)``."""
+    from repro_torch.runtime.serve import RingPlan, RingServeStep, ring_params
+
+    args = serve.parse_args(RING_ARGS + ["--dtype", "f32", "--layers", "4",
+                                         "--new-tokens", "8"])
+    dev = torch.device("cuda")
+    cfg, params = serve.build_model(args)
+    _, cache, nxt, _ = serve.ring_prefill(params, cfg, args)
+    plan = RingPlan.make(cfg, 4, 1)
+    rp = ring_params(params, cfg, plan)
+    errs = {}
+    with substituted(ops, "shadow", errs):
+        kern = serve.greedy_steps(
+            RingServeStep(cfg, plan, rp, graphs=False, device=dev),
+            serve.to_ring_cache(cache, cfg, plan), nxt, 8, dev, keep=True)
+    ops.use_kernels(False)
+    try:
+        plain = serve.greedy_steps(
+            RingServeStep(cfg, plan, rp, graphs=False, device=dev),
+            serve.to_ring_cache(cache, cfg, plan), nxt, 8, dev, keep=True)
+    finally:
+        ops.use_kernels(True)
+    if sorted(errs) != ["flash_verify"] or errs["flash_verify"] > 2e-5:
+        raise AssertionError(f"ring parity: launches against their plain "
+                             f"versions {errs} (atol 2e-5, B5 only)")
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(kern["logits"], plain["logits"]))
+    equal = np.array_equal(kern["tokens"], plain["tokens"])
+    if worst >= LOGIT_REL or not equal:
+        raise AssertionError(f"ring parity: logits within {worst:.3g} "
+                             f"(bound {LOGIT_REL}), tokens equal {equal}")
+    log(f"  ring (M 4, k 1) at 4 layers, f32: every B5 launch within "
+        f"{errs['flash_verify']:.3g} of its plain version on the same "
+        f"inputs; logits within {worst:.3g} of max|ref| of the plain ring "
+        f"for 8 steps; tokens equal")
+    del params, cache, kern, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def report_ring() -> None:
+    """Phase 14's numbers beside the card."""
+    log(f"  on {card()}:")
+    for k in (1, 2):
+        r = RING[f"k{k}"]
+        log(f"    bf16 ring k={k}: step p50 graphed {r['graphed_ms']:.2f} ms,"
+            f" eager {r['eager_ms']:.2f} ms, verify T=5 "
+            f"{r['verify_ms']:.2f} ms; one-device step "
+            f"{RING['one_device_ms']:.2f} ms; splits {r['splits']}")
+    ev = RING["failover"]
+    log(f"    q4 ring k=2: resident {RING['q4_resident_ms']:.2f} ms, "
+        f"streamed {RING['q4_streamed_ms']:.2f} ms a step; peak "
+        f"{RING['peak'] / 1e9:.3f} of {RING['q4_bytes'] / 1e9:.3f} GB; stall"
+        f" {RING['stall']:.3f} s; a bank's staging {RING['bank_ms']:.2f} ms"
+        f" (H2D {RING['bank_h2d_ms']:.3f} ms device), a layer's H2D "
+        f"{RING['h2d_ms']:.3f} ms; recovery {ev.recovery_s:.3f} s at a "
+        f"history of {ev.replayed_tokens} tokens, "
+        f"{RING['replay_pass_s']:.3f} s a replayed token "
+        f"({RING['recovery_b_s']:.1f} s extrapolated to (b)'s history)")
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3536,6 +3969,14 @@ def main() -> int:
     serve_tiered_full(torch, ops, serve)
     report_tiers()
     log(f"  phase 13 done at {time.perf_counter() - t_start:.0f} s")
+
+    log("== phase 14: the piped ring, qwen2.5-14b at full width, 48 "
+        "layers: resident bf16, streamed q4, failover, parity")
+    ring_resident(torch, ops, serve)
+    ring_streamed(torch, ops, serve)
+    ring_parity(torch, ops, serve)
+    report_ring()
+    log(f"  phase 14 done at {time.perf_counter() - t_start:.0f} s")
 
     counts["q4_matmul"] = stream_counts["q4_matmul"]
     counts["flash_verify"] = spec_counts["flash_verify"]

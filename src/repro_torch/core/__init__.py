@@ -1,2 +1,4 @@
-"""Analytic models of the port (numpy only): so far the latency terms the
-tiered KV memory prices with (``latency``)."""
+"""Analytic models and the scheduler of the port (numpy only), copies of
+the JAX package's: device and model profiles (``profiles``), the latency
+model (``latency``), the Halda solver (``halda``), device-subset selection
+(``cluster``) and the piped-ring schedule (``ring``)."""

@@ -40,6 +40,27 @@ retried run's tokens equal the clean run's; ``--io-retries``,
 ``--io-backoff-ms`` and ``--io-deadline-s`` set the ``IOPolicy`` of every
 store read and tier copy.
 
+Ring (``--stages M``, M > 1; the port's default is 1, the JAX driver's
+4): the piped ring of M stages on the one device (``launch.mesh``). B
+prompts of ``--prompt-len`` tokens prefill on the one-device path, then
+``--new-tokens`` greedy steps decode through the resident ring
+(``runtime.serve.RingServeStep``, ``--ring-k`` rounds), beside the
+one-device decode of the same cache (a token mismatch exits nonzero;
+bf16 on the card allows near-tie splits only), printing the JAX
+driver's ``ring decode (k=…, w=…, M=…, TP=1): … ms/token/batch`` line;
+``--verify-tokens T`` also times a T-token verify pass through the ring
+against T single steps. Where ``ring_supported`` says no (the batch does
+not split over the stages), the driver says why and serves on one device
+as below. ``--tp`` takes 1 only (tensor parallelism inside a stage is
+ROADMAP Queue A item 8). With ``--stream-window W`` the weights go to a
+layer store (q4 with ``--store-quant q4``) and the streamed ring
+(``runtime.streaming.StreamingRingDriver``) decodes the same steps as the
+resident ring over the same weights: any token mismatch exits nonzero.
+``--chaos failover`` then kills a ring stage mid-decode through
+``runtime.failover.ElasticRingServer`` and exits nonzero unless recovery
+loses no token and the tokens after it equal a clean survivor-ring run
+fed the same history.
+
 Observability, as in the JAX driver: ``--trace OUT.json`` attaches a
 ``runtime.telemetry.Tracer`` to the served engine (and the prefetcher)
 and writes its Chrome trace (open it at https://ui.perfetto.dev) with the
@@ -57,7 +78,7 @@ import dataclasses
 import shutil
 import sys
 import tempfile
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,9 +96,13 @@ from ..runtime.kvcache import make_paged_engine
 from ..runtime.memory import MemoryBudget, TierManager
 from ..runtime.metrics import MetricsRegistry, validate_metrics_snapshot
 from ..runtime.paramstore import ParamStore, ResidentSource, save_param_store
-from ..runtime.serve import quantize_ring_params
-from ..runtime.streaming import StreamingParamSource, make_streaming_engine
-from ..runtime.telemetry import Tracer, clock, format_summary
+from ..runtime.serve import (RingPlan, RingServeStep, pad_and_permute,
+                             quantize_ring_params, ring_params,
+                             ring_supported)
+from ..runtime.streaming import (StreamingParamSource, StreamingRingDriver,
+                                 make_streaming_engine)
+from ..runtime.telemetry import Tracer, clock, format_summary, resolve_tracer
+from .mesh import make_ring_layout
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -121,13 +146,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="with --stream-window: also serve the same "
                          "requests with the same weights resident; exit "
                          "nonzero on any token mismatch")
-    ap.add_argument("--chaos", choices=("none", "transient"),
+    ap.add_argument("--stages", type=int, default=1,
+                    help="M>1: decode through the piped ring of M stages "
+                         "on the one device (the JAX driver's default is "
+                         "4)")
+    ap.add_argument("--ring-k", type=int, default=1,
+                    help="with --stages: rounds per token (windows a "
+                         "stage holds)")
+    ap.add_argument("--verify-tokens", type=int, default=0,
+                    help="with --stages, T>1: also time a T-token "
+                         "speculative verify pass through the ring against "
+                         "T single steps")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallelism inside a ring stage: 1 only "
+                         "(ROADMAP Queue A item 8)")
+    ap.add_argument("--chaos", choices=("none", "transient", "failover"),
                     default="none",
                     help="fault-injection smoke: 'transient' injects "
                          "retryable disk faults into the streamed "
                          "layer-wise decode and requires byte-identical "
-                         "recovery (exits nonzero on a failed recovery); "
-                         "needs --stream-window")
+                         "recovery; 'failover' kills a ring stage "
+                         "mid-decode and requires the elastic re-plan to "
+                         "resume with zero tokens lost (both exit nonzero "
+                         "on a failed recovery; both need --stream-window, "
+                         "failover also --stages)")
     ap.add_argument("--chaos-faults", type=int, default=3,
                     help="consecutive transient faults to inject "
                          "(capped at --io-retries: retries re-hit the "
@@ -197,8 +239,19 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--device-budget, --host-budget and --park-idle-s tier a "
                  "paged cache: they do not take --stream-window")
     if args.chaos != "none" and not args.stream_window:
-        ap.error("--chaos transient injects faults into the streamed "
-                 "layer reads: it needs --stream-window")
+        ap.error(f"--chaos {args.chaos} injects faults into the streamed "
+                 f"layer reads: it needs --stream-window")
+    ring = args.stages > 1
+    if args.chaos == "failover" and not ring:
+        ap.error("--chaos failover kills a ring stage: it needs --stages")
+    if not ring and (args.ring_k != 1 or args.verify_tokens):
+        ap.error("--ring-k and --verify-tokens need --stages")
+    if ring and (args.check_dense or args.prefill_chunk or tiered):
+        ap.error("--stages decodes through the ring over a dense cache: it "
+                 "takes neither --check-dense, --prefill-chunk nor the tier "
+                 "flags")
+    if args.stages < 1 or args.ring_k < 1:
+        ap.error("--stages and --ring-k must be >= 1")
     if args.device_budget < 0 or args.host_budget < 0:
         ap.error("budgets must be >= 0 MB")
     return args
@@ -635,11 +688,332 @@ def serve_chaos(sdir: str, cfg, reqs, args: argparse.Namespace,
     return {"fired": list(inj.fired), "stats": st}
 
 
+# --------------------------------------------------------------------------- #
+#  the piped ring (--stages)
+# --------------------------------------------------------------------------- #
+
+def ring_prompts(cfg, args: argparse.Namespace) -> torch.Tensor:
+    """``--batch`` prompts of ``--prompt-len`` tokens (seed 7): the ring
+    decodes one batch of equal-length prompts, as the JAX driver's does."""
+    gen = RequestGenerator(cfg.vocab, seed=7,
+                           prompt_len=(args.prompt_len, args.prompt_len + 1),
+                           max_new=args.new_tokens)
+    return torch.tensor(np.stack([r.prompt for r in gen.generate(args.batch)]),
+                        dtype=torch.int32, device=args.device)
+
+
+def clone_cache(cache: Dict) -> Dict:
+    return {"len": cache["len"].clone(),
+            "layers": {n: a.clone() for n, a in cache["layers"].items()}}
+
+
+def to_ring_cache(cache: Dict, cfg, plan) -> Dict:
+    """A prefilled one-device cache, copied into ring order."""
+    return {"len": cache["len"].clone(),
+            "layers": pad_and_permute(cache["layers"], cfg, plan.n_stages,
+                                      plan.k)}
+
+
+def greedy_steps(step, cache: Dict, tok: torch.Tensor, n: int, device, *,
+                 tracer=None, metrics=None, keep: bool = False) -> Dict:
+    """``n`` greedy steps of ``step(cache, tokens) -> (logits, cache)`` from
+    ``tok`` (B, T), each timed between device syncs (a ``token_step``
+    whose ``compute`` phase holds the step and its sync, with a tracer).
+    Returns the tokens (B, n, T) as numpy, the step seconds, the cache
+    and, with ``keep``, every step's logits."""
+    tracer = resolve_tracer(tracer)
+    toks, secs, kept = [], [], []
+    for t in range(n):
+        _sync(device)
+        t0 = clock()
+        with tracer.token_step(t, track="decode"):
+            with tracer.phase("compute"):
+                logits, cache = step(cache, tok)
+                tok = logits.argmax(-1).to(torch.int32)
+                _sync(device)
+        secs.append(clock() - t0)
+        if metrics is not None:
+            metrics.observe("decode/step_s", secs[-1])
+            metrics.inc("tokens/generated", tok.numel())
+        toks.append(tok.cpu().numpy())
+        if keep:
+            kept.append(logits.float().clone())
+        tok = tok[:, -1:].expand(-1, tok.shape[1]).contiguous()
+    return {"tokens": np.stack(toks, 1), "step_s": secs, "cache": cache,
+            "logits": kept}
+
+
+def one_device_decode(weights, cfg, device) -> Callable:
+    """The one-device decode step over ``weights`` (a ``DenseModel``, or a
+    stacked tree read layer-wise, q4 included), replayed from CUDA graphs
+    on the card."""
+    from ..models import model as M
+    from ..runtime.engine import (GraphedDecode, StepGraphs, dense_decode,
+                                  dense_scrub)
+
+    graphs = device.type == "cuda"
+    if not isinstance(weights, dict):
+        return dense_decode(weights, cfg, graphs=graphs, device=device)
+    src = ResidentSource(weights)
+
+    def fn(cache, tokens):
+        return M.decode_step_layerwise(src, cfg, cache, tokens)
+    if not graphs:
+        return fn
+    return GraphedDecode(fn, StepGraphs(device), dense_scrub)
+
+
+def ring_prefill(weights, cfg, args: argparse.Namespace):
+    """Prefill the ring prompts on the one-device path over ``weights``;
+    returns (prompts, the prefilled one-device cache, the first tokens
+    (B, 1), the prefill's seconds)."""
+    from ..models import model as M
+
+    device = torch.device(args.device)
+    prompts = ring_prompts(cfg, args)
+    cache = init_cache(cfg, args.batch, args.ctx, dtype=DTYPES[args.dtype],
+                       device=device)
+    _sync(device)
+    t0 = clock()
+    if isinstance(weights, dict):
+        logits, cache = M.prefill_layerwise(ResidentSource(weights), cfg,
+                                            prompts, cache)
+    else:
+        logits, cache = M.prefill(weights, cfg, prompts, cache)
+    nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+    _sync(device)
+    return prompts, cache, nxt, clock() - t0
+
+
+def ring_splits(ring: Dict, one: Dict) -> List[Tuple[int, int, float,
+                                                      float]]:
+    """Each batch row's first step where the ring's greedy token differs
+    from the one-device decode's (``greedy_steps`` runs with ``keep``):
+    (row, step, the one-device logits' gap between the two tokens there,
+    the two runs' max logit difference there), both over the one-device
+    logits' max|.|. The contexts are equal up to that step."""
+    a, b = ring["tokens"][:, :, -1], one["tokens"][:, :, -1]
+    splits = []
+    for row in range(a.shape[0]):
+        diff = np.flatnonzero(a[row] != b[row])
+        if diff.size:
+            n = int(diff[0])
+            la, lb = ring["logits"][n][row, -1], one["logits"][n][row, -1]
+            top = float(lb.abs().max())
+            splits.append((row, n, float(lb[b[row, n]] - lb[a[row, n]]) / top,
+                           float((la - lb).abs().max()) / top))
+    return splits
+
+
+def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
+               metrics=None) -> Dict:
+    """``--stages M``: prefill on the one-device path, decode
+    ``--new-tokens`` steps through the resident ring and through the
+    one-device step from the same cache, and exit nonzero unless their
+    tokens are equal (bf16 on the card: unless each row splits only where
+    the top-2 gap is under twice the logit difference); with
+    ``--verify-tokens T`` time a T-token verify pass against T single
+    steps. ``weights``: the ``DenseModel``, or a stacked tree (the
+    store's, q4 included). Returns what was measured."""
+    device = torch.device(args.device)
+    card = device.type == "cuda"
+    B, Mst = args.batch, args.stages
+    prompts, cache, nxt, ttft = ring_prefill(weights, cfg, args)
+    print(f"prefill: {B}x{prompts.shape[1]} tokens in {ttft * 1e3:.0f} ms")
+    if metrics is not None:
+        metrics.observe("request/ttft_s", ttft)
+    plan = RingPlan.make(cfg, Mst, k=args.ring_k)
+    rparams = ring_params(weights, cfg, plan)
+    step = RingServeStep(cfg, plan, rparams, graphs=card, device=device)
+    rcache = to_ring_cache(cache, cfg, plan)
+    # bf16 on the card: the ring multiplies microbatches of B/M rows where
+    # the one-device step multiplies B, so the sums may run in another
+    # order and the streams may split, but only at a near tie
+    near_ties = card and args.dtype != "f32"
+    ring = greedy_steps(step, rcache, nxt, args.new_tokens, device,
+                        tracer=tracer, metrics=metrics, keep=near_ties)
+    per_tok = float(np.median(ring["step_s"]))
+    print(f"ring decode (k={plan.k}, w={plan.w}, M={Mst}, TP={args.tp}): "
+          f"{args.new_tokens} tokens x {B} seqs in "
+          f"{sum(ring['step_s']):.2f}s -> {per_tok * 1e3:.1f} ms/token/batch"
+          f" (median step{', replayed from CUDA graphs' if card else ''})")
+    one = greedy_steps(one_device_decode(weights, cfg, device), cache, nxt,
+                       args.new_tokens, device, keep=near_ties)
+    equal = bool(np.array_equal(ring["tokens"], one["tokens"]))
+    print(f"  one-device decode: {float(np.median(one['step_s'])) * 1e3:.1f}"
+          f" ms/token/batch; ring tokens equal to it: {equal}")
+    if not equal:
+        splits = ring_splits(ring, one) if near_ties else []
+        if not splits or any(gap > 2 * d for _, _, gap, d in splits):
+            raise SystemExit(f"ring vs one-device decode parity FAILED "
+                             f"(splits (row, step, top-2 gap, logit "
+                             f"difference): {splits or 'f32: none allowed'})")
+        print(f"  near-tie splits (row, step, top-2 gap, logit difference,"
+              f" over max|logit|): {splits}")
+    out = {"plan": plan, "tokens": ring["tokens"], "step_s": ring["step_s"],
+           "one_device_tokens": one["tokens"], "tokens_equal": equal,
+           "one_device_step_s": one["step_s"], "prefill_s": ttft,
+           "verify_ms": None}
+    T = args.verify_tokens
+    if T > 1 and cfg.family == "ssm":
+        print("verify pass skipped: the ssm state cannot roll back")
+    elif T > 1:
+        vstep = RingServeStep(cfg, plan, rparams, n_tokens=T, graphs=card,
+                              device=device)
+        vc = ring["cache"]
+        ln0 = vc["len"].clone()
+        vt = torch.tensor(ring["tokens"][:, -1], device=device).expand(
+            -1, T).contiguous()
+        times = []
+        for _ in range(4):                  # the first captures / warms
+            vc["len"].copy_(ln0)
+            _sync(device)
+            t0 = clock()
+            _, vc = vstep(vc, vt)
+            _sync(device)
+            times.append(clock() - t0)
+        vc["len"].copy_(ln0)
+        dtv = float(np.median(times[1:]))
+        print(f"verify pass (T={T}): {dtv * 1e3:.1f} ms vs {T}x"
+              f"{per_tok * 1e3:.1f} ms single steps -> amortization "
+              f"{T * per_tok / dtv:.2f}x")
+        out["verify_ms"] = dtv * 1e3
+    return out
+
+
+def serve_ring_streamed(params, cfg, args: argparse.Namespace, *,
+                        tracer=None, metrics=None) -> Dict:
+    """``--stages M --stream-window W``: write the layer store (q4 with
+    ``--store-quant q4``), run the resident ring over the stored weights
+    (``serve_ring``), then the streamed ring over the store
+    (``StreamingRingDriver``, banks ``max(1, W // w)`` steps ahead) from
+    the same prefill, and exit nonzero on any token mismatch; with
+    ``--chaos failover`` also ``serve_failover`` on the store."""
+    device = torch.device(args.device)
+    W = args.stream_window
+    tree, raw = store_tree(params, cfg, args)
+    sdir = tempfile.mkdtemp(prefix="paramstore_")
+    try:
+        save_param_store(tree, cfg, sdir)
+        res = serve_ring(tree, cfg, args, metrics=metrics)
+        plan = res["plan"]
+        _, cache, nxt, _ = ring_prefill(tree, cfg, args)
+        store = ParamStore(sdir)
+        total = store.layer_nbytes * cfg.n_layers
+        drv = StreamingRingDriver(cfg, plan, store,
+                                  prefetch_depth=max(1, W // plan.w),
+                                  device=device, policy=io_policy(args),
+                                  tracer=tracer)
+        try:
+            run = greedy_steps(drv.step, to_ring_cache(cache, cfg, plan), nxt,
+                               args.new_tokens, device)
+        finally:
+            drv.close()
+            store.close()
+        st = drv.stats()
+        if not np.array_equal(run["tokens"], res["tokens"]):
+            raise SystemExit("streamed ring vs resident ring parity FAILED")
+        print(f"streamed ring decode (k={plan.k}, w={plan.w}, "
+              f"M={args.stages}, {max(1, W // plan.w)} banks ahead): "
+              f"{float(np.median(run['step_s'])) * 1e3:.1f} ms/token/batch; "
+              f"peak staged {st.peak_resident_bytes / 1e6:.3f} MB of "
+              f"{total / 1e6:.3f} MB in the store; stall "
+              f"{st.stall_s * 1e3:.1f} ms; tokens equal to the resident "
+              f"ring's")
+        res.update(streamed_tokens=run["tokens"],
+                   streamed_step_s=run["step_s"], stream_stats=st,
+                   store_bytes=total)
+        if args.chaos == "failover":
+            res["failover"] = serve_failover(sdir, cfg, args, tracer=tracer)
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    return res
+
+
+def serve_failover(sdir: str, cfg, args: argparse.Namespace, *,
+                   stage: int = 1, tracer=None, device_profiles=None,
+                   model_profile=None) -> Dict:
+    """``--chaos failover``: serve the ring prompts through
+    ``ElasticRingServer`` over the store at ``sdir`` while a fault kills
+    ring stage ``stage`` at the first layer read of the pass of the third
+    token (every pass reads each layer once), and exit nonzero unless the
+    failure was recovered with zero tokens lost and the tokens after it
+    equal a clean run on the survivor ring fed the same history (the JAX
+    driver's ``_chaos_smoke``). Returns the event, the streams and the
+    fired faults. ``device_profiles``/``model_profile``: re-plan the
+    survivors through Halda (``ElasticRingServer``'s)."""
+    from ..runtime.failover import ElasticRingServer
+
+    prompts = ring_prompts(cfg, args).cpu().numpy()
+    S, n_new = prompts.shape[1], args.new_tokens
+    if n_new < 3:
+        raise SystemExit("--chaos failover kills a stage at the third "
+                         "token: it needs --new-tokens >= 3")
+    kw = dict(batch=args.batch, ctx=args.ctx, tp=args.tp,
+              policy=io_policy(args), device=args.device,
+              cache_dtype=DTYPES[args.dtype])
+    inj = FaultInjector([FaultSpec(op="layer_read", mode="stage_failure",
+                                   stage=stage,
+                                   after=cfg.n_layers * (S + 1), times=1)],
+                        tracer=tracer)
+    store = FaultyStore(ParamStore(sdir), inj)
+    srv = ElasticRingServer(cfg, store, n_stages=args.stages,
+                            k=args.ring_k, tracer=tracer,
+                            device_profiles=device_profiles,
+                            model_profile=model_profile, **kw)
+    try:
+        toks = srv.generate(prompts, n_new)
+    finally:
+        srv.close()
+        store.close()
+    if not srv.events:
+        raise SystemExit("chaos failover: the injected stage death never "
+                         "surfaced")
+    ev = srv.events[0]
+    if ev.tokens_lost or toks.shape[1] != n_new:
+        raise SystemExit(f"chaos failover: lost {ev.tokens_lost} tokens")
+    i = ev.token_index
+    clean = ParamStore(sdir)
+    ref_srv = ElasticRingServer(cfg, clean, n_stages=ev.plan["n_stages"],
+                                k=ev.plan["k"], **kw)
+    try:
+        ref = ref_srv.generate(np.concatenate([prompts, toks[:, :i]], 1),
+                               n_new - i)
+    finally:
+        ref_srv.close()
+        clean.close()
+    if not np.array_equal(toks[:, i:], ref):
+        raise SystemExit("chaos failover: tokens after recovery differ from "
+                         "a clean survivor-ring run fed the same history")
+    print(f"chaos failover: stage {ev.failed_stage} died at token {i}; ring "
+          f"{ev.n_stages_before}->{ev.n_stages_after} stages (k "
+          f"{ev.plan['k']}, w {ev.plan['w']}), replayed "
+          f"{ev.replayed_tokens} tokens, recovered in "
+          f"{ev.recovery_s:.3f}s (detect {ev.detect_s * 1e3:.1f} ms, "
+          f"re-solve {ev.resolve_s * 1e3:.1f} ms, rebuild "
+          f"{ev.rebuild_s:.3f}s, replay {ev.replay_s:.3f}s), 0 tokens lost; "
+          f"tokens after recovery equal a clean survivor-ring run")
+    return {"event": ev, "tokens": toks, "reference": ref,
+            "fired": list(inj.fired)}
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
+    make_ring_layout(args.stages, args.tp, args.device)
     cfg, params = build_model(args)
-    reqs = make_requests(cfg, args)
     tracer, metrics = instruments(args)
+    if args.stages > 1:
+        if ring_supported(cfg, args.batch, args.stages):
+            serve = serve_ring_streamed if args.stream_window \
+                else serve_ring
+            res = {"ring": serve(params, cfg, args, tracer=tracer,
+                                 metrics=metrics)}
+            export_instruments(tracer, metrics, args)
+            return res
+        print(f"{cfg.name}: ring unsupported for B={args.batch}, "
+              f"M={args.stages} (family {cfg.family}; the batch must split "
+              f"over the stages) -- decoding on one device")
+    reqs = make_requests(cfg, args)
     if args.stream_window:
         res = serve_streamed(params, cfg, reqs, args, tracer=tracer,
                              metrics=metrics)
@@ -674,6 +1048,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         res["tiered"] = serve_tiered(
             params, cfg, reqs, args,
             {f.uid: f.tokens for f in res["finished"]})
+    res["ring"] = None
     return res
 
 

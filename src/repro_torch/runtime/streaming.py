@@ -34,8 +34,10 @@ counter. The ``h2d`` span times the *enqueue* of a ``non_blocking`` copy
 on the side stream, not the copy: the copy's own time is a device time,
 which ``chip_smoke.py`` measures with CUDA events around ``_to_card``.
 
-``RingBankPrefetcher`` and ``StreamingRingDriver`` (the streamed SPMD
-ring) are not ported yet (ROADMAP Queue A item 7).
+``RingBankPrefetcher`` and ``StreamingRingDriver`` stream the piped ring
+(``runtime.serve``) the same way: a worker stages each microstep's
+window bank one step ahead of the compute front and releases a layer
+after its last use in the pass.
 """
 from __future__ import annotations
 
@@ -104,7 +106,73 @@ class PrefetchStats:
         return float(np.median(durs)) if durs else 0.0
 
 
-class LayerPrefetcher:
+class _Staging:
+    """The staging half shared by the prefetchers: a ring of
+    ``_n_buffers`` staging buffers of ``layer_nbytes`` (pinned on the
+    card, allocated at the first read), one memcpy of a layer out of the
+    mmap into a free one (``_stage``), and its host-to-device copy on the
+    side stream (``_to_card``), after which the buffer goes back to the
+    ring with the copy's event. Subclasses set ``store``, ``on_card``,
+    ``device``, ``_side``, ``_cv``, ``_free``, ``_ring_made``, ``_stop``
+    and ``_n_buffers``."""
+
+    def _reopen(self, i: int) -> None:
+        reopen = getattr(self.store, "reopen", None)
+        if reopen is not None:
+            reopen(i)
+
+    def _take_buffer(self) -> torch.Tensor:
+        """A free staging buffer; once its last copy to the card is done."""
+        with self._cv:
+            if not self._ring_made:
+                n = self.store.layer_nbytes
+                for _ in range(self._n_buffers):
+                    self._free.append((torch.empty(
+                        n, dtype=torch.uint8, pin_memory=self.on_card),
+                        None))
+                self._ring_made = True
+            while not self._free:
+                if self._stop:
+                    raise RuntimeError("prefetcher stopped")
+                self._cv.wait(0.25)
+            buf, event = self._free.popleft()
+        if event is not None:
+            event.synchronize()
+        return buf
+
+    def _give_back(self, buf: torch.Tensor, event=None) -> None:
+        with self._cv:
+            self._free.append((buf, event))
+            self._cv.notify_all()
+
+    def _stage(self, i: int) -> Tuple[torch.Tensor, float, float]:
+        """Copy layer i out of the mmap into a staging buffer (one
+        memcpy); returns (the buffer, t_start, t_end)."""
+        self.store.willneed(i)
+        t0 = clock()
+        src = self.store.layer_bytes(i)
+        buf = self._take_buffer()
+        try:
+            buf[:src.numel()].copy_(src)
+        except BaseException:
+            self._give_back(buf)
+            raise
+        return buf, t0, clock()          # event = disk -> staging only
+
+    def _to_card(self, buf: torch.Tensor, nbytes: int):
+        """Host-to-device copy of a staged layer on the side stream; the
+        staging buffer goes back to the ring with the copy's event."""
+        with torch.cuda.stream(self._side):
+            dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            dev.copy_(buf[:nbytes], non_blocking=True)
+            tree = self.store.leaves(dev)    # unaligned leaves copy here
+            event = torch.cuda.Event()
+            event.record(self._side)
+        self._give_back(buf, event)
+        return tree, event
+
+
+class LayerPrefetcher(_Staging):
     """Keep a cyclic window of ``window`` layers staged ahead of the front.
 
     ``get(i)`` blocks until layer ``i`` is staged, schedules reads through
@@ -145,6 +213,9 @@ class LayerPrefetcher:
         # its free buffers, each with the event of the last copy out of it
         self._free: deque = deque()
         self._ring_made = False
+        # window + 1 buffers: the in-window layers plus, at most, one read
+        # that was in flight when the front moved past it
+        self._n_buffers = self.window + 1
         # layer -> (tree, nbytes, tier at rest, host buffer | copy event)
         self._buf: Dict[int, Tuple[Params, int, str, Any]] = {}
         self._queue: deque = deque()
@@ -163,63 +234,6 @@ class LayerPrefetcher:
         self._thread.start()
 
     # -- worker ------------------------------------------------------------ #
-
-    def _reopen(self, i: int) -> None:
-        reopen = getattr(self.store, "reopen", None)
-        if reopen is not None:
-            reopen(i)
-
-    def _take_buffer(self) -> torch.Tensor:
-        """A free staging buffer; once its last copy to the card is done."""
-        with self._cv:
-            if not self._ring_made:
-                n = self.store.layer_nbytes
-                for _ in range(self.window + 1):
-                    self._free.append((torch.empty(
-                        n, dtype=torch.uint8, pin_memory=self.on_card),
-                        None))
-                self._ring_made = True
-            # window + 1 buffers: the in-window layers plus, at most, one
-            # read that was in flight when the front moved past it
-            while not self._free:
-                if self._stop:
-                    raise RuntimeError("prefetcher stopped")
-                self._cv.wait(0.25)
-            buf, event = self._free.popleft()
-        if event is not None:
-            event.synchronize()
-        return buf
-
-    def _give_back(self, buf: torch.Tensor, event=None) -> None:
-        with self._cv:
-            self._free.append((buf, event))
-            self._cv.notify_all()
-
-    def _stage(self, i: int) -> Tuple[torch.Tensor, float, float]:
-        """Copy layer i out of the mmap into a staging buffer (one
-        memcpy); returns (the buffer, t_start, t_end)."""
-        self.store.willneed(i)
-        t0 = clock()
-        src = self.store.layer_bytes(i)
-        buf = self._take_buffer()
-        try:
-            buf[:src.numel()].copy_(src)
-        except BaseException:
-            self._give_back(buf)
-            raise
-        return buf, t0, clock()          # event = disk -> staging only
-
-    def _to_card(self, buf: torch.Tensor, nbytes: int):
-        """Host-to-device copy of a staged layer on the side stream; the
-        staging buffer goes back to the ring with the copy's event."""
-        with torch.cuda.stream(self._side):
-            dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
-            dev.copy_(buf[:nbytes], non_blocking=True)
-            tree = self.store.leaves(dev)    # unaligned leaves copy here
-            event = torch.cuda.Event()
-            event.record(self._side)
-        self._give_back(buf, event)
-        return tree, event
 
     def _fail(self, i: int, e: BaseException) -> None:
         with self._cv:
@@ -507,3 +521,397 @@ def make_streaming_engine(source: ParamSource, cfg, batch: int, ctx: int,
                              eos_id=eos_id, spec=spec, source=source,
                              ctx=ctx, tracer=tracer, metrics=metrics,
                              device=device, graphs=sg)
+
+
+# --------------------------------------------------------------------------- #
+#  the streamed piped ring
+# --------------------------------------------------------------------------- #
+
+class RingBankPrefetcher(_Staging):
+    """Stage each microstep's window bank for the streamed ring.
+
+    The ring schedule needs, at microstep ``t``, a bank whose stage-``m``
+    rows hold that stage's round-``r_m(t)`` window
+    (``serve.ring_bank_layers``: M*w rows). A worker thread assembles
+    the banks of a pass in order, at most ``depth`` steps ahead of the
+    compute front: each layer a bank needs is read once a pass (one
+    memcpy out of the mmap into a pinned staging buffer, then its
+    host-to-device copy on a side stream, as ``LayerPrefetcher`` stages),
+    shared by every later bank of the pass that holds it, and released
+    after its last use in the pass (``done``), behind the front. A bank
+    is the list of its rows' layer trees, views of the staged device
+    buffers: the JAX package stacks a bank into one array for its sharded
+    ``device_put``, which on one card would move the same bytes again
+    every step. Rows past the model's layers (ring padding) share one
+    zero layer, made once and kept.
+
+    ``get(t)`` makes the compute stream wait on the bank's copies. Staged
+    bytes lease from ``memory`` (host while staging, device once on the
+    card); ``stats()`` gives ``PrefetchStats``; reads go through
+    ``policy`` with ``health``; with a tracer, ``layer_read[i]`` and
+    ``bank[t]`` (the worker's time to stage the bank) spans land on the
+    ``ring-prefetcher`` track and blocked ``get`` calls on ``decode``.
+    On the CPU staged layers stay on the host (private copies).
+    """
+
+    def __init__(self, store: ParamStore, cfg, plan, *, depth: int = 2,
+                 device="cuda", policy: Optional[IOPolicy] = None,
+                 tracer=None, memory: Optional[TierManager] = None,
+                 owner: str = "weights"):
+        from .serve import ring_bank_layers
+
+        self.store = store
+        self.plan = plan
+        self.depth = max(depth, 1)
+        self.device = torch.device(device)
+        self.on_card = self.device.type == "cuda"
+        if self.on_card and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.policy = policy or IOPolicy()
+        self.tracer = resolve_tracer(tracer)
+        self.memory = memory if memory is not None \
+            else TierManager(name="ring-prefetch-memory")
+        self.owner = owner
+        self.health = WorkerHealth(name="RingBankPrefetcher")
+        self._side = torch.cuda.Stream(self.device) if self.on_card else None
+        self._free: deque = deque()
+        self._ring_made = False
+        self._n_buffers = 2          # one being filled, one being copied
+        self.n_steps = plan.n_steps
+        self._rows = [ring_bank_layers(plan, t) for t in range(self.n_steps)]
+        self.n_layers = cfg.n_layers
+        last: Dict[int, int] = {}
+        for t, rows in enumerate(self._rows):
+            for layer in rows:
+                if layer < self.n_layers:
+                    last[int(layer)] = t
+        self._last_use = last
+        self._zero: Optional[Params] = None   # padding rows' layer
+        self._zero_bytes = 0
+        # layer -> (tree, nbytes, tier, copy event or None)
+        self._staged: Dict[int, Tuple[Params, int, str, Any]] = {}
+        self._banks: Dict[int, List[Tuple[Params, Any]]] = {}
+        self._cv = threading.Condition()
+        self._stop = False
+        self._interrupted = False
+        self._error: Optional[BaseException] = None
+        self._want: deque = deque()
+        self._front = -1                  # last consumed step
+        self._resident = 0
+        self._peak = 0
+        self._read = 0
+        self._stall = 0.0
+        self._served = 0
+        self._events: List[PrefetchEvent] = []
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    # -- staging ----------------------------------------------------------- #
+
+    def _hold(self, nbytes: int) -> None:
+        with self._cv:
+            self._resident += nbytes
+            self._peak = max(self._peak, self._resident)
+
+    def _zero_layer(self) -> Params:
+        if self._zero is None:
+            n = self.store.layer_nbytes
+            tier = "device" if self.on_card else "host"
+            self.memory.lease(tier, n, self.owner, wait=True,
+                              timeout=self.policy.op_deadline_s,
+                              cancelled=lambda: self._stop)
+            buf = torch.zeros(n, dtype=torch.uint8,
+                              device=self.device if self.on_card else "cpu")
+            self._zero = self.store.leaves(buf)
+            self._zero_bytes = n
+            self._hold(n)
+        return self._zero
+
+    def _layer(self, layer: int) -> Tuple[Params, Any]:
+        """Layer ``layer``'s staged tree and copy event (None on the
+        host): staged now unless this pass staged it already."""
+        if layer >= self.n_layers:
+            return self._zero_layer(), None
+        ent = self._staged.get(layer)
+        if ent is not None:
+            return ent[0], ent[3]
+        est = self.store.layer_nbytes
+        self.memory.lease("host", est, self.owner, wait=True,
+                          timeout=self.policy.op_deadline_s,
+                          cancelled=lambda: self._stop)
+        try:
+            buf, t0, t1 = self.policy.run(
+                f"layer_read[{layer}]", lambda: self._stage(layer),
+                reopen=lambda: self._reopen(layer), health=self.health)
+        except BaseException:
+            self.memory.release("host", est, self.owner)
+            raise
+        nbytes = est
+        if self.on_card:
+            try:
+                self.memory.lease("device", nbytes, self.owner, wait=True,
+                                  timeout=self.policy.op_deadline_s,
+                                  cancelled=lambda: self._stop)
+            except BaseException:
+                self._give_back(buf)
+                self.memory.release("host", est, self.owner)
+                raise
+            tree, event = self._to_card(buf, nbytes)
+            self.memory.release("host", est, self.owner)
+            tier = "device"
+        else:
+            tree, event = self.store.leaves(buf[:nbytes].clone()), None
+            self._give_back(buf)
+            tier = "host"
+        self.tracer.span_event(f"layer_read[{layer}]", t0, t1,
+                               cat="prefetch", track="ring-prefetcher",
+                               nbytes=nbytes)
+        with self._cv:     # bookkeeping races with done()'s releases
+            self._staged[layer] = (tree, nbytes, tier, event)
+            self._read += nbytes
+            self._events.append(PrefetchEvent(layer, t0, t1, nbytes))
+        self._hold(nbytes)
+        return tree, event
+
+    def _build_bank(self, t: int) -> List[Tuple[Params, Any]]:
+        with self.tracer.span(f"bank[{t}]", cat="prefetch",
+                              track="ring-prefetcher"):
+            return [self._layer(int(i)) for i in self._rows[t]]
+
+    def _worker(self) -> None:
+        if self.on_card:
+            torch.cuda.set_device(self.device)
+        while True:
+            with self._cv:
+                # never more than ``depth`` banks past the front: what
+                # bounds the staged bytes by the windows, not the model
+                while not self._stop and (
+                        not self._want
+                        or self._want[0] > self._front + self.depth):
+                    self._cv.wait()
+                if self._stop:
+                    return
+                t = self._want.popleft()
+            try:
+                bank = self._build_bank(t)
+            except (KeyboardInterrupt, SystemExit):
+                with self._cv:
+                    self._stop = True
+                    self._interrupted = True
+                    self._cv.notify_all()
+                raise
+            except BaseException as e:   # surface in get(), don't deadlock
+                with self._cv:
+                    self._error = e
+                    self._cv.notify_all()
+                return
+            with self._cv:
+                self._banks[t] = bank
+                self._cv.notify_all()
+
+    # -- front side -------------------------------------------------------- #
+
+    def begin_pass(self) -> None:
+        """Enqueue the pass's microsteps (banks build ``depth`` ahead)."""
+        with self._cv:
+            if self._error is not None:
+                raise RuntimeError(f"bank staging failed "
+                                   f"({self.health.report()})") \
+                    from self._error
+            self._banks.clear()
+            self._front = -1
+            self._want.clear()
+            self._want.extend(range(self.n_steps))
+            self._cv.notify_all()
+
+    def _drop_locked(self, layer: int) -> None:
+        _, nbytes, tier, _ = self._staged.pop(layer)
+        self._resident -= nbytes
+        self.memory.release(tier, nbytes, self.owner)
+        self.store.release(layer)
+
+    def get(self, t: int, *, timeout: Optional[float] = None) -> List[Params]:
+        """Block until step ``t``'s bank is staged (at most ``timeout``
+        seconds, default the policy's ``get_timeout_s``); returns its M*w
+        layer trees in bank-row order. On the card the current stream
+        waits for their copies."""
+        if timeout is None:
+            timeout = self.policy.get_timeout_s
+        deadline = clock() + timeout
+        with self._cv:
+            t0 = clock()
+            with self.tracer.phase("disk_wait", cat="prefetch",
+                                   track="decode", min_dur=2e-4,
+                                   label=f"bank_wait[{t}]"):
+                while t not in self._banks:
+                    if self._error is not None:
+                        raise RuntimeError(
+                            f"bank staging for step {t} failed "
+                            f"({self.health.report()})") from self._error
+                    if self._stop:
+                        raise RuntimeError(
+                            "bank prefetcher stopped" + (
+                                " (worker interrupted)"
+                                if self._interrupted else ""))
+                    remaining = deadline - clock()
+                    if remaining <= 0:
+                        self.health.stalled = True
+                        raise StallTimeout(
+                            f"bank for step {t} not staged within "
+                            f"{timeout:.1f}s ({self.health.report()})",
+                            op=f"bank_build[{t}]")
+                    self._cv.wait(min(remaining, 0.25))
+            self._stall += clock() - t0
+            self._served += 1
+            bank = self._banks[t]
+        if self.on_card:
+            stream = torch.cuda.current_stream(self.device)
+            for tree, event in bank:
+                if event is not None:
+                    stream.wait_event(event)
+                for x in tree_tensors(tree):
+                    x.record_stream(stream)
+        return [tree for tree, _ in bank]
+
+    def done(self, t: int) -> None:
+        """Step ``t`` consumed: drop its bank and release the layers whose
+        last use in the pass was step ``t``."""
+        with self._cv:
+            self._banks.pop(t, None)
+            self._front = max(self._front, t)
+            for layer, last in self._last_use.items():
+                if last == t and layer in self._staged:
+                    self._drop_locked(layer)
+            self._cv.notify_all()
+
+    def stats(self) -> PrefetchStats:
+        with self._cv:
+            return PrefetchStats(
+                events=list(self._events), peak_resident_bytes=self._peak,
+                total_bytes_read=self._read, stall_s=self._stall,
+                layers_served=len(self._events),
+                releases=self.store.released,
+                retries=self.health.retries,
+                released_bytes=getattr(self.store, "released_bytes", 0),
+                budget_refusals=sum(
+                    s.refusals for s in self.memory.stats().values()))
+
+    def close(self, timeout: float = 5.0) -> bool:
+        """Stop the worker (idempotent) and hand every lease back; True
+        once it has joined."""
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout=timeout)
+        if self._thread.is_alive():
+            self.health.stalled = True
+            log.error("RingBankPrefetcher.close: worker failed to join "
+                      "within %.1fs — %s", timeout, self.health.report())
+            return False
+        with self._cv:
+            self._banks.clear()
+            for layer in list(self._staged):
+                self._drop_locked(layer)
+            if self._zero is not None:
+                self.memory.release("device" if self.on_card else "host",
+                                    self._zero_bytes, self.owner)
+                self._resident -= self._zero_bytes
+                self._zero = None
+        self.health.closed = True
+        return True
+
+
+class StreamingRingDriver:
+    """The piped ring whose window banks stream from a layer store.
+
+    Where ``serve.RingServeStep`` runs over the whole ring-ordered bank
+    resident, this driver holds only the banks of the microsteps around
+    the compute front: it runs the ``k*M + M - 1`` microsteps of a pass
+    itself, over banks staged by ``RingBankPrefetcher`` — the disk read
+    and host-to-device copy of step t+1's bank overlap the compute of
+    step t, and layers behind the front are released. The KV cache stays
+    on the device (``serve.init_ring_cache``'s layout). The head (embed,
+    final norm, unembed) is ``head`` (on ``device``), else it loads once
+    from ``store.head()``.
+    ``step(cache, tokens (B, T)) -> (logits, cache)`` as the resident
+    step (eager: its weights come in rotating buffers), T =
+    ``n_tokens``; with a tracer each pass is one ``ring_token[i]`` step
+    on ``decode`` whose embed, microsteps and head are phases on the
+    ``ring`` track. The counterpart of the JAX package's
+    ``StreamingRingDriver`` over ``build_ring_stream_step``.
+    """
+
+    def __init__(self, cfg, plan, store: ParamStore, *, n_tokens: int = 1,
+                 prefetch_depth: int = 2, device="cuda",
+                 policy: Optional[IOPolicy] = None, tracer=None,
+                 memory: Optional[TierManager] = None,
+                 head: Optional[Params] = None):
+        from ..bridge import block_from_tree
+        from .serve import _prep_ring_layer, pad_vocab
+
+        if n_tokens > 1 and cfg.family == "ssm":
+            raise ValueError("speculative verify needs a rollbackable KV "
+                             "cache")
+        self.cfg, self.plan, self.n_tokens = cfg, plan, n_tokens
+        self.tracer = resolve_tracer(tracer)
+        self.device = torch.device(device)
+        if head is None:
+            head = map_tree(lambda t: t.to(self.device),
+                            pad_vocab(store.head(), cfg, 1))
+        self.head = head
+        self.prefetch = RingBankPrefetcher(store, cfg, plan,
+                                           depth=prefetch_depth,
+                                           device=device, policy=policy,
+                                           tracer=tracer, memory=memory)
+        self.n_steps = self.prefetch.n_steps
+        self._block = lambda tree: block_from_tree(_prep_ring_layer(tree))
+        self._token_idx = 0
+
+    def step(self, cache: Dict, tokens: torch.Tensor):
+        """One pass (every layer streamed once): (logits, cache)."""
+        from .serve import check_ring_cache
+
+        if tokens.shape[1] != self.n_tokens:
+            raise ValueError(f"a {self.n_tokens}-token ring step got "
+                             f"{tokens.shape[1]} tokens a sequence")
+        check_ring_cache(self.cfg, self.plan, cache)
+        with self.tracer.token_step(self._token_idx, track="decode",
+                                    name=f"ring_token[{self._token_idx}]"):
+            self._token_idx += 1
+            return self._pass(cache, tokens)
+
+    def _pass(self, cache, tokens):
+        from .serve import ring_pass
+
+        w = self.plan.w
+        bank: Dict[int, List] = {}
+
+        def window(t, m, r):
+            if t not in bank:
+                bank.clear()
+                bank[t] = [self._block(tree)
+                           for tree in self.prefetch.get(t)]
+            return bank[t][m * w:(m + 1) * w]
+
+        def done(t):
+            bank.clear()
+            self.prefetch.done(t)
+
+        self.prefetch.begin_pass()
+        logits, cache = ring_pass(self.cfg, self.plan, self.head, window,
+                                  cache, tokens, on_step=done,
+                                  tracer=self.tracer)
+        if self.device.type == "cuda":
+            with self.tracer.phase("compute", cat="ring", track="ring",
+                                   label="sync"):
+                torch.cuda.current_stream(self.device).synchronize()
+        return logits, cache
+
+    def stats(self) -> PrefetchStats:
+        return self.prefetch.stats()
+
+    def health(self) -> WorkerHealth:
+        return self.prefetch.health
+
+    def close(self, timeout: float = 5.0) -> bool:
+        return self.prefetch.close(timeout=timeout)

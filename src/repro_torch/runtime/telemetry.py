@@ -29,9 +29,8 @@ which imports no JAX, copied).
 Legacy record types (``PrefetchEvent`` timelines of the prefetcher and
 the KV offloader, ``FiredFault`` audit trails, ``WorkerHealth``) merge
 onto the shared timeline through the ``ingest_*`` adapters, while the hot
-paths also emit live when a tracer is attached. The JAX tracer's
-``ingest_failover_event`` waits for the ring's failover (ROADMAP Queue A
-item 7).
+paths also emit live when a tracer is attached; the ring's failover
+(``runtime.failover``) lands through ``ingest_failover_event``.
 
 Validator CLI::
 
@@ -429,6 +428,22 @@ class Tracer:
                          call_index=f.call_index)
             n += 1
         return n
+
+    def ingest_failover_event(self, ev, *, t_end: Optional[float] = None,
+                              track: str = "failover") -> None:
+        """``failover.FailoverEvent`` -> its detect/resolve/rebuild/replay
+        split as contiguous spans ending at ``t_end`` (default: now)."""
+        t1 = t_end if t_end is not None else clock()
+        t0 = t1 - ev.recovery_s
+        edges = [t0]
+        for d in (ev.detect_s, ev.resolve_s, ev.rebuild_s, ev.replay_s):
+            edges.append(edges[-1] + d)
+        for name, a, b in zip(("detect", "resolve", "rebuild", "replay"),
+                              edges[:-1], edges[1:]):
+            self.span_event(f"failover/{name}", a, b, cat="failover",
+                            track=track, token_index=ev.token_index,
+                            failed_stage=ev.failed_stage,
+                            stages_after=ev.n_stages_after)
 
     def ingest_worker_health(self, health, *,
                              track: Optional[str] = None) -> None:

@@ -45,8 +45,10 @@ def test_serve_entry_point_leaves_jax_unloaded():
 def test_walk_covers_every_port_module():
     """The import check above walks every module of the port, the q4
     streaming slice's (quant, store, prefetcher, kernel B3) and the
-    speculative slice's (decoder, kernel B5, the qwen1.5 configs) and
-    the tiered slice's (faults, the recall-cost terms) included."""
+    speculative slice's (decoder, kernel B5, the qwen1.5 configs), the
+    tiered slice's (faults, the recall-cost terms) and the ring slice's
+    (schedule, profiles, Halda, cluster selection, elastic re-plan,
+    failover, the ring layout) included."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in FILES if p.name != "chip_smoke.py"}
     for want in ("quant/__init__.py", "quant/grouped.py",
@@ -55,5 +57,8 @@ def test_walk_covers_every_port_module():
                  "runtime/memory.py", "runtime/serve.py",
                  "runtime/speculative.py", "kernels/flash_decode.py",
                  "configs/qwen15_32b.py", "configs/qwen15_05b_draft.py",
-                 "runtime/faults.py", "core/latency.py"):
+                 "runtime/faults.py", "core/latency.py",
+                 "core/ring.py", "core/profiles.py", "core/halda.py",
+                 "core/cluster.py", "runtime/elastic.py",
+                 "runtime/failover.py", "launch/mesh.py"):
         assert want in names
