@@ -28,8 +28,11 @@ Phase 2  hold each kernel against its plain torch version on the card and
            sums in another order over K <= 13824); the check must reject
            a weight with one group's scale doubled; the library call is
            cuBLAS ``x @ w`` on the weight dequantized beforehand; also at
-           qwen1.5-32b's projection shapes at M = 2 and 10 (its verify) and
-           mamba2-780m's in_proj and out_proj at M = 1 and 1024; each line
+           qwen1.5-32b's projection shapes at M = 2 and 10 (its verify),
+           mamba2-780m's in_proj and out_proj at M = 1 and 1024, and one
+           expert's slice of mixtral-8x7b's and phi3.5-moe's stacks
+           ((4096, 14336), (14336, 4096), (4096, 6400), (6400, 4096)) at
+           M = C, the rows an expert takes: 8, 160 and 256; each line
            names the plan that ran (path, K split, tile, CTAs, CUDA kernels
            a call) and the call replayed from a CUDA graph (device alone),
            beside cuBLAS's;
@@ -164,7 +167,15 @@ Phase 11 the CI smokes' shapes on the card: the reduced configs (head_dim
          through the tiers: evicted pages spill, the repeats recall pages
          from the host and from disk, and the tokens equal unbudgeted
          runs'; a parked session equals one run) and (f) the same with
-         int8 pages (``--kv-quant-kernel``, 0.04 and 0.017 MB).
+         int8 pages (``--kv-quant-kernel``, 0.04 and 0.017 MB), each with
+         ``--stages 1`` and (e), (f) ``--page-tokens 16`` (the values they
+         ran with before the driver took the JAX driver's defaults); then
+         every ``repro.launch.serve`` line of ``.github/workflows/ci.yml``
+         as written, with ``repro_torch`` in its place (decode through the
+         4-stage ring, then its ``--paged-kv``, ``--stream-window`` or
+         ``--chaos`` section), each exiting 0 with its kernels launched,
+         and the metrics and trace files the CI validates passing the
+         port's validators with the names the CI requires.
 Phase 12 steps replayed from CUDA graphs against eager, recorded in phases
          3 and 7 and printed beside the card's name and power limit: phase
          3's paged runs (bf16 and int8 pages) both ways -- wall, TPOT and
@@ -210,8 +221,9 @@ Phase 13 tiered KV memory at qwen2.5-14b's full width and depth (48
          seconds (``core.latency.tier_recall_crosscheck``), park, demote
          and restore ms, beside the card's name and power limit.
 Phase 14 the piped ring (PRP) at qwen2.5-14b's full width and depth, all 4
-         stages on the card (seed 0; 8 prompts of 512 tokens, seed 7,
-         prefilled on one device, ctx 1024): (a) bf16, the resident ring
+         stages on the card (seed 0; 8 prompts of 512 tokens, drawn as
+         the JAX driver draws its batch (seed 1), prefilled on one
+         device, ctx 1024): (a) bf16, the resident ring
          at k 1 (w 12) and k 2 (w 6), 32 greedy steps replayed from CUDA
          graphs against the one-device decode of the same cache (streams
          equal but at near ties, phase 7's rule; splits counted), 8 steps
@@ -236,6 +248,34 @@ Phase 14 the piped ring (PRP) at qwen2.5-14b's full width and depth, all 4
          launch against its plain version on the same inputs, logits
          within 2e-4 of the ring on ``use_kernels(False)`` and equal
          tokens. Its numbers again beside the card's name and power limit.
+Phase 15 the moe family (mixtral-8x7b: 32 layers, d 4096, 8 experts of
+         d_ff 14336, top 2, sliding window 4096; phi3.5-moe: 16 experts of
+         d_ff 6400), random weights from a seed: (a) mixtral at published
+         width and depth as a ~25 GB q4 store built and quantized on the
+         card one layer at a time (every expert stack and the router q4),
+         written to a temporary directory; 8 requests (prompts 128-512,
+         seed 7, 16 new tokens) through 8 slots, ctx 640, the layer-wise
+         engine with the q4 weights resident, then streamed (window 4):
+         exactly (4 + 3 x 8) x 32 = 896 B3 launches a pass (each expert's
+         slice at M = C) and 32 B5 a decode step, peak under 5 layers,
+         equal streams; (c) the resident q4 bank over 4 stages at k 1, 8
+         rows, 8 graphed steps against the one-device decode (phase 7's
+         near-tie rule), 3584 B3 and 128 B5 a pass exactly, one eager
+         step with every B3 launch held against its plain version; (b)
+         mixtral at full width, 16 of 32 layers, bf16 (46 GB), through
+         the paged engine (8 slots, ctx 2048, 16-token pages, 256-token
+         chunks; 16 requests, prompts 256-1024, 32 new tokens) graphed
+         and eager: B2 16 a chunk and B1 16 a decode step exactly, equal
+         streams; (d) mixtral and phi3.5-moe at 4 layers, full width, f32,
+         eager: the dense engine, the paged engine (chunked, f32 and int8
+         pages) and the layer-wise engine over a q4 store, every launch
+         held against its plain version on the same inputs, logits within
+         2e-4 of max|ref| of ``use_kernels(False)``'s and equal streams
+         (int8 pages as phase 4 holds them); (e) the card's
+         ``DeviceProfile`` from the port's probes
+         (``core.profiler.profile_local_device``) and Halda's plan for
+         mixtral in q4 over it. Its numbers again beside the card's name
+         and power limit.
 
 Prints the card's name and power limit again, the kernels' JSON line, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
@@ -597,6 +637,13 @@ Q4_MS = (1, 8, 37, 256, 512)
 #: w_down) at its decode (M = 2) and its verify pass (M = 10, 2 slots x 5)
 Q4_SHAPES_32B = ((5120, 5120), (5120, 27392), (27392, 5120))
 Q4_MS_32B = (2, 10)
+#: B3 at the moe experts' shapes, one expert's slice: mixtral-8x7b's
+#: w_gate/w_up and w_down, phi3.5-moe's; M = C, the rows an expert takes:
+#: 8 (a decode step of 8 slots, lossless), 160 (a 512-token dense
+#: prefill at cf 1.25: int(2 * 512 / 8 * 1.25)) and 256 (a lossless
+#: 256-token chunk)
+Q4_SHAPES_MOE = ((4096, 14336), (14336, 4096), (4096, 6400), (6400, 4096))
+Q4_MS_MOE = (8, 160, 256)
 #: B3 at mamba2-780m's in_proj (d_model 1536 -> 2 d_inner + 2 N + nh) and
 #: out_proj (d_inner 3072 -> 1536), at decode (M = 1) and a 1024-token
 #: prefill, as phase 9's q4 runs launch them
@@ -646,7 +693,8 @@ def check_q4(torch, timer, rng):
     row = None
     cases = [(K, N, Q4_MS) for K, N in Q4_SHAPES] + \
         [(K, N, Q4_MS_32B) for K, N in Q4_SHAPES_32B] + \
-        [(K, N, Q4_MS_SSM) for K, N in Q4_SHAPES_SSM]
+        [(K, N, Q4_MS_SSM) for K, N in Q4_SHAPES_SSM] + \
+        [(K, N, Q4_MS_MOE) for K, N in Q4_SHAPES_MOE]
     for K, N, m_list in cases:
         w = torch.from_numpy(rng.standard_normal(
             (K, N), dtype=np.float32)).cuda() / np.sqrt(K)
@@ -1530,8 +1578,10 @@ def substituted(ops, mode, errs=None):
             else:
                 want = want.float()
                 d = float((out.float() - want).abs().max())
-                if name == "q4_matmul":      # relative to max|ref|
-                    d /= float(want.abs().max())
+                top = float(want.abs().max())
+                if name == "q4_matmul" and top:  # relative to max|ref|
+                    d /= top                     # (an expert given no row
+                                                 # multiplies zeros: 0)
             errs[name] = max(errs.get(name, 0.0), d)
             return out
 
@@ -1662,13 +1712,25 @@ SSM_PROJECTIONS = 2
 
 
 def projections(cfg) -> int:
-    """B3 launches a layer a pass: the block's q4 projections."""
-    return SSM_PROJECTIONS if cfg.family == "ssm" else PROJECTIONS
+    """The block's q4 leaves: its projections (B3 launches a layer a pass
+    for dense and ssm blocks), for moe blocks the 4 attention projections,
+    the router and the 3 expert stacks."""
+    if cfg.family == "ssm":
+        return SSM_PROJECTIONS
+    return 8 if cfg.n_experts else PROJECTIONS
+
+
+def moe_b3(cfg) -> int:
+    """B3 launches a moe layer a pass: 4 attention projections and every
+    expert's slice of the 3 stacks (the router dequantizes at use)."""
+    return 4 + 3 * cfg.n_experts
 
 
 def same_quant_on_cpu(torch, cfg, tree, qtree) -> int:
     """Quantize layer 0's matmul weights again on the CPU: the packed
-    bytes and scale bits must equal the card's. Returns the leaves held."""
+    bytes and scale bits must equal the card's (an expert stack: expert
+    0's slice, each expert's groups being its own). Returns the leaves
+    held."""
     from repro_torch.quant import QuantizedTensor, quantize_q4
 
     n = 0
@@ -1676,10 +1738,13 @@ def same_quant_on_cpu(torch, cfg, tree, qtree) -> int:
         for key, q in qtree[sub].items():
             if not isinstance(q, QuantizedTensor):
                 continue
-            cpu = quantize_q4(tree[sub][key].cpu(), q.group)
-            n_packed = int((cpu.packed != q.packed.cpu()).sum())
+            w, packed, scale = tree[sub][key], q.packed, q.scale
+            if w.dim() == 3:
+                w, packed, scale = w[0], packed[0], scale[0]
+            cpu = quantize_q4(w.cpu(), q.group)
+            n_packed = int((cpu.packed != packed.cpu()).sum())
             n_scale = int((cpu.scale.view(torch.int16)
-                           != q.scale.cpu().view(torch.int16)).sum())
+                           != scale.cpu().view(torch.int16)).sum())
             if n_packed or n_scale:
                 raise AssertionError(
                     f"layer 0 {sub}/{key}: the card's quantize_q4 differs "
@@ -1734,7 +1799,9 @@ def layer_params(cfg):
     d, f = cfg.d_model, cfg.d_ff
     hq, hk = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
     bias = hq + 2 * hk if cfg.qkv_bias else 0
-    return d * (2 * hq + 2 * hk) + 3 * d * f, bias + 2 * d
+    ffn = 3 * d * f * cfg.n_experts + d * cfg.n_experts if cfg.n_experts \
+        else 3 * d * f
+    return d * (2 * hq + 2 * hk) + ffn, bias + 2 * d
 
 
 def write_store(torch, cfg, dtype, seed):
@@ -2893,37 +2960,91 @@ CI_SMOKES = (
     ("(e) tiered: 0.1 MB device (12 pages), 0.07 MB host, the requests "
      "and then their prompts again (recalled from host and disk), parking, "
      "tokens equal to the unbudgeted runs and the parked session to one run",
-     ["--prefill-chunk", "16", "--device-budget", "0.1", "--host-budget",
-      "0.07", "--park-idle-s", "0"], ("paged_prefill", "paged_verify")),
+     ["--page-tokens", "16", "--prefill-chunk", "16", "--device-budget",
+      "0.1", "--host-budget", "0.07", "--park-idle-s", "0"],
+     ("paged_prefill", "paged_verify")),
     ("(f) the same with int8 pages, 0.04 MB device (15 pages), 0.017 MB "
      "host",
-     ["--prefill-chunk", "16", "--device-budget", "0.04", "--host-budget",
-      "0.017", "--park-idle-s", "0", "--kv-quant-kernel"],
+     ["--page-tokens", "16", "--prefill-chunk", "16", "--device-budget",
+      "0.04", "--host-budget", "0.017", "--park-idle-s", "0",
+      "--kv-quant-kernel"],
      ("paged_verify_quant",)),
 )
 
 
+#: the CI file whose serve lines phase 11 runs through the port
+CI_FILE = os.path.join(ROOT, ".github", "workflows", "ci.yml")
+#: the metric names the CI validates in each metrics file it writes
+CI_METRICS = {"metrics.json": ["request/ttft_s", "request/tpot_s",
+                               "decode/step_s", "requests/finished",
+                               "kv/pages_active", "slots/active"],
+              "metrics_chunked.json": ["request/prefill_chunks",
+                                       "decode/step_s"]}
+
+
+def ci_serve_lines(outdir):
+    """Each ``python -m repro.launch.serve`` command of the CI file, with
+    ``repro_torch`` in place of ``repro`` and its output files moved to
+    ``outdir``: (label, argv after the module, kernels that must launch,
+    {output path: metric names the CI requires, or trace tracks})."""
+    import shlex
+
+    with open(CI_FILE) as f:
+        lines = f.read().splitlines()
+    out, i = [], 0
+    while i < len(lines):
+        if "python -m repro.launch.serve" in lines[i]:
+            n, cmd = i + 1, lines[i].strip()
+            while cmd.endswith("\\"):
+                i += 1
+                cmd = cmd[:-1] + " " + lines[i].strip()
+            argv = shlex.split(cmd)
+            argv = argv[argv.index("repro.launch.serve") + 1:]
+            files = {}
+            for flag in ("--metrics-out", "--trace"):
+                if flag in argv:
+                    j = argv.index(flag) + 1
+                    name, argv[j] = argv[j], os.path.join(outdir, argv[j])
+                    files[argv[j]] = CI_METRICS.get(
+                        name, ("prefetcher", "decode"))
+            kernels = ("paged_verify_quant",) if "--kv-quant-kernel" in argv \
+                else ("paged_verify",) if "--paged-kv" in argv \
+                else ("flash_verify",)
+            out.append((f"ci.yml:{n} {' '.join(argv)}", argv, kernels, files))
+        i += 1
+    return out
+
+
 def ci_smokes() -> None:
-    """Phase 11: each CI smoke shape must exit 0 on the card, having
-    launched its kernels (the last ``kernel launches`` line it prints).
-    The smokes run as processes of their own, all started together (the
-    reduced models leave the card idle, a process's start is most of
-    its time)."""
+    """Phase 11: each CI smoke shape, and each serve line of the CI file
+    as written (``repro_torch`` in place of ``repro``, on the card), must
+    exit 0 on the card, having launched its kernels (the last ``kernel
+    launches`` line it prints); the metrics and traces the CI lines write
+    must pass the port's validators with the names the CI requires. The
+    runs are processes of their own, all started together (the reduced
+    models leave the card idle, a process's start is most of its
+    time)."""
     import ast
+
+    from repro_torch.runtime.metrics import validate_metrics_snapshot
+    from repro_torch.runtime.telemetry import validate_chrome_trace
 
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
     t0 = time.perf_counter()
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_ci_")
+    runs = [(label, ["--smoke", "--dtype", "f32", "--stages", "1", *flags],
+             kernels, {}) for label, flags, kernels in CI_SMOKES]
+    runs += ci_serve_lines(outdir)
     procs = []
-    for label, flags, kernels in CI_SMOKES:
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
-               "--dtype", "f32", *flags]
-        procs.append((label, cmd, kernels, subprocess.Popen(
+    for label, argv, kernels, files in runs:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv]
+        procs.append((label, cmd, kernels, files, subprocess.Popen(
             cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
     try:
-        for label, cmd, kernels, proc in procs:
+        for label, cmd, kernels, files, proc in procs:
             out, err = proc.communicate(timeout=600)
             if proc.returncode != 0:
                 raise AssertionError(f"{label}: {' '.join(cmd[1:])} exited "
@@ -2939,7 +3060,9 @@ def ci_smokes() -> None:
                                      f"({counts})")
             checks = [ln.strip() for ln in out.splitlines()
                       if "identical" in ln]
-            if "--device-budget" in cmd:
+            if "--device-budget" in cmd and label.startswith("("):
+                # the tier smokes' budgets make the repeats recall pages;
+                # the CI line's (4 MB) hold every page
                 recalled = [ln for ln in checks
                             if ln.startswith("tiered paged decode")]
                 m = re.search(r"\((\d+) pages from host, (\d+) from disk\)",
@@ -2947,13 +3070,22 @@ def ci_smokes() -> None:
                 if not m or not (int(m[1]) and int(m[2])):
                     raise AssertionError(f"{label}: no page recalled from "
                                          f"the host and from disk: {checks}")
+            for path, want in files.items():
+                if path.endswith(".json") and "trace" not in \
+                        os.path.basename(path):
+                    validate_metrics_snapshot(path, require=want)
+                else:
+                    validate_chrome_trace(path, tuple(want))
             log(f"  {label}: exit 0 by {time.perf_counter() - t0:.1f} s; "
-                f"launches {counts}; {'; '.join(checks)}")
+                f"launches {counts}; {'; '.join(checks)}"
+                + (f"; {len(files)} output file(s) validated" if files
+                   else ""))
     finally:
         for *_, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        shutil.rmtree(outdir, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -3866,6 +3998,429 @@ def report_ring() -> None:
         f"({RING['recovery_b_s']:.1f} s extrapolated to (b)'s history)")
 
 
+# --------------------------------------------------------------------------- #
+#  phase 15: the moe family (mixtral-8x7b, phi3.5-moe)
+# --------------------------------------------------------------------------- #
+
+MOE_ARCH = "mixtral-8x7b"
+MOE_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
+#: (a): phase 5's mix at mixtral's published width and depth
+MOE_STREAM_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "640",
+                   "--requests", "8", "--prompt-len", "128",
+                   "--prompt-len-max", "513", "--new-tokens", "16",
+                   "--seed", "0", "--stream-window", "4", "--store-quant",
+                   "q4"]
+#: (c): 8 prompts of 128 tokens over 4 stages at k 1
+MOE_RING_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "640",
+                 "--prompt-len", "128", "--new-tokens", "8", "--seed", "0",
+                 "--stages", "4"]
+#: (b): phase 3's mix, 16 of mixtral's 32 layers in bf16
+MOE_PAGED_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "2048",
+                  "--page-tokens", "16", "--prefill-chunk", "256",
+                  "--prompt-len", "256", "--prompt-len-max", "1025",
+                  "--requests", "16", "--new-tokens", "32", "--seed", "0",
+                  "--layers", "16", "--dtype", "bf16"]
+#: (d): 4 layers at full width, f32
+MOE_PARITY_ARGS = ["--batch", "4", "--ctx", "512", "--page-tokens", "16",
+                   "--prefill-chunk", "128", "--prompt-len", "64",
+                   "--prompt-len-max", "257", "--requests", "6",
+                   "--new-tokens", "8", "--seed", "1", "--layers", "4",
+                   "--dtype", "f32"]
+#: phase 15's record, printed at its end beside the card
+MOE = {}
+
+
+def moe_streamed(torch, ops, serve):
+    """Phase 15 (a) and (c): mixtral-8x7b at published width and depth as
+    a q4 store built on the card one layer at a time; the layer-wise
+    engine with the q4 weights resident, then streamed (window 4); then
+    the resident q4 bank through the ring. Returns the streamed run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.paramstore import ParamStore, ResidentSource
+    from repro_torch.runtime.streaming import StreamingParamSource
+
+    args = serve.parse_args(MOE_STREAM_ARGS + ["--dtype", "bf16"])
+    cfg = get_config(args.arch)
+    W, L, b3 = args.stream_window, cfg.n_layers, moe_b3(cfg)
+    sdir, tree = write_store(torch, cfg, torch.bfloat16, seed=0)
+    try:
+        store = ParamStore(sdir)
+        nbytes = store.layer_nbytes
+        raw = sum(layer_params(cfg))
+        log(f"  store: {store.quant_format}, manifest v{store.version}, "
+            f"{nbytes / 1e9:.3f} GB/layer (the bf16 layer: "
+            f"{2 * raw / 1e9:.3f} GB, ratio {nbytes / (2 * raw):.3f}); "
+            f"{L} layers, {nbytes * L / 1e9:.2f} GB")
+        store.close()
+        reqs = serve.make_requests(cfg, args)
+        streams, counts = {}, {}
+        for name in ("resident", "streamed"):
+            src = ResidentSource(tree) if name == "resident" else \
+                StreamingParamSource(ParamStore(sdir), window=W)
+            ops.reset_launch_counts()
+            try:
+                res = serve.serve_layerwise(src, cfg, reqs, args)
+            finally:
+                src.close()
+            counts[name] = ops.launch_counts()
+            res["requests"] = reqs
+            check_served(res)
+            stream_summary(f"{name} q4 weights", res, nbytes * L)
+            passes = len(reqs) + res["steps"]
+            want = {"q4_matmul": b3 * L * passes,
+                    "flash_verify": L * res["steps"]}
+            launched(ops, want, f"moe {name}")
+            log(f"  {name}: {want['q4_matmul']} q4_matmul launches = "
+                f"{passes} passes x {L} layers x {b3} (4 attention "
+                f"projections + 3 x {cfg.n_experts} experts); "
+                f"{want['flash_verify']} flash_verify launches = "
+                f"{res['steps']} decode steps x {L} layers")
+            streams[name] = {f.uid: f.tokens for f in res["finished"]}
+            MOE[name] = {"wall_s": res["wall_s"], "steps": res["steps"],
+                         **res["summary"]}
+            if name == "streamed":
+                st = res["stats"]
+                if st.peak_resident_bytes >= (W + 1) * nbytes \
+                        or st.layers_served != L * passes:
+                    raise AssertionError(
+                        f"streamed: peak resident {st.peak_resident_bytes} "
+                        f"B (bound {W + 1} layers of {nbytes} B), "
+                        f"{st.layers_served} layers served")
+                MOE["peak_layers"] = st.peak_resident_bytes / nbytes
+                MOE["read_ms"] = st.median_layer_read_s * 1e3
+                MOE["stall_s"] = st.stall_s
+                log(f"  streamed: peak resident weights "
+                    f"{st.peak_resident_bytes / nbytes:.2f} layers (under "
+                    f"{W + 1}); {len(st.events)} layer reads, median "
+                    f"{st.median_layer_read_s * 1e3:.2f} ms each; stall "
+                    f"{st.stall_s:.3f} s; the resident run held all {L} "
+                    f"layers ({nbytes * L / 1e9:.2f} GB)")
+        if streams["streamed"] != streams["resident"]:
+            bad = [u for u, t in streams["resident"].items()
+                   if streams["streamed"].get(u) != t]
+            raise AssertionError(f"streamed tokens differ from the "
+                                 f"resident run's for uids {bad}")
+        log(f"  streamed and resident tokens equal for {len(reqs)} "
+            f"requests")
+        moe_ring(torch, ops, serve, cfg, tree)
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+        del tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts["streamed"]
+
+
+def moe_ring(torch, ops, serve, cfg, tree):
+    """Phase 15 (c): the resident q4 bank over 4 stages at k 1, graphed,
+    against the one-device decode of the same cache (streams equal but at
+    near ties, phase 7's rule); (4 + 3 E) x L x 4 B3 launches a pass; one
+    eager step with every B3 launch held against its plain version."""
+    from repro_torch.runtime.serve import RingPlan, RingServeStep, ring_params
+
+    args = serve.parse_args(MOE_RING_ARGS + ["--dtype", "bf16"])
+    dev, n, M = torch.device("cuda"), int(args.new_tokens), args.stages
+    _, cache, nxt, ttft = serve.ring_prefill(tree, cfg, args)
+    plan = RingPlan.make(cfg, M, 1)
+    step = RingServeStep(cfg, plan, ring_params(tree, cfg, plan),
+                         graphs=True, device=dev)
+    per_pass = {"flash_verify": cfg.n_layers * M,
+                "q4_matmul": moe_b3(cfg) * cfg.n_layers * M}
+    ops.reset_launch_counts()
+    run = serve.greedy_steps(step, serve.to_ring_cache(cache, cfg, plan),
+                             nxt, n, dev, keep=True)
+    launched(ops, {k: v * n for k, v in per_pass.items()}, "moe q4 ring")
+    one = serve.greedy_steps(serve.one_device_decode(tree, cfg, dev),
+                             serve.clone_cache(cache), nxt, n, dev,
+                             keep=True)
+    worst, n_equal, splits = near_tie_only(
+        "moe q4 ring against the one-device decode", by_row(run),
+        by_row(one), SPEC_BF16_REL)
+    ring_ms = 1e3 * float(np.median(run["step_s"][1:]))
+    one_ms = 1e3 * float(np.median(one["step_s"][1:]))
+    errs = {}
+    eager = RingServeStep(cfg, plan, step.params, graphs=False, device=dev)
+    with substituted(ops, "shadow", errs):
+        eager(serve.to_ring_cache(cache, cfg, plan), nxt)
+    if sorted(errs) != ["flash_verify", "q4_matmul"] \
+            or errs["q4_matmul"] > Q4_TOL:
+        raise AssertionError(f"moe q4 ring: launches against their plain "
+                             f"versions {errs} (B3 bound {Q4_TOL})")
+    MOE.update(ring_ms=ring_ms, ring_one_ms=one_ms,
+               ring_splits=len(splits), ring_b3_err=errs["q4_matmul"])
+    log(f"  q4 ring (k 1, w {plan.w}, M {M}), {n} graphed steps from a "
+        f"prefill of 8 x {args.prompt_len} ({ttft:.2f} s): step p50 "
+        f"{ring_ms:.2f} ms against the one-device step's {one_ms:.2f} ms; "
+        f"{per_pass} launches a pass, exactly; streams equal to the "
+        f"one-device decode's for {n_equal} of 8 rows, logits within "
+        f"{worst:.3g} of max|ref| up to each row's first difference; "
+        f"splits: {splits}; one eager step: every B3 launch (M = 2 rows, "
+        f"each expert at C = 2) within {errs['q4_matmul']:.3g} of max|ref| "
+        f"of its plain version (bound {Q4_TOL}), B5 max|d| "
+        f"{errs['flash_verify']:.3g}")
+    del step, eager, run, one, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_paged_run(torch, ops, params, cfg, reqs, args, graphs):
+    """The paged engine as ``serve.serve_paged`` builds it (bf16 pages),
+    graphed or eager, keeping every decode step's logits by (uid, token
+    index) and counting its decode steps. Returns (streams, logits,
+    launches, decode steps, wall, graphs' note)."""
+    from repro_torch.runtime.kvcache import make_paged_engine
+
+    B, bs = args.batch, args.page_tokens
+    eng, kv = make_paged_engine(params, cfg, B, args.ctx,
+                                n_pages=2 + B * (-(-args.ctx // bs)),
+                                page_tokens=bs, cache_dtype=torch.bfloat16,
+                                prefill_chunk=args.prefill_chunk,
+                                graphs=graphs, device="cuda")
+    logits, n_dec = {}, [0]
+    decode = eng.decode
+
+    def decode_(cache, tokens):
+        out = decode(cache, tokens)
+        n_dec[0] += 1
+        for i in eng.active():
+            st = eng.slots[i]
+            logits[(st.uid, len(st.generated))] = out[0][i, 0].float().clone()
+        return out
+
+    eng.decode = decode_
+    ops.reset_launch_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin, _ = eng.run(kv.init_cache(), reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        kv.close()
+    check_served({"finished": fin, "rejected": eng.rejected,
+                  "requests": reqs})
+    note = graph_note(eng) if graphs else "eager"
+    return ({f.uid: f.tokens for f in fin}, logits, ops.launch_counts(),
+            n_dec[0], wall, note)
+
+
+def moe_paged(torch, ops, serve):
+    """Phase 15 (b): 16 of mixtral's 32 layers in bf16 through the paged
+    engine, graphed against eager. Every prompt chunk launches B2 once a
+    layer and every decode step B1 once a layer, exactly; streams equal,
+    logits max|d| between the two printed. Returns the graphed run's
+    launches."""
+    args = serve.parse_args(MOE_PAGED_ARGS)
+    t0 = time.perf_counter()
+    cfg, params = serve.build_model(args)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    log(f"  weights: {n_par / 1e9:.2f} B params in bf16 on the card, made "
+        f"in {time.perf_counter() - t0:.1f} s")
+    reqs = serve.make_requests(cfg, args)
+    chunks = cfg.n_layers * sum(-(-len(r.prompt) // args.prefill_chunk)
+                                for r in reqs)
+    runs = {}
+    for graphs in (True, False):
+        way = "graphed" if graphs else "eager"
+        streams, logits, got, steps, wall, note = moe_paged_run(
+            torch, ops, params, cfg, reqs, args, graphs)
+        want = {"paged_prefill": chunks,
+                "paged_verify": cfg.n_layers * steps}
+        launched(ops, want, f"moe paged {way}")
+        runs[way] = (streams, logits)
+        MOE[f"paged_{way}"] = {"wall_s": wall, "steps": steps}
+        log(f"  paged, {way}: {len(reqs)} requests in {wall:.3f} s, "
+            f"{steps} decode steps; {want} launches, exactly (B2 "
+            f"{cfg.n_layers} a chunk, B1 {cfg.n_layers} a step); {note}")
+    if runs["graphed"][0] != runs["eager"][0]:
+        raise AssertionError("moe paged: graphed and eager streams differ")
+    d = max(float((runs["graphed"][1][key] - lg).abs().max())
+            for key, lg in runs["eager"][1].items())
+    MOE["paged_counts"] = want
+    log(f"  paged: graphed and eager streams equal for {len(reqs)} "
+        f"requests; decode logits max|d| {d:.3g} between them")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged_prefill": chunks,
+            "paged_verify": want["paged_verify"]}
+
+
+def moe_parity(torch, ops, serve) -> None:
+    """Phase 15 (d): mixtral-8x7b and phi3.5-moe at 4 layers, full width,
+    f32, eager, kernels against ``use_kernels(False)``: the dense engine,
+    the paged engine (chunked admission, f32 and int8 pages) and the
+    layer-wise engine over a q4 store. Every launch is held against its
+    plain version on the same inputs (attention atol 2e-5, B3 1e-5 of
+    max|ref|); f32 runs must agree to LOGIT_REL with equal streams; int8
+    pages as phase 4 holds them."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.engine import make_dense_engine
+    from repro_torch.runtime.paramstore import (ParamStore, ResidentSource,
+                                                save_param_store)
+    from repro_torch.runtime.streaming import StreamingParamSource
+
+    for arch in MOE_ARCHS:
+        args = serve.parse_args(["--arch", arch] + MOE_PARITY_ARGS)
+        cfg, params = serve.build_model(args)
+        reqs = serve.make_requests(cfg, args)
+        found = {}
+
+        def hold(label, want, run_kern, run_plain):
+            errs = {}
+            with substituted(ops, "shadow", errs):
+                kern = run_kern()
+            ops.use_kernels(False)
+            try:
+                plain = run_plain()
+            finally:
+                ops.use_kernels(True)
+            att = max((v for k, v in errs.items() if k != "q4_matmul"),
+                      default=0.0)
+            if sorted(errs) != sorted(want) or att > 2e-5 \
+                    or errs.get("q4_matmul", 0.0) > Q4_TOL:
+                raise AssertionError(f"{arch} {label}: launches against "
+                                     f"their plain versions {errs} (wanted "
+                                     f"{want})")
+            worst, n_equal, splits = compare_runs(kern, plain)
+            found[label] = (worst, n_equal, errs)
+            return kern, plain, worst, n_equal, splits
+
+        def dense_run():
+            eng = make_dense_engine(params, cfg, args.batch, args.ctx,
+                                    cache_dtype=torch.float32, graphs=False,
+                                    device="cuda")
+            run = logged_run(torch, eng, "prefill", init_cache(
+                cfg, args.batch, args.ctx, dtype=torch.float32,
+                device="cuda"), reqs)
+            return run["streams"], run["logits"]
+
+        *_, worst, n_equal, _ = hold("dense", ("flash_verify",), dense_run,
+                                     dense_run)
+        if worst >= LOGIT_REL or n_equal != len(reqs):
+            raise AssertionError(f"{arch} dense: {worst} of max|ref|, "
+                                 f"{n_equal} streams equal")
+        for quant in (False, True):
+            c = dataclasses.replace(cfg, kv_dtype="int8") if quant else cfg
+            label = "paged int8" if quant else "paged f32"
+
+            def paged_run(c=c):
+                return traced_paged_run(torch, params, c, reqs, args)
+            want = ("paged_verify_quant",) if quant else ("paged_prefill",
+                                                          "paged_verify")
+            kern, plain, worst, n_equal, _ = hold(label, want, paged_run,
+                                                  paged_run)
+            if not quant and (worst >= LOGIT_REL or n_equal != len(reqs)):
+                raise AssertionError(f"{arch} {label}: {worst} of max|ref|,"
+                                     f" {n_equal} streams equal")
+            if quant:
+                flips = int8_flips(torch, kern[2], plain[2])
+                if flips[0] == 0 and worst > LOGIT_REL:
+                    raise AssertionError(f"{arch} int8 pages: logits differ "
+                                         f"by {worst} with no int8 byte "
+                                         f"differing")
+                found[label] += (flips,)
+        args.store_quant = "q4"
+        tree, _ = serve.store_tree(params, cfg, args)
+        del params
+        gc.collect()
+        sdir = tempfile.mkdtemp(prefix="chip_smoke_moe_parity_")
+        try:
+            save_param_store(tree, cfg, sdir)
+
+            def streamed():
+                return traced_stream_run(
+                    torch, StreamingParamSource(ParamStore(sdir), window=2),
+                    cfg, reqs, args)
+
+            def resident():
+                return traced_stream_run(torch, ResidentSource(tree), cfg,
+                                         reqs, args)
+            *_, worst, n_equal, _ = hold("streamed q4",
+                                         ("flash_verify", "q4_matmul"),
+                                         streamed, resident)
+        finally:
+            shutil.rmtree(sdir, ignore_errors=True)
+        if worst >= LOGIT_REL or n_equal != len(reqs):
+            raise AssertionError(f"{arch} streamed q4: {worst} of max|ref|,"
+                                 f" {n_equal} streams equal")
+        for label, (worst, n_equal, errs, *flips) in found.items():
+            errs_s = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            log(f"  {arch}, 4 layers f32, {label}: every launch within its "
+                f"plain version's on the same inputs by ({errs_s}; B3 over "
+                f"max|ref|); logits within "
+                f"{worst:.3g} of max|ref|; streams equal for {n_equal} of "
+                f"{len(reqs)}"
+                + (f"; (layer, page) pairs with differing int8 bytes: "
+                   f"{flips[0][0]} of {flips[0][2]}" if flips else ""))
+        MOE[f"parity_{arch}"] = {k: v[0] for k, v in found.items()}
+        del tree
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def moe_profile(torch) -> None:
+    """Phase 15 (e): the card's ``DeviceProfile`` from the port's probes,
+    and Halda's plan for mixtral-8x7b in q4 over it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import halda
+    from repro_torch.core.profiler import profile_local_device
+    from repro_torch.core.profiles import profile_from_config
+
+    t0 = time.perf_counter()
+    prof = profile_local_device("h100", device="cuda")
+    secs = time.perf_counter() - t0
+    log(f"  DeviceProfile in {secs:.1f} s: vram_avail "
+        f"{prof.vram_avail / 1e9:.2f} GB, gpu f32 "
+        f"{prof.gpu_flops['f32'] / 1e12:.2f} TFLOP/s, bf16 (the q4/q8 "
+        f"types' rate) {prof.gpu_flops['q4k'] / 1e12:.2f} TFLOP/s, gpu "
+        f"membw {prof.gpu_membw / 1e9:.1f} GB/s, KV line copy "
+        f"{prof.t_kv_copy_gpu * 1e6:.2f} us; host: ram_avail "
+        f"{prof.ram_avail / 1e9:.1f} GB, cpu f32 "
+        f"{prof.cpu_flops['f32'] / 1e9:.1f} GFLOP/s, cpu membw "
+        f"{prof.cpu_membw / 1e9:.1f} GB/s, disk seq "
+        f"{prof.disk_seq_bps / 1e9:.2f} GB/s, rand "
+        f"{prof.disk_rand_bps / 1e9:.2f} GB/s")
+    if not (prof.has_cuda and prof.vram_avail > 0
+            and prof.gpu_flops["f32"] > 0 and prof.gpu_membw > 0):
+        raise AssertionError(f"the card's profile lacks its terms: {prof}")
+    model = profile_from_config(get_config(MOE_ARCH), quant="q4k")
+    sol = halda.solve([prof], model)
+    if sum(sol.w) * sol.k != model.n_layers or not sol.latency > 0:
+        raise AssertionError(f"Halda's plan: {sol}")
+    MOE.update(profile=prof, plan=sol)
+    log(f"  Halda over the card for mixtral-8x7b q4 ({model.n_layers} "
+        f"layers of {model.layer_bytes / 1e9:.3f} GB): w {sol.w}, n "
+        f"{sol.n}, k {sol.k}, cases {[c.name for c in sol.cases]}, modeled "
+        f"token latency {sol.latency * 1e3:.2f} ms")
+
+
+def report_moe() -> None:
+    """Phase 15's numbers again, beside the card's name and power limit."""
+    log(f"  card: {card()}")
+    for name in ("resident", "streamed"):
+        r = MOE[name]
+        log(f"  (a) mixtral-8x7b q4, 32 layers, {name}: wall "
+            f"{r['wall_s']:.3f} s, {r['steps']} steps, TTFT p50 "
+            f"{r['ttft_p50_s'] * 1e3:.2f} ms, TPOT p50 "
+            f"{r['tpot_p50_s'] * 1e3:.2f} ms, {r['tokens_per_s']:.2f} "
+            f"tokens/s")
+    log(f"  (a) streamed: peak {MOE['peak_layers']:.2f} layers, median "
+        f"layer read {MOE['read_ms']:.2f} ms, stall {MOE['stall_s']:.3f} s")
+    log(f"  (b) paged bf16, 16 layers: graphed "
+        f"{MOE['paged_graphed']['wall_s']:.3f} s, eager "
+        f"{MOE['paged_eager']['wall_s']:.3f} s ({MOE['paged_counts']})")
+    log(f"  (c) q4 ring step {MOE['ring_ms']:.2f} ms against one device "
+        f"{MOE['ring_one_ms']:.2f} ms, {MOE['ring_splits']} splits")
+    for arch in MOE_ARCHS:
+        worst = ", ".join(f"{k} {v:.3g}"
+                          for k, v in MOE[f"parity_{arch}"].items())
+        log(f"  (d) {arch}, logits over max|ref| against the plain "
+            f"versions: {worst}")
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3978,9 +4533,24 @@ def main() -> int:
     report_ring()
     log(f"  phase 14 done at {time.perf_counter() - t_start:.0f} s")
 
-    counts["q4_matmul"] = stream_counts["q4_matmul"]
-    counts["flash_verify"] = spec_counts["flash_verify"]
+    log("== phase 15: the moe family: mixtral-8x7b q4 resident, streamed "
+        "and through the ring (32 layers), bf16 paged (16 layers), parity "
+        "with phi3.5-moe (4 layers f32), the card's profile")
+    moe_counts = moe_streamed(torch, ops, serve)
+    log(f"  main-path launches: {moe_counts}")
+    moe_paged_counts = moe_paged(torch, ops, serve)
+    moe_parity(torch, ops, serve)
+    moe_profile(torch)
+    report_moe()
+    log(f"  phase 15 done at {time.perf_counter() - t_start:.0f} s")
+
+    counts["q4_matmul"] = stream_counts["q4_matmul"] \
+        + moe_counts["q4_matmul"]
+    counts["flash_verify"] = spec_counts["flash_verify"] \
+        + moe_counts["flash_verify"]
     counts["ssd_scan"] = ssm_counts["ssd_scan"]
+    for k, v in moe_paged_counts.items():
+        counts[k] += v
     for name, row in rows.items():
         row["launches"] = counts[name]
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s on")

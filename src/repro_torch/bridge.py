@@ -5,7 +5,9 @@ The caller converts a JAX tree to numpy first
 (``jax.tree.map(np.asarray, params)``), so this module never imports JAX.
 The tree is ``embed``, ``final_norm``, optional ``unembed`` and, for the
 dense family, ``blocks.{attn_norm, attn.{wq,wk,wv,wo[,bq,bk,bv]},
-ffn_norm, ffn.{w_gate,w_up,w_down}}``, for the ssm family
+ffn_norm, ffn.{w_gate,w_up,w_down}}``, for the moe family the same with
+``moe.{router, w_gate, w_up, w_down}`` in place of ``ffn`` (router (d,
+E), expert stacks (E, d, f) and (E, f, d)), for the ssm family
 ``blocks.{norm, ssd.{in_proj, conv_w, dt_bias, a_log, d_skip, norm,
 out_proj}}``, each block leaf stacked over the L layers. Weights keep
 their (in, out) layout, so ``x @ w`` is the same product.
@@ -24,13 +26,13 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .models.model import (GLU, SSD, SSD_KEYS, Attention, DenseBlock,
-                           DenseModel, SSDBlock)
+from .models.model import (GLU, MOE_KEYS, SSD, SSD_KEYS, Attention,
+                           DenseBlock, DenseModel, MoE, SSDBlock)
 from .quant.grouped import QuantizedTensor, map_tree
 from .runtime.paramstore import stack_layers
 
 _BLOCK_KEYS = {"attn": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
-               "ffn": ("w_gate", "w_up", "w_down")}
+               "ffn": ("w_gate", "w_up", "w_down"), "moe": MOE_KEYS}
 
 
 def _is_quantized(a) -> bool:
@@ -66,13 +68,16 @@ def block_from_tree(p: Dict[str, Any]):
     included."""
     if "ssd" in p:
         return SSDBlock(p["norm"], SSD(*(p["ssd"][k] for k in SSD_KEYS)))
-    attn, ffn = p["attn"], p["ffn"]
+    attn = p["attn"]
     bias = [attn[k] for k in ("bq", "bk", "bv")] if "bq" in attn else []
+    if "moe" in p:
+        ffn = MoE(*(p["moe"][k] for k in MOE_KEYS))
+    else:
+        ffn = GLU(p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"])
     return DenseBlock(
         p["attn_norm"],
         Attention(attn["wq"], attn["wk"], attn["wv"], attn["wo"], *bias),
-        p["ffn_norm"],
-        GLU(ffn["w_gate"], ffn["w_up"], ffn["w_down"]))
+        p["ffn_norm"], ffn)
 
 
 def params_from_numpy(tree: Dict[str, Any], device="cuda",
@@ -95,9 +100,10 @@ def tree_from_block(block) -> Dict[str, Any]:
     out = {"attn_norm": block.attn_norm.detach(),
            "ffn_norm": block.ffn_norm.detach()}
     for sub, keys in _BLOCK_KEYS.items():
-        mod = getattr(block, sub)
-        out[sub] = {k: getattr(mod, k).detach() for k in keys
-                    if hasattr(mod, k)}
+        mod = getattr(block, sub, None)
+        if mod is not None:
+            out[sub] = {k: getattr(mod, k).detach() for k in keys
+                        if hasattr(mod, k)}
     return out
 
 

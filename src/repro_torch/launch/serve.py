@@ -1,75 +1,75 @@
 """Serving driver of the port: ``python -m repro_torch.launch.serve``.
 
-Builds a dense GQA or ssm (``--arch mamba2-780m``) model with random
-weights from ``--seed`` (``--smoke``: the reduced config) and serves
-``RequestGenerator`` requests, printing TTFT, TPOT, tokens/s and the
-kernel launch counts. Runs on the card unless ``--device cpu``.
+The JAX driver's structure and flags (``repro.launch.serve``), on the card
+unless ``--device cpu``. A model of ``--arch`` (``--smoke``: the reduced
+config, with f32 weights and cache unless ``--dtype``) with random weights
+from ``--seed`` (``run`` also takes weights handed in), then in order:
 
-Paged (the default for dense models): the paged continuous batcher
-(``runtime.kvcache.make_paged_engine``), with the KV high-water mark;
-``--check-dense`` also runs the dense-cache engine on the same requests and
-exits nonzero on any token mismatch. An ssm model has no per-token pages:
-it is served through the dense-cache engine
-(``runtime.engine.make_dense_engine``), and the paged-only flags
-(``--check-dense``, ``--prefill-chunk``, ``--kv-quant-kernel``) are an
-argument error for it.
+decode: ``--batch`` prompts of ``--prompt-len`` tokens (``RequestGenerator``
+  seed 1) prefill on the one-device path, then ``--new-tokens`` greedy steps
+  decode through the piped ring of ``--stages`` stages (default 4, on the
+  one device: ``launch.mesh``; ``--ring-k`` rounds) beside the one-device
+  decode of the same cache (a token mismatch exits nonzero; bf16 on the
+  card allows near-tie splits only); ``--verify-tokens T`` also times a
+  T-token verify pass through the ring. Where ``ring_supported`` says no
+  (or ``--stages 1``) the steps decode on one device. ``--tp`` (default 2)
+  is layout only on the one card: it picks the q4 groups of the store
+  (``quantize_ring_params``) and pads the vocab, and every stage runs
+  unsharded (``launch.mesh.make_ring_layout``).
 
-Streamed (``--stream-window W``, W > 0): the weights go to a layer store
-in a temporary directory (packed q4 with ``--store-quant q4``, deleted at
-exit) and the requests are served through the layer-wise engine
-(``runtime.streaming.make_streaming_engine``) over a dense cache, with
-``W`` layers staged ahead of the compute front; prints the store's
-bytes per layer, the peak resident weight bytes, the prefetch stall and
-the bytes read. ``--check-resident`` also serves the same requests with
-the same (quantized) weights resident and exits nonzero on any token
-mismatch.
+stream (``--stream-window W``): the weights go to a layer store in a
+  temporary directory (packed q4 with ``--store-quant q4``); the batch
+  decodes layer by layer from it after a resident prefill, ``W`` layers
+  staged ahead; on the ring, the streamed ring
+  (``runtime.streaming.StreamingRingDriver``) decodes beside the resident
+  ring over the stored weights (a token mismatch exits nonzero); then the
+  requests below are served through the layer-wise engine
+  (``runtime.streaming.make_streaming_engine``) over a dense cache, and
+  ``--check-resident`` serves them again with the stored weights resident
+  (a mismatch exits nonzero).
 
-Tiers (paged): ``--device-budget MB``, ``--host-budget MB`` and
-``--park-idle-s S`` serve the same requests again, then their prompts once
-more, through a paged engine whose every byte leases from one
-``runtime.memory.TierManager`` (the pool sized from the device budget,
-evicted prefix pages offloaded to host and spilled to page files in a
-temporary directory, cost-model eviction; the repeats recall them) and
-exit nonzero unless the tokens equal unbudgeted runs', the tier books
-balance and every peak is within its budget; with ``--park-idle-s`` a
-session's two turns, parked between them, must equal one uninterrupted
-run. Faults, as in the JAX driver: ``--chaos transient`` (with
-``--stream-window``) serves the streamed requests again from a store whose
-layer reads fail ``--chaos-faults`` times and exits nonzero unless the
-retried run's tokens equal the clean run's; ``--io-retries``,
-``--io-backoff-ms`` and ``--io-deadline-s`` set the ``IOPolicy`` of every
-store read and tier copy.
+paged (``--paged-kv``; implied by ``--check-dense``, ``--prefill-chunk``,
+  ``--kv-quant-kernel`` and the tier flags): ``--requests`` (default 2 x
+  batch) ``RequestGenerator`` requests (seed 7, prompts of ``--prompt-len``
+  to ``--prompt-len-max`` tokens) through the paged continuous batcher
+  (``runtime.kvcache.make_paged_engine``; pages of ``--page-tokens``,
+  chunked admission with ``--prefill-chunk``, int8 pages with
+  ``--kv-quant-kernel``), then through the dense-cache engine, and exits
+  nonzero on any token mismatch (int8 pages with chunked admission are not
+  compared: they never match the dense engine, in either package). An ssm
+  model has no per-token pages: it is served through the dense-cache engine
+  (``runtime.engine.make_dense_engine``), and the paged-only flags are an
+  argument error for it. Tiers: ``--device-budget MB``, ``--host-budget
+  MB`` and ``--park-idle-s S`` serve the same requests again, then their
+  prompts once more, through a paged engine whose every byte leases from
+  one ``runtime.memory.TierManager`` (the pool sized from the device
+  budget, evicted prefix pages offloaded to host and spilled to page files
+  in a temporary directory, cost-model eviction; the repeats recall them)
+  and exit nonzero unless the tokens equal unbudgeted runs', the tier books
+  balance and every peak is within its budget; with ``--park-idle-s`` a
+  session's two turns, parked between them, must equal one uninterrupted
+  run.
 
-Ring (``--stages M``, M > 1; the port's default is 1, the JAX driver's
-4): the piped ring of M stages on the one device (``launch.mesh``). B
-prompts of ``--prompt-len`` tokens prefill on the one-device path, then
-``--new-tokens`` greedy steps decode through the resident ring
-(``runtime.serve.RingServeStep``, ``--ring-k`` rounds), beside the
-one-device decode of the same cache (a token mismatch exits nonzero;
-bf16 on the card allows near-tie splits only), printing the JAX
-driver's ``ring decode (k=…, w=…, M=…, TP=1): … ms/token/batch`` line;
-``--verify-tokens T`` also times a T-token verify pass through the ring
-against T single steps. Where ``ring_supported`` says no (the batch does
-not split over the stages), the driver says why and serves on one device
-as below. ``--tp`` takes 1 only (tensor parallelism inside a stage is
-ROADMAP Queue A item 8). With ``--stream-window W`` the weights go to a
-layer store (q4 with ``--store-quant q4``) and the streamed ring
-(``runtime.streaming.StreamingRingDriver``) decodes the same steps as the
-resident ring over the same weights: any token mismatch exits nonzero.
-``--chaos failover`` then kills a ring stage mid-decode through
-``runtime.failover.ElasticRingServer`` and exits nonzero unless recovery
-loses no token and the tokens after it equal a clean survivor-ring run
-fed the same history.
+chaos: ``--chaos transient`` decodes the batch again from the store (the
+  stream section's, or one of its own at window 2) whose layer reads fail
+  ``--chaos-faults`` times and exits nonzero unless the retried run's
+  tokens equal the clean run's; ``--chaos failover`` kills ring stage 1
+  mid-decode through ``runtime.failover.ElasticRingServer`` and exits
+  nonzero unless recovery loses no token and the tokens after it equal a
+  clean survivor-ring run fed the same history. ``--io-retries``,
+  ``--io-backoff-ms`` and ``--io-deadline-s`` set the ``IOPolicy`` of every
+  store read and tier copy.
 
 Observability, as in the JAX driver: ``--trace OUT.json`` attaches a
-``runtime.telemetry.Tracer`` to the served engine (and the prefetcher)
-and writes its Chrome trace (open it at https://ui.perfetto.dev) with the
-per-step stall attribution; ``--metrics-out OUT.json`` collects serving
-metrics in a ``runtime.metrics.MetricsRegistry`` and writes its snapshot
-(check it with ``python -m repro_torch.runtime.metrics --validate
-OUT.json``); ``--metrics-interval N`` prints a rolling line every N decode
-steps. On the card every engine replays its fixed-shape decode steps from
-CUDA graphs (see ``runtime.engine.StepGraphs``).
+``runtime.telemetry.Tracer`` to the decode steps and the served engines
+(and the prefetcher) and writes its Chrome trace (open it at
+https://ui.perfetto.dev) with the per-step stall attribution;
+``--metrics-out OUT.json`` collects serving metrics in a
+``runtime.metrics.MetricsRegistry`` and writes its snapshot (check it with
+``python -m repro_torch.runtime.metrics --validate OUT.json``);
+``--metrics-interval N`` prints a rolling line every N decode steps. On the
+card every engine replays its fixed-shape decode steps from CUDA graphs
+(see ``runtime.engine.StepGraphs``). Prints the kernel launch counts.
 """
 from __future__ import annotations
 
@@ -102,7 +102,6 @@ from ..runtime.serve import (RingPlan, RingServeStep, pad_and_permute,
 from ..runtime.streaming import (StreamingParamSource, StreamingRingDriver,
                                  make_streaming_engine)
 from ..runtime.telemetry import Tracer, clock, format_summary, resolve_tracer
-from .mesh import make_ring_layout
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -123,18 +122,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "this) (default prompt-len + 8)")
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--ctx", type=int, default=64)
-    ap.add_argument("--page-tokens", type=int, default=16)
+    ap.add_argument("--page-tokens", type=int, default=8)
+    ap.add_argument("--paged-kv", action="store_true",
+                    help="serve the requests through the paged engine and "
+                         "then the dense-cache engine; exit nonzero on any "
+                         "token mismatch")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="N>0: chunked admission in N-token chunks")
+                    help="paged: chunked admission in N-token chunks")
     ap.add_argument("--kv-quant-kernel", action="store_true",
-                    help="int8 KV pages (decode through the fused-dequant "
-                         "kernel)")
-    ap.add_argument("--dtype", choices=tuple(DTYPES), default="bf16")
+                    help="paged: int8 KV pages (decode through the "
+                         "fused-dequant kernel)")
+    ap.add_argument("--dtype", choices=tuple(DTYPES), default=None,
+                    help="weights and caches (default f32 with --smoke, "
+                         "as the JAX driver's, else bf16)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--check-dense", action="store_true",
-                    help="also run the dense-cache engine on the same "
-                         "requests; exit nonzero on any token mismatch")
+                    help="the paged section with its dense-engine check "
+                         "(what --paged-kv runs)")
     ap.add_argument("--stream-window", type=int, default=0,
                     help="W>0: serve from a layer store in a temporary "
                          "directory through the layer-wise engine, W "
@@ -146,10 +151,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="with --stream-window: also serve the same "
                          "requests with the same weights resident; exit "
                          "nonzero on any token mismatch")
-    ap.add_argument("--stages", type=int, default=1,
+    ap.add_argument("--stages", type=int, default=4,
                     help="M>1: decode through the piped ring of M stages "
-                         "on the one device (the JAX driver's default is "
-                         "4)")
+                         "on the one device (1: on one device)")
     ap.add_argument("--ring-k", type=int, default=1,
                     help="with --stages: rounds per token (windows a "
                          "stage holds)")
@@ -157,9 +161,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="with --stages, T>1: also time a T-token "
                          "speculative verify pass through the ring against "
                          "T single steps")
-    ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallelism inside a ring stage: 1 only "
-                         "(ROADMAP Queue A item 8)")
+    ap.add_argument("--tp", type=int, default=2,
+                    help="the ring's tensor-parallel width: on the one card "
+                         "it picks the q4 groups and the vocab padding, and "
+                         "each stage runs unsharded (ROADMAP Queue A item "
+                         "6)")
+    ap.add_argument("--mesh", choices=("debug",), default="debug",
+                    help="the JAX driver's mesh: the port lays every stage "
+                         "on the one device")
     ap.add_argument("--chaos", choices=("none", "transient", "failover"),
                     default="none",
                     help="fault-injection smoke: 'transient' injects "
@@ -168,8 +177,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "recovery; 'failover' kills a ring stage "
                          "mid-decode and requires the elastic re-plan to "
                          "resume with zero tokens lost (both exit nonzero "
-                         "on a failed recovery; both need --stream-window, "
-                         "failover also --stages)")
+                         "on a failed recovery)")
     ap.add_argument("--chaos-faults", type=int, default=3,
                     help="consecutive transient faults to inject "
                          "(capped at --io-retries: retries re-hit the "
@@ -217,6 +225,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "`python -m repro_torch.runtime.metrics "
                          "--validate OUT.json`")
     args = ap.parse_args(argv)
+    if args.dtype is None:
+        args.dtype = "f32" if args.smoke else "bf16"
     if args.stream_window < 0:
         ap.error("--stream-window must be >= 0")
     if args.stream_window and (args.check_dense or args.prefill_chunk
@@ -224,9 +234,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--stream-window serves over a dense cache: it takes "
                  "neither --check-dense, --prefill-chunk nor "
                  "--kv-quant-kernel")
-    if not args.stream_window and (args.check_resident
-                                   or args.store_quant != "none"):
-        ap.error("--check-resident and --store-quant need --stream-window")
+    if not args.stream_window and args.check_resident:
+        ap.error("--check-resident needs --stream-window")
+    if args.store_quant != "none" and not (args.stream_window
+                                           or args.chaos != "none"):
+        ap.error("--store-quant needs a store: --stream-window or --chaos")
     tiered = args.device_budget > 0 or args.host_budget > 0 \
         or args.park_idle_s is not None
     if get_config(args.arch).family == "ssm" and (
@@ -238,28 +250,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.stream_window and tiered:
         ap.error("--device-budget, --host-budget and --park-idle-s tier a "
                  "paged cache: they do not take --stream-window")
-    if args.chaos != "none" and not args.stream_window:
-        ap.error(f"--chaos {args.chaos} injects faults into the streamed "
-                 f"layer reads: it needs --stream-window")
-    ring = args.stages > 1
-    if args.chaos == "failover" and not ring:
-        ap.error("--chaos failover kills a ring stage: it needs --stages")
-    if not ring and (args.ring_k != 1 or args.verify_tokens):
-        ap.error("--ring-k and --verify-tokens need --stages")
-    if ring and (args.check_dense or args.prefill_chunk or tiered):
-        ap.error("--stages decodes through the ring over a dense cache: it "
-                 "takes neither --check-dense, --prefill-chunk nor the tier "
-                 "flags")
-    if args.stages < 1 or args.ring_k < 1:
-        ap.error("--stages and --ring-k must be >= 1")
+    # the paged-only flags ask for the paged section, as --paged-kv does
+    args.paged_kv = bool(args.paged_kv or args.check_dense
+                         or args.prefill_chunk or args.kv_quant_kernel
+                         or tiered)
+    if args.stages < 1 or args.ring_k < 1 or args.tp < 1:
+        ap.error("--stages, --ring-k and --tp must be >= 1")
     if args.device_budget < 0 or args.host_budget < 0:
         ap.error("budgets must be >= 0 MB")
     return args
 
 
-def build_model(args: argparse.Namespace):
+def build_model(args: argparse.Namespace, params=None):
     """(cfg, params) for the flags: published widths (or reduced with
-    ``--smoke``), the optional depth cut, random weights from the seed."""
+    ``--smoke``), the optional depth cut, int8 KV with
+    ``--kv-quant-kernel``, random weights from the seed (or ``params``, a
+    ``DenseModel`` handed in, used as it is)."""
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
@@ -272,6 +278,8 @@ def build_model(args: argparse.Namespace):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is available "
                          "(pass --device cpu to run the plain versions)")
+    if params is not None:
+        return cfg, params
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, dtype=DTYPES[args.dtype], device=device)
     return cfg, params
@@ -574,17 +582,32 @@ def report(res: Dict, args: argparse.Namespace) -> Dict[str, float]:
 
 def store_tree(params, cfg, args: argparse.Namespace):
     """(the model as a stacked tree for the store, its unquantized block
-    bytes per layer): packed q4 (every matmul weight,
-    ``quantize_ring_params`` at tp=1) with ``--store-quant q4``."""
+    bytes per layer): packed q4 (every matmul weight, expert stacks and a
+    router included, ``quantize_ring_params`` at ``--tp``, as the JAX
+    driver picks the groups) with ``--store-quant q4``."""
     tree = tree_from_params(params)
     raw = sum(t.numel() * t.element_size()
               for t in tree_tensors(tree["blocks"])) // cfg.n_layers
     if args.store_quant == "q4":
-        tree, skipped = quantize_ring_params(tree, cfg, tp=1)
+        tree, skipped = quantize_ring_params(tree, cfg, tp=args.tp)
         if skipped:
             print(f"store-quant q4: {len(skipped)} leaves left "
                   f"unquantized: {', '.join(skipped)}")
     return tree, raw
+
+
+def write_store(params, cfg, args: argparse.Namespace):
+    """Write ``store_tree``'s tree to a new temporary directory; returns
+    (the directory, the tree, the store's bytes per layer)."""
+    tree, raw = store_tree(params, cfg, args)
+    sdir = tempfile.mkdtemp(prefix="paramstore_")
+    save_param_store(tree, cfg, sdir)
+    with ParamStore(sdir) as store:
+        print(f"store: {store.quant_format or 'unquantized'} manifest "
+              f"v{store.version}, {store.layer_nbytes / 1e6:.3f} MB/layer "
+              f"packed vs {raw / 1e6:.3f} MB/layer unquantized "
+              f"({store.layer_nbytes / raw:.3f}x)")
+        return sdir, tree, store.layer_nbytes
 
 
 def serve_layerwise(source, cfg, reqs, args: argparse.Namespace, *,
@@ -608,84 +631,136 @@ def serve_layerwise(source, cfg, reqs, args: argparse.Namespace, *,
             "summary": _p50_summary(fin, wall)}
 
 
-def serve_streamed(params, cfg, reqs, args: argparse.Namespace, *,
+def serve_streamed(sdir: str, tree, cfg, reqs, args: argparse.Namespace, *,
                    tracer=None, metrics=None) -> Dict:
-    """Write the store, serve from it with ``--stream-window`` layers
-    staged ahead, and (``--check-resident``) serve again resident; the
-    instruments see the streamed run."""
+    """Serve ``reqs`` from the store at ``sdir`` with ``--stream-window``
+    layers staged ahead and (``--check-resident``) again with ``tree``, the
+    stored weights, resident; the instruments see the streamed run."""
     W = args.stream_window
-    tree, raw = store_tree(params, cfg, args)
-    sdir = tempfile.mkdtemp(prefix="paramstore_")
-    try:
-        save_param_store(tree, cfg, sdir)
-        store = ParamStore(sdir)
-        total = store.layer_nbytes * cfg.n_layers
-        print(f"store: {store.quant_format or 'unquantized'} manifest "
-              f"v{store.version}, {store.layer_nbytes / 1e6:.3f} MB/layer "
-              f"packed vs {raw / 1e6:.3f} MB/layer unquantized "
-              f"({store.layer_nbytes / raw:.3f}x)")
-        with StreamingParamSource(store, window=W, device=args.device,
-                                  policy=io_policy(args),
-                                  tracer=tracer) as src:
-            res = serve_layerwise(src, cfg, reqs, args, tracer=tracer,
-                                  metrics=metrics)
-        st, summ = res["stats"], res["summary"]
-        print(f"streamed serve on {args.device} ({args.dtype}, window "
-              f"{W}/{cfg.n_layers} layers): {summ['requests']} requests "
-              f"through {args.batch} slots in {res['wall_s']:.3f} s "
-              f"({res['steps']} steps)")
-        print(f"  TTFT p50 {summ['ttft_p50_s'] * 1e3:.2f} ms, TPOT p50 "
-              f"{summ['tpot_p50_s'] * 1e3:.2f} ms, "
-              f"{summ['tokens_per_s']:.1f} tokens/s")
-        print(f"  peak resident weights {st.peak_resident_bytes / 1e6:.3f} "
-              f"MB of {total / 1e6:.3f} MB in the store; prefetch stall "
-              f"{st.stall_s * 1e3:.1f} ms; {st.total_bytes_read / 1e6:.3f} "
-              f"MB read in {len(st.events)} layer reads")
-        print(f"  kernel launches {ops.launch_counts()}")
-        res["store_layer_nbytes"] = store.layer_nbytes
-        if args.check_resident:
-            fin_r = serve_layerwise(ResidentSource(tree), cfg, reqs,
-                                    args)["finished"]
-            resident = {f.uid: f.tokens for f in fin_r}
-            streamed = {f.uid: f.tokens for f in res["finished"]}
-            if resident != streamed:
-                bad = [u for u in resident if resident[u] != streamed.get(u)]
-                raise SystemExit(f"streamed vs resident parity FAILED for "
-                                 f"uids {bad}")
-            print(f"  resident weights: tokens identical for "
-                  f"{len(resident)} requests")
-        if args.chaos == "transient":
-            res["chaos"] = serve_chaos(sdir, cfg, reqs, args, res)
-    finally:
-        shutil.rmtree(sdir, ignore_errors=True)
+    with StreamingParamSource(ParamStore(sdir), window=W,
+                              device=args.device, policy=io_policy(args),
+                              tracer=tracer) as src:
+        total = src.store.layer_nbytes * cfg.n_layers
+        res = serve_layerwise(src, cfg, reqs, args, tracer=tracer,
+                              metrics=metrics)
+        res["store_layer_nbytes"] = src.store.layer_nbytes
+    st, summ = res["stats"], res["summary"]
+    print(f"streamed serve on {args.device} ({args.dtype}, window "
+          f"{W}/{cfg.n_layers} layers): {summ['requests']} requests "
+          f"through {args.batch} slots in {res['wall_s']:.3f} s "
+          f"({res['steps']} steps)")
+    print(f"  TTFT p50 {summ['ttft_p50_s'] * 1e3:.2f} ms, TPOT p50 "
+          f"{summ['tpot_p50_s'] * 1e3:.2f} ms, "
+          f"{summ['tokens_per_s']:.1f} tokens/s")
+    print(f"  peak resident weights {st.peak_resident_bytes / 1e6:.3f} "
+          f"MB of {total / 1e6:.3f} MB in the store; prefetch stall "
+          f"{st.stall_s * 1e3:.1f} ms; {st.total_bytes_read / 1e6:.3f} "
+          f"MB read in {len(st.events)} layer reads")
+    print(f"  kernel launches {ops.launch_counts()}")
+    if args.check_resident:
+        fin_r = serve_layerwise(ResidentSource(tree), cfg, reqs,
+                                args)["finished"]
+        resident = {f.uid: f.tokens for f in fin_r}
+        streamed = {f.uid: f.tokens for f in res["finished"]}
+        if resident != streamed:
+            bad = [u for u in resident if resident[u] != streamed.get(u)]
+            raise SystemExit(f"streamed vs resident parity FAILED for "
+                             f"uids {bad}")
+        print(f"  resident weights: tokens identical for "
+              f"{len(resident)} requests")
     return res
 
 
-def serve_chaos(sdir: str, cfg, reqs, args: argparse.Namespace,
-                clean: Dict) -> Dict:
-    """``--chaos transient``: serve ``reqs`` again from the store at
-    ``sdir`` with ``--chaos-faults`` (at most ``--io-retries``)
-    consecutive layer-read faults injected after the 4th read, and exit
-    nonzero unless the tokens equal the ``clean`` run's (the JAX driver's
-    ``_chaos_smoke``). Returns the fired faults and the prefetch stats."""
+def layerwise_decode(source, params, cfg, args: argparse.Namespace, *,
+                     tracer=None) -> Dict:
+    """The JAX driver's streamed decode of the batch: the prompts prefill
+    with the resident weights ``params``, then ``--new-tokens`` greedy
+    steps pull every layer from ``source``. Returns the tokens (B,
+    new_tokens + 1), the first one from the prefill, and the step
+    seconds."""
+    from ..models import model as M
+
+    device = torch.device(args.device)
+    prompts = ring_prompts(cfg, args)
+    cache = init_cache(cfg, args.batch, args.ctx, dtype=DTYPES[args.dtype],
+                       device=device)
+    logits, cache = M.prefill(params, cfg, prompts, cache)
+    nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+
+    def step(c, t):
+        return M.decode_step_layerwise(source, cfg, c, t)
+    run = greedy_steps(step, cache, nxt, args.new_tokens, device,
+                       tracer=tracer)
+    return {"tokens": np.concatenate([nxt.cpu().numpy(),
+                                      run["tokens"][:, :, 0]], 1),
+            "step_s": run["step_s"]}
+
+
+def serve_stream(params, cfg, args: argparse.Namespace, *, tracer=None,
+                 metrics=None) -> Dict:
+    """``--stream-window W``: write the store, decode the batch layer by
+    layer from it (``layerwise_decode``, the JAX driver's
+    ``_stream_smoke``), on the ring also ``stream_ring``, then serve the
+    requests through the layer-wise engine (``serve_streamed``)."""
+    W = args.stream_window
+    sdir, tree, layer_nbytes = write_store(params, cfg, args)
+    try:
+        with StreamingParamSource(ParamStore(sdir), window=W,
+                                  device=args.device, policy=io_policy(args),
+                                  tracer=tracer) as src:
+            dec = layerwise_decode(src, params, cfg, args, tracer=tracer)
+            st = src.stats()
+        per_tok = float(np.median(dec["step_s"]))
+        print(f"streamed decode (window={W}/{cfg.n_layers} layers, "
+              f"store={args.store_quant}): {args.new_tokens} tokens x "
+              f"{args.batch} seqs -> {per_tok * 1e3:.1f} ms/token/batch "
+              f"(median step); peak resident "
+              f"{st.peak_resident_bytes / 1e6:.3f} MB of "
+              f"{layer_nbytes * cfg.n_layers / 1e6:.3f} MB weights; prefetch "
+              f"stall {st.stall_s * 1e3:.1f} ms")
+        out = {"tokens": dec["tokens"], "step_s": dec["step_s"],
+               "decode_stats": st, "ring": None}
+        if args.stages > 1 and ring_supported(cfg, args.batch, args.stages):
+            out["ring"] = stream_ring(sdir, tree, cfg, args, tracer=tracer)
+        out.update(serve_streamed(sdir, tree, cfg, make_requests(cfg, args),
+                                  args, tracer=tracer, metrics=metrics))
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    return out
+
+
+def serve_chaos(params, cfg, args: argparse.Namespace) -> Dict:
+    """``--chaos transient``: decode the batch layer by layer
+    (``layerwise_decode``) from a store of its own (``store_tree``) at
+    window ``--stream-window`` (2 without it), then again from the same
+    store with ``--chaos-faults`` (at most ``--io-retries``) consecutive
+    layer-read faults injected after the 4th read, and exit nonzero unless
+    the tokens are equal (the JAX driver's ``_chaos_smoke``). Returns the
+    fired faults, the prefetch stats and the tokens."""
+    window = args.stream_window or 2
     policy = io_policy(args)
-    n = min(args.chaos_faults, policy.max_retries)
-    inj = FaultInjector([FaultSpec(op="layer_read", after=4, times=n)])
-    with StreamingParamSource(FaultyStore(ParamStore(sdir), inj),
-                              window=args.stream_window, device=args.device,
-                              policy=policy) as src:
-        res = serve_layerwise(src, cfg, reqs, args)
-    want = {f.uid: f.tokens for f in clean["finished"]}
-    got = {f.uid: f.tokens for f in res["finished"]}
-    if got != want:
-        bad = [u for u in want if want[u] != got.get(u)]
-        raise SystemExit(f"chaos transient: tokens DIVERGED after retry "
-                         f"recovery for uids {bad}")
-    st = res["stats"]
+    sdir, _, _ = write_store(params, cfg, args)
+    try:
+        def decode(store):
+            with StreamingParamSource(store, window=window,
+                                      device=args.device,
+                                      policy=policy) as src:
+                return (layerwise_decode(src, params, cfg, args)["tokens"],
+                        src.stats())
+
+        clean, _ = decode(ParamStore(sdir))
+        n = min(args.chaos_faults, policy.max_retries)
+        inj = FaultInjector([FaultSpec(op="layer_read", after=4, times=n)])
+        chaos, st = decode(FaultyStore(ParamStore(sdir), inj))
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    if not np.array_equal(clean, chaos):
+        raise SystemExit("chaos transient: tokens DIVERGED after retry "
+                         "recovery")
     print(f"chaos transient: {len(inj.fired)} injected disk faults "
           f"absorbed by retry/backoff ({st.retries} retries in "
           f"PrefetchStats); tokens byte-identical to the clean run")
-    return {"fired": list(inj.fired), "stats": st}
+    return {"fired": list(inj.fired), "stats": st, "tokens": chaos}
 
 
 # --------------------------------------------------------------------------- #
@@ -693,11 +768,10 @@ def serve_chaos(sdir: str, cfg, reqs, args: argparse.Namespace,
 # --------------------------------------------------------------------------- #
 
 def ring_prompts(cfg, args: argparse.Namespace) -> torch.Tensor:
-    """``--batch`` prompts of ``--prompt-len`` tokens (seed 7): the ring
-    decodes one batch of equal-length prompts, as the JAX driver's does."""
-    gen = RequestGenerator(cfg.vocab, seed=7,
-                           prompt_len=(args.prompt_len, args.prompt_len + 1),
-                           max_new=args.new_tokens)
+    """``--batch`` prompts of ``--prompt-len`` tokens, drawn as the JAX
+    driver draws its batch (``RequestGenerator`` seed 1, one length)."""
+    gen = RequestGenerator(cfg.vocab, seed=1,
+                           prompt_len=(args.prompt_len, args.prompt_len + 1))
     return torch.tensor(np.stack([r.prompt for r in gen.generate(args.batch)]),
                         dtype=torch.int32, device=args.device)
 
@@ -805,6 +879,16 @@ def ring_splits(ring: Dict, one: Dict) -> List[Tuple[int, int, float,
     return splits
 
 
+def vocab_cut(step: Callable, cfg) -> Callable:
+    """``step`` with its logits cut to the vocab: a ring's head pads the
+    vocab to a multiple of ``--tp`` (``pad_vocab``), as the JAX driver
+    slices ``logits[..., :cfg.vocab]``."""
+    def fn(cache, tokens):
+        logits, cache = step(cache, tokens)
+        return logits[..., :cfg.vocab], cache
+    return fn
+
+
 def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
                metrics=None) -> Dict:
     """``--stages M``: prefill on the one-device path, decode
@@ -823,8 +907,9 @@ def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
     if metrics is not None:
         metrics.observe("request/ttft_s", ttft)
     plan = RingPlan.make(cfg, Mst, k=args.ring_k)
-    rparams = ring_params(weights, cfg, plan)
-    step = RingServeStep(cfg, plan, rparams, graphs=card, device=device)
+    rparams = ring_params(weights, cfg, plan, tp=args.tp)
+    step = vocab_cut(RingServeStep(cfg, plan, rparams, graphs=card,
+                                   device=device), cfg)
     rcache = to_ring_cache(cache, cfg, plan)
     # bf16 on the card: the ring multiplies microbatches of B/M rows where
     # the one-device step multiplies B, so the sums may run in another
@@ -850,7 +935,8 @@ def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
                              f"difference): {splits or 'f32: none allowed'})")
         print(f"  near-tie splits (row, step, top-2 gap, logit difference,"
               f" over max|logit|): {splits}")
-    out = {"plan": plan, "tokens": ring["tokens"], "step_s": ring["step_s"],
+    out = {"plan": plan, "first": nxt.cpu().numpy(),
+           "tokens": ring["tokens"], "step_s": ring["step_s"],
            "one_device_tokens": one["tokens"], "tokens_equal": equal,
            "one_device_step_s": one["step_s"], "prefill_s": ttft,
            "verify_ms": None}
@@ -881,53 +967,50 @@ def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
     return out
 
 
-def serve_ring_streamed(params, cfg, args: argparse.Namespace, *,
-                        tracer=None, metrics=None) -> Dict:
-    """``--stages M --stream-window W``: write the layer store (q4 with
-    ``--store-quant q4``), run the resident ring over the stored weights
-    (``serve_ring``), then the streamed ring over the store
-    (``StreamingRingDriver``, banks ``max(1, W // w)`` steps ahead) from
-    the same prefill, and exit nonzero on any token mismatch; with
-    ``--chaos failover`` also ``serve_failover`` on the store."""
+def stream_ring(sdir: str, tree, cfg, args: argparse.Namespace, *,
+                tracer=None) -> Dict:
+    """The stream section's ring: from the batch prefilled over ``tree``
+    (the stored weights, q4 included), ``--new-tokens`` steps through the
+    resident ring over ``tree`` and through the streamed ring over the
+    store at ``sdir`` (``StreamingRingDriver``, banks ``max(1, W // w)``
+    steps ahead), and exit nonzero on any token mismatch. The JAX driver
+    streams its ring from a fresh cache; the port's starts where the
+    resident ring starts, so the two can be compared token for token."""
     device = torch.device(args.device)
     W = args.stream_window
-    tree, raw = store_tree(params, cfg, args)
-    sdir = tempfile.mkdtemp(prefix="paramstore_")
+    plan = RingPlan.make(cfg, args.stages, k=args.ring_k)
+    _, cache, nxt, _ = ring_prefill(tree, cfg, args)
+    resident = vocab_cut(RingServeStep(
+        cfg, plan, ring_params(tree, cfg, plan, tp=args.tp),
+        graphs=device.type == "cuda", device=device), cfg)
+    ref = greedy_steps(resident, to_ring_cache(cache, cfg, plan), nxt,
+                       args.new_tokens, device)
+    store = ParamStore(sdir)
+    total = store.layer_nbytes * cfg.n_layers
+    drv = StreamingRingDriver(cfg, plan, store,
+                              prefetch_depth=max(1, W // plan.w),
+                              device=device, policy=io_policy(args),
+                              tracer=tracer)
     try:
-        save_param_store(tree, cfg, sdir)
-        res = serve_ring(tree, cfg, args, metrics=metrics)
-        plan = res["plan"]
-        _, cache, nxt, _ = ring_prefill(tree, cfg, args)
-        store = ParamStore(sdir)
-        total = store.layer_nbytes * cfg.n_layers
-        drv = StreamingRingDriver(cfg, plan, store,
-                                  prefetch_depth=max(1, W // plan.w),
-                                  device=device, policy=io_policy(args),
-                                  tracer=tracer)
-        try:
-            run = greedy_steps(drv.step, to_ring_cache(cache, cfg, plan), nxt,
-                               args.new_tokens, device)
-        finally:
-            drv.close()
-            store.close()
-        st = drv.stats()
-        if not np.array_equal(run["tokens"], res["tokens"]):
-            raise SystemExit("streamed ring vs resident ring parity FAILED")
-        print(f"streamed ring decode (k={plan.k}, w={plan.w}, "
-              f"M={args.stages}, {max(1, W // plan.w)} banks ahead): "
-              f"{float(np.median(run['step_s'])) * 1e3:.1f} ms/token/batch; "
-              f"peak staged {st.peak_resident_bytes / 1e6:.3f} MB of "
-              f"{total / 1e6:.3f} MB in the store; stall "
-              f"{st.stall_s * 1e3:.1f} ms; tokens equal to the resident "
-              f"ring's")
-        res.update(streamed_tokens=run["tokens"],
-                   streamed_step_s=run["step_s"], stream_stats=st,
-                   store_bytes=total)
-        if args.chaos == "failover":
-            res["failover"] = serve_failover(sdir, cfg, args, tracer=tracer)
+        run = greedy_steps(vocab_cut(drv.step, cfg),
+                           to_ring_cache(cache, cfg, plan), nxt,
+                           args.new_tokens, device)
     finally:
-        shutil.rmtree(sdir, ignore_errors=True)
-    return res
+        drv.close()
+        store.close()
+    st = drv.stats()
+    if not np.array_equal(run["tokens"], ref["tokens"]):
+        raise SystemExit("streamed ring vs resident ring parity FAILED")
+    print(f"streamed ring decode (k={plan.k}, w={plan.w}, "
+          f"M={args.stages}, {max(1, W // plan.w)} banks ahead): "
+          f"{float(np.median(run['step_s'])) * 1e3:.1f} ms/token/batch; "
+          f"peak staged {st.peak_resident_bytes / 1e6:.3f} MB of "
+          f"{total / 1e6:.3f} MB in the store; stall "
+          f"{st.stall_s * 1e3:.1f} ms; tokens equal to the resident ring's "
+          f"over the stored weights")
+    return {"plan": plan, "stored_tokens": ref["tokens"],
+            "streamed_tokens": run["tokens"], "streamed_step_s":
+            run["step_s"], "stream_stats": st, "store_bytes": total}
 
 
 def serve_failover(sdir: str, cfg, args: argparse.Namespace, *,
@@ -949,7 +1032,7 @@ def serve_failover(sdir: str, cfg, args: argparse.Namespace, *,
     if n_new < 3:
         raise SystemExit("--chaos failover kills a stage at the third "
                          "token: it needs --new-tokens >= 3")
-    kw = dict(batch=args.batch, ctx=args.ctx, tp=args.tp,
+    kw = dict(batch=args.batch, ctx=args.ctx, tp=1,     # layout: one card
               policy=io_policy(args), device=args.device,
               cache_dtype=DTYPES[args.dtype])
     inj = FaultInjector([FaultSpec(op="layer_read", mode="stage_failure",
@@ -997,39 +1080,66 @@ def serve_failover(sdir: str, cfg, args: argparse.Namespace, *,
             "fired": list(inj.fired)}
 
 
-def main(argv: Optional[List[str]] = None) -> Dict:
-    args = parse_args(argv)
-    make_ring_layout(args.stages, args.tp, args.device)
-    cfg, params = build_model(args)
-    tracer, metrics = instruments(args)
-    if args.stages > 1:
-        if ring_supported(cfg, args.batch, args.stages):
-            serve = serve_ring_streamed if args.stream_window \
-                else serve_ring
-            res = {"ring": serve(params, cfg, args, tracer=tracer,
-                                 metrics=metrics)}
-            export_instruments(tracer, metrics, args)
-            return res
-        print(f"{cfg.name}: ring unsupported for B={args.batch}, "
-              f"M={args.stages} (family {cfg.family}; the batch must split "
-              f"over the stages) -- decoding on one device")
+def serve_decode(params, cfg, args: argparse.Namespace, *, tracer=None,
+                 metrics=None) -> Dict:
+    """The decode section: prefill the batch, then decode it through the
+    ring (``serve_ring``) where ``--stages`` > 1 and ``ring_supported``
+    holds, else on one device. Returns the tokens (B, new_tokens + 1),
+    the first one from the prefill, and the ring's result or None."""
+    device = torch.device(args.device)
+    B, Mst = args.batch, args.stages
+    if Mst > 1 and ring_supported(cfg, B, Mst):
+        ring = serve_ring(params, cfg, args, tracer=tracer, metrics=metrics)
+        return {"tokens": np.concatenate([ring["first"],
+                                          ring["tokens"][:, :, 0]], 1),
+                "ring": ring}
+    if Mst > 1:
+        print(f"{cfg.name}: ring unsupported for B={B}, M={Mst} (family "
+              f"{cfg.family}; the batch must split over the stages) -- "
+              f"decoding on one device")
+    prompts, cache, nxt, ttft = ring_prefill(params, cfg, args)
+    print(f"prefill: {B}x{prompts.shape[1]} tokens in {ttft * 1e3:.0f} ms")
+    if metrics is not None:
+        metrics.observe("request/ttft_s", ttft)
+    run = greedy_steps(one_device_decode(params, cfg, device), cache, nxt,
+                       args.new_tokens, device, tracer=tracer,
+                       metrics=metrics)
+    print(f"one-device decode: {args.new_tokens} tokens x {B} seqs -> "
+          f"{float(np.median(run['step_s'])) * 1e3:.1f} ms/token/batch "
+          f"(median step)")
+    return {"tokens": np.concatenate([nxt.cpu().numpy(),
+                                      run["tokens"][:, :, 0]], 1),
+            "ring": None}
+
+
+def serve_paged_section(params, cfg, args: argparse.Namespace, *,
+                        tracer=None, metrics=None) -> Dict:
+    """The paged section (the JAX driver's ``_paged_smoke``): the requests
+    through the paged engine (an ssm model: the dense-cache engine), then
+    through the dense-cache engine, exiting nonzero on any token mismatch
+    (not for int8 pages with chunked admission, which never match the
+    dense engine); then the tiers when a budget or parking is asked
+    for."""
+    device = torch.device(args.device)
     reqs = make_requests(cfg, args)
-    if args.stream_window:
-        res = serve_streamed(params, cfg, reqs, args, tracer=tracer,
-                             metrics=metrics)
-    elif cfg.family == "ssm":
+    if cfg.family == "ssm":
+        print(f"paged-kv: {cfg.name} keeps a recurrent state, not KV pages:"
+              f" served through the dense-cache engine")
         res = serve_dense(params, cfg, reqs, args, tracer=tracer,
                           metrics=metrics)
     else:
         res = serve_paged(params, cfg, reqs, args, tracer=tracer,
                           metrics=metrics)
         res["summary"] = report(res, args)
-    export_instruments(tracer, metrics, args)
     if res["rejected"]:
         raise SystemExit(f"{len(res['rejected'])} requests shed: "
                          f"{res['rejected'][0].reason}")
-    if args.check_dense:
-        device = torch.device(args.device)
+    if cfg.family == "ssm":
+        return res
+    if cfg.kv_dtype == "int8" and args.prefill_chunk:
+        print("  dense engine: not compared (int8 pages with chunked "
+              "admission never match it, in either package)")
+    else:
         eng = make_dense_engine(params, cfg, args.batch, args.ctx,
                                 cache_dtype=DTYPES[args.dtype],
                                 device=device)
@@ -1048,8 +1158,60 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         res["tiered"] = serve_tiered(
             params, cfg, reqs, args,
             {f.uid: f.tokens for f in res["finished"]})
-    res["ring"] = None
     return res
+
+
+def run(args: argparse.Namespace, params=None) -> Dict:
+    """Every section the flags ask for, in the JAX driver's order:
+    decode, stream, paged, chaos. ``params``: a ``DenseModel`` to serve in
+    place of the seed's random weights. Returns each section's result
+    under its name (``decode``, ``stream``, ``paged``, ``chaos``) and the
+    ring's under ``ring`` (with the stream section's streamed ring merged
+    in)."""
+    if args.tp != 1:
+        print(f"tp={args.tp}: layout only on the one card (the store's q4 "
+              f"groups and the vocab padding follow it); every stage runs "
+              f"unsharded")
+    cfg, params = build_model(args, params)
+    # --kv-quant-kernel asks for int8 pages: the other sections keep the
+    # config's own cache, as the JAX driver's do
+    base = dataclasses.replace(cfg, kv_dtype=get_config(args.arch).kv_dtype)
+    tracer, metrics = instruments(args)
+    res: Dict = {"decode": serve_decode(params, base, args, tracer=tracer,
+                                        metrics=metrics)}
+    res["ring"] = res["decode"]["ring"]
+    if args.stream_window:
+        res["stream"] = st = serve_stream(params, base, args, tracer=tracer,
+                                          metrics=metrics)
+        if st["ring"] is not None:
+            res["ring"].update(st["ring"])
+        if st["rejected"]:
+            raise SystemExit(f"{len(st['rejected'])} requests shed: "
+                             f"{st['rejected'][0].reason}")
+    if args.paged_kv:
+        res["paged"] = serve_paged_section(params, cfg, args, tracer=tracer,
+                                           metrics=metrics)
+    if args.chaos == "transient":
+        res["chaos"] = serve_chaos(params, base, args)
+    elif args.chaos == "failover":
+        if res["ring"] is None:
+            print("chaos failover: ring path unavailable -- skipped")
+            res["chaos"] = None
+        else:
+            sdir, _, _ = write_store(params, base, args)
+            try:
+                res["chaos"] = serve_failover(sdir, base, args,
+                                              tracer=tracer)
+            finally:
+                shutil.rmtree(sdir, ignore_errors=True)
+    print("sample token ids:", res["decode"]["tokens"][:, -1][:8].tolist())
+    print(f"kernel launches {ops.launch_counts()}")
+    export_instruments(tracer, metrics, args)
+    return res
+
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    return run(parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Layer library of the port: the dense GQA and paged-cache subset of
-``repro.models.layers``, in PyTorch.
+"""Layer library of the port: the dense GQA, MoE FFN, Mamba-2 and
+paged-cache subset of ``repro.models.layers``, in PyTorch.
 
 Functions over tensors and parameter modules (``models.model``), at the
 JAX package's layouts so the tests compare like with like:
@@ -512,6 +512,110 @@ def attn_block_paged(p, cfg: ModelConfig, x: torch.Tensor, positions,
 
 def glu_ffn(p, x: torch.Tensor) -> torch.Tensor:
     return qmm(swish(qmm(x, p.w_gate)) * qmm(x, p.w_up), p.w_down)
+
+
+#: tokens a dispatch takes at once; a longer step splits into chunks, each
+#: with its own capacity (the JAX package's bound on the (E, C, d) buffer)
+MOE_MAX_CHUNK = 65_536
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` at the promoted dtype, as jnp promotes a mixed product
+    (bf16 activations against a router dequantized to f32 give f32)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def expert_mm(x: torch.Tensor, w) -> torch.Tensor:
+    """Every expert's product: x (E, C, K) by w (E, K, N), in x.dtype.
+
+    A packed q4 stack (E, K/2, N) on the card goes to kernel B3 one
+    expert's 2-D slice at a time, at M = C rows: E launches, every expert
+    whether or not a token was routed to it, so the shapes are fixed and a
+    decode step stays graphable. That is the same function as the JAX
+    package's, which dequantizes the stack to f32 and multiplies (B3
+    dequantizes tile by tile in f32 and accumulates in f32), without
+    writing the dequantized stack: mixtral-8x7b's three stacks are 5.6 GB
+    a layer in f32. Elsewhere a quantized stack dequantizes at use, as
+    ``qmm`` does, and a plain stack is one batched product.
+    """
+    if isinstance(w, QuantizedTensor):
+        from ..kernels import ops
+
+        if w.bits == 4 and ops.kernels_active(x):
+            out = [ops.q4_matmul(x[e].contiguous(), w.packed[e], w.scale[e],
+                                 group=w.group)
+                   for e in range(x.shape[0])]
+            return torch.stack(out).to(x.dtype)
+        return x @ dequantize_leaf(w, torch.float32).to(x.dtype)
+    return _matmul(x, w).to(x.dtype)
+
+
+def moe_route(router, cfg: ModelConfig, xt: torch.Tensor, *,
+              lossless: bool) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The JAX package's routing of ``xt`` (T, d): f32 router logits,
+    softmax, top-k (ties to the lower expert, as ``lax.top_k``), gates
+    normalised by max(sum, 1e-9); then each routed row's place in its
+    expert's capacity bucket from the cumulative count over the flattened
+    (T*K) routing, token-major then k. Returns (gates (T, K), slot (T*K,)
+    in [0, E*C], E*C for a row over capacity, C)."""
+    T = xt.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
+    logits = _matmul(xt, router).float()                      # (T, E)
+    probs, idx = torch.softmax(logits, -1).sort(dim=-1, descending=True,
+                                                stable=True)
+    gates, idx = probs[:, :K], idx[:, :K]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    cf = cfg.moe_capacity_factor
+    if lossless or cf is None:
+        C = T
+    else:
+        C = min(max(int(K * T / E * cf), 1), T)
+    flat_e = idx.reshape(-1)                                  # (T*K,)
+    oh = (flat_e[:, None] == torch.arange(E, device=xt.device)).long()
+    pos_in_e = (oh.cumsum(0) * oh).sum(-1) - 1
+    slot = torch.where(pos_in_e < C, flat_e * C + pos_in_e,
+                       torch.full_like(flat_e, E * C))
+    return gates, slot, C
+
+
+def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
+            lossless: bool = False) -> torch.Tensor:
+    """Top-k MoE with capacity-bounded dispatch (``repro.models.layers.
+    moe_ffn``): routed rows scatter into one (E*C + 1, d) buffer (rows
+    over capacity to the pad row E*C, which nothing reads), the experts
+    run over (E, C, d) (``expert_mm``), and the outputs gather back
+    weighted by the gates. ``lossless`` (or ``cfg.moe_capacity_factor``
+    None) sets C = T, so no row is dropped. Every shape is fixed by x's, and
+    nothing reads a value back to the host, so a step stays graphable."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    n_chunks = max(-(-(B * S) // MOE_MAX_CHUNK), 1)
+    if S % n_chunks == 0 and n_chunks > 1:
+        xs = x.reshape(B, n_chunks, S // n_chunks, d).transpose(0, 1)
+        out = torch.stack([moe_ffn(p, cfg, xc, lossless=lossless)
+                           for xc in xs])
+        return out.transpose(0, 1).reshape(B, S, d)
+    xt = x.reshape(B * S, d)
+    gates, slot, C = moe_route(p.router, cfg, xt, lossless=lossless)
+    buf = x.new_zeros((E * C + 1, d))
+    buf.index_copy_(0, slot, xt.repeat_interleave(K, 0))
+    xe = buf[:E * C].reshape(E, C, d)
+    h = swish(expert_mm(xe, p.w_gate)) * expert_mm(xe, p.w_up)
+    ye = expert_mm(h, p.w_down)
+    ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
+    y = (ye_flat[slot].reshape(B * S, K, d)
+         * gates.to(ye.dtype)[..., None]).sum(1)
+    return y.reshape(B, S, d)
+
+
+def block_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
+              lossless: bool) -> torch.Tensor:
+    """A dense block's FFN: ``moe_ffn`` over ``p.moe`` for the moe family,
+    else ``glu_ffn`` over ``p.ffn``."""
+    if cfg.n_experts:
+        return moe_ffn(p.moe, cfg, x, lossless=lossless)
+    return glu_ffn(p.ffn, x)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,13 +1,17 @@
-"""Model assembly of the port: the dense GQA and ssm (Mamba-2) families,
-init / forward / prefill / decode over a dense cache (dense GQA also over
-a paged KV cache), with resident weights or layer by layer from a
-``ParamSource`` (the streamed path).
+"""Model assembly of the port: the dense GQA, moe and ssm (Mamba-2)
+families, init / forward / prefill / decode over a dense cache (dense GQA
+and moe also over a paged KV cache), with resident weights or layer by
+layer from a ``ParamSource`` (the streamed path).
 
-Counterpart of ``repro.models.model`` for those two families. Parameters
-are ``nn.Module``s (``DenseModel`` > ``DenseBlock`` > ``Attention``/``GLU``,
-or ``DenseModel`` > ``SSDBlock`` > ``SSD``) whose tensors keep the JAX
-pytree's names and (in, out) layouts; a Python loop over ``blocks`` takes
-the place of ``lax.scan``.
+Counterpart of ``repro.models.model`` for those three families.
+Parameters are ``nn.Module``s (``DenseModel`` > ``DenseBlock`` >
+``Attention`` and ``GLU`` or ``MoE``, or ``DenseModel`` > ``SSDBlock`` >
+``SSD``) whose tensors keep the JAX pytree's names and (in, out) layouts;
+a Python loop over ``blocks`` takes the place of ``lax.scan``. A moe
+block's dispatch drops rows over capacity where the JAX package's does:
+in a dense or layer-wise prefill (``moe_capacity_factor``; None, as the
+reduced configs set it, drops nothing); decode, the paged paths and the
+ring run lossless.
 
 Caches (device tensors, written in place):
 
@@ -17,7 +21,7 @@ Caches (device tensors, written in place):
            "state": (L, B, nh, P, N)}}
   paged : {"pages": {leaf: (L, P, bs, ...)}, "block_table": (B, nb),
            "len": (B,)}  (built by ``runtime.kvcache.PagedKVCache``;
-           dense GQA only)
+           dense GQA and moe)
 
 Every function returns a new cache dict (``len`` advanced) over the same
 tensors, so callers keep the JAX package's ``cache = f(cache, ...)`` flow
@@ -32,8 +36,9 @@ The layer-wise paths (``forward_layerwise``, ``prefill_layerwise``,
 ``decode_step_layerwise``) pull each layer's tree from
 ``source.layer(i)`` (``runtime.paramstore`` / ``runtime.streaming``). A
 q4 ``QuantizedTensor`` under a projection key stays packed and goes
-through ``layers.qmm`` (kernel B3 on the card); any other quantized leaf
-is dequantized when its layer is pulled.
+through ``layers.qmm`` (kernel B3 on the card), a q4 expert stack through
+``layers.expert_mm`` (B3 once an expert); any other quantized leaf is
+dequantized when its layer is pulled.
 """
 from __future__ import annotations
 
@@ -72,13 +77,32 @@ class GLU(nn.Module):
                                                   (w_gate, w_up, w_down))
 
 
+class MoE(nn.Module):
+    """router (d, E), w_gate/w_up (E, d, f), w_down (E, f, d)."""
+
+    def __init__(self, router, w_gate, w_up, w_down):
+        super().__init__()
+        self.router, self.w_gate, self.w_up, self.w_down = map(
+            _param, (router, w_gate, w_up, w_down))
+
+
+#: an MoE's leaves, in the JAX tree's order
+MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
+
+
 class DenseBlock(nn.Module):
-    def __init__(self, attn_norm, attn: Attention, ffn_norm, ffn: GLU):
+    """Attention and an FFN: ``GLU`` (held as ``ffn``) or ``MoE`` (held as
+    ``moe``, the JAX tree's key)."""
+
+    def __init__(self, attn_norm, attn: Attention, ffn_norm, ffn):
         super().__init__()
         self.attn_norm = _param(attn_norm)
         self.attn = attn
         self.ffn_norm = _param(ffn_norm)
-        self.ffn = ffn
+        if isinstance(ffn, MoE):
+            self.moe = ffn
+        else:
+            self.ffn = ffn
 
 
 #: the SSD mixer's leaves, in the JAX tree's order
@@ -136,11 +160,18 @@ def _draws(generator: torch.Generator, dtype, device):
     return normal, ones, zeros
 
 
+#: the families the port serves, and where the others wait
+FAMILIES = ("dense", "moe", "ssm")
+MISSING_FAMILIES = ("MLA (minicpm3), vlm (qwen2-vl-2b), hybrid "
+                    "(recurrentgemma-9b) and audio (whisper-tiny) are "
+                    "ROADMAP Queue A item 5")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.mla:
+    if cfg.family not in FAMILIES or cfg.mla:
         raise NotImplementedError(
-            f"the port serves the dense GQA and ssm families only (got "
-            f"{cfg.name})")
+            f"the port serves the dense GQA, moe and ssm families (got "
+            f"{cfg.name}, family {cfg.family}); {MISSING_FAMILIES}")
 
 
 def _init_ssd_block(cfg: ModelConfig, normal, ones, zeros, dtype,
@@ -158,9 +189,11 @@ def _init_ssd_block(cfg: ModelConfig, normal, ones, zeros, dtype,
 def init_block(cfg: ModelConfig, generator: torch.Generator,
                dtype=torch.float32, device="cuda"):
     """One block's random weights, drawn from ``generator``: a dense block
-    (normal scaled by 1/sqrt(fan-in), zero biases, unit norms), or an SSD
-    block (projections as dense, conv_w normal x 0.1, dt_bias 0, a_log
-    log(linspace(1, 16, nh)), d_skip 1, unit norms)."""
+    (normal scaled by 1/sqrt(fan-in), zero biases, unit norms; attention,
+    then the GLU or the MoE's router, w_gate, w_up and w_down, the JAX
+    init's order), or an SSD block (projections as dense, conv_w normal x
+    0.1, dt_bias 0, a_log log(linspace(1, 16, nh)), d_skip 1, unit
+    norms)."""
     _check_family(cfg)
     normal, ones, zeros = _draws(generator, dtype, device)
     if cfg.family == "ssm":
@@ -172,8 +205,13 @@ def init_block(cfg: ModelConfig, generator: torch.Generator,
         if cfg.qkv_bias else ()
     attn = Attention(normal((d, H * hd), s), normal((d, hk * hd), s),
                      normal((d, hk * hd), s), normal((H * hd, d), s), *bias)
-    ffn = GLU(normal((d, f), s), normal((d, f), s),
-              normal((f, d), 1.0 / math.sqrt(f)))
+    if cfg.n_experts:
+        E = cfg.n_experts
+        ffn = MoE(normal((d, E), s), normal((E, d, f), s),
+                  normal((E, d, f), s), normal((E, f, d), 1.0 / math.sqrt(f)))
+    else:
+        ffn = GLU(normal((d, f), s), normal((d, f), s),
+                  normal((f, d), 1.0 / math.sqrt(f)))
     return DenseBlock(ones(d), attn, ones(d), ffn)
 
 
@@ -277,7 +315,8 @@ def _dense_layer(p, cfg: ModelConfig, x, positions, c: Optional[Dict], *,
                                                   cfg.norm_eps),
                          positions, cache=c, decode=decode)
     x = x + h
-    return x + ll.glu_ffn(p.ffn, ll.rms_norm(x, p.ffn_norm, cfg.norm_eps))
+    return x + ll.block_ffn(p, cfg, ll.rms_norm(x, p.ffn_norm, cfg.norm_eps),
+                            lossless=decode)
 
 
 def _ssd_layer(p, cfg: ModelConfig, x, c: Optional[Dict], *, decode: bool,
@@ -317,7 +356,7 @@ def _fresh(cfg: ModelConfig, cache: Optional[Dict]) -> bool:
 
 
 def _check_decode(cfg: ModelConfig, T: int) -> None:
-    if T > 1 and cfg.family != "dense":
+    if T > 1 and cfg.family not in ("dense", "moe"):
         raise ValueError(f"multi-token decode unsupported for {cfg.family}")
 
 
@@ -351,7 +390,7 @@ def decode_step(params: DenseModel, cfg: ModelConfig, cache: Dict,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """One decode step over the dense cache. tokens: (B, T); T > 1 is the
     speculative verify pass (causal among the T tokens; roll rejected
-    positions back with ``rollback_cache``), dense family only: recurrent
+    positions back with ``rollback_cache``), dense and moe only: recurrent
     state cannot roll back."""
     T = tokens.shape[1]
     _check_decode(cfg, T)
@@ -400,10 +439,10 @@ def _layerwise_backbone(source, cfg: ModelConfig, x, positions,
                         fresh: bool = False):
     """The stack one layer at a time, weights pulled from ``source``; the
     dense cache's layer ``i`` is written in place."""
-    if cfg.family not in ("dense", "ssm") or cfg.mla:
+    if cfg.family not in FAMILIES or cfg.mla:
         raise ValueError(f"layer-wise streaming unsupported for family "
-                         f"{cfg.family} (the port streams dense GQA and "
-                         f"ssm models)")
+                         f"{cfg.family} (the port streams dense GQA, moe "
+                         f"and ssm models; {MISSING_FAMILIES})")
     from ..bridge import block_from_tree
 
     for i in range(cfg.n_layers):
@@ -446,7 +485,7 @@ def prefill_layerwise(source, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step_layerwise(source, cfg: ModelConfig, cache: Dict,
                           tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """``decode_step`` with weights pulled from a ParamSource. tokens:
-    (B, T); T > 1 (dense family only) is a verify pass that reads each
+    (B, T); T > 1 (dense and moe) is a verify pass that reads each
     layer once for the whole block."""
     T = tokens.shape[1]
     _check_decode(cfg, T)
@@ -470,7 +509,8 @@ def _paged_backbone(params: DenseModel, cfg: ModelConfig, x, positions,
         h_in = ll.rms_norm(x, p.attn_norm, cfg.norm_eps)
         x = x + ll.attn_block_paged(p.attn, cfg, h_in, positions, pg, table,
                                     ln, prefill=prefill, write=write)
-        x = x + ll.glu_ffn(p.ffn, ll.rms_norm(x, p.ffn_norm, cfg.norm_eps))
+        x = x + ll.block_ffn(p, cfg, ll.rms_norm(x, p.ffn_norm, cfg.norm_eps),
+                             lossless=True)
     return x, {**cache, "len": ln + x.shape[1]}
 
 

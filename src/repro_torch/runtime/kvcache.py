@@ -1014,10 +1014,11 @@ def paged_cache_spec(cfg) -> Dict[str, Tuple[int, ...]]:
         raise ValueError(
             f"paged KV cache unsupported for family {cfg.family} "
             "(recurrent state has no per-token pages)")
-    if cfg.family != "dense" or cfg.mla:
+    if cfg.family not in ("dense", "moe") or cfg.mla:
         raise NotImplementedError(
-            f"the port's paged cache serves the dense GQA family only "
-            f"(got {cfg.name})")
+            f"the port's paged cache serves the dense GQA and moe families "
+            f"(got {cfg.name}): MLA latent pages (minicpm3) and vlm "
+            f"(qwen2-vl-2b) are ROADMAP Queue A item 5")
     hk, hd = max(cfg.kv_heads, 1), cfg.head_dim
     if cfg.kv_dtype == "int8":
         # int8 K/V plus per-(position, kv-head) scales in the pool dtype

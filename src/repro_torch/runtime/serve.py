@@ -7,7 +7,7 @@ block of k*w ring rows (``ring_permutation``). All M stages run in one
 process on one device (``launch.mesh.RingLayout``): each stage has its
 own k*w rows of the layer bank and of the cache, and the ring hop is a
 hand-off of a stage's output to the next stage. Tensor parallelism inside
-a stage (the JAX package's "model" axis) is ROADMAP Queue A item 8, so
+a stage (the JAX package's "model" axis) is ROADMAP Queue A item 6, so
 the sequence-split attention merge, the vocab-sharded embed and unembed
 and the split FFN are their tp = 1 identities here.
 
@@ -56,9 +56,9 @@ Params = Dict[str, Any]
 # --------------------------------------------------------------------------- #
 
 def ring_supported(cfg: ModelConfig, batch: int, n_stages: int) -> bool:
-    """Ring decode needs a uniform layer stack the port serves (dense GQA
-    or ssm) and the same number of sequences on every stage."""
-    return (cfg.family in ("dense", "ssm") and not cfg.mla
+    """Ring decode needs a uniform layer stack the port serves (dense GQA,
+    moe or ssm) and the same number of sequences on every stage."""
+    return (cfg.family in ("dense", "moe", "ssm") and not cfg.mla
             and n_stages >= 1 and batch % n_stages == 0)
 
 
@@ -108,7 +108,8 @@ def pad_and_permute(stacked: Any, cfg: ModelConfig, n_stages: int, k: int
 
 def pad_vocab(params: Params, cfg: ModelConfig, tp: int) -> Params:
     """Pad embed/unembed vocab to a multiple of tp (the vocab-sharded
-    head's divisibility; nothing to do at the port's tp = 1)."""
+    head's divisibility; the logits' padded columns are cut by the
+    caller)."""
     V = cfg.vocab
     V_pad = -(-V // tp) * tp
     if V_pad == V:
@@ -192,21 +193,23 @@ _RING_QMM_KEYS = frozenset({
 
 def dequant_ring_reference(blocks, dtype=torch.float32):
     """Dequantize a *stacked* ring layer bank with the numerics the window
-    applies at use: leaves consumed through ``layers.qmm`` keep full
-    precision (B3 multiplies int4 by the scale in f32), everything else
-    dequantizes through bf16 as ``_prep_ring_layer`` does."""
-    def walk(tree):
+    applies at use: leaves consumed through ``layers.qmm``, the q4 expert
+    stacks (B3 multiplies int4 by the scale in f32) and a moe router keep
+    full precision, everything else dequantizes through bf16 as
+    ``_prep_ring_layer`` does."""
+    def walk(tree, experts=False):
         if isinstance(tree, dict):
             out = {}
             for k, v in tree.items():
                 if isinstance(v, QuantizedTensor):
                     keep = (k in _RING_QMM_KEYS and v.bits == 4
-                            and v.packed.dim() == 3)
+                            and v.packed.dim() == 3 + experts) \
+                        or k == "router"
                     dq = dequantize_leaf(
                         v, torch.float32 if keep else torch.bfloat16)
                     out[k] = dq.to(dtype)
                 else:
-                    out[k] = walk(v)
+                    out[k] = walk(v, k == "moe")
             return out
         return tree
 
@@ -215,20 +218,24 @@ def dequant_ring_reference(blocks, dtype=torch.float32):
 
 def _prep_ring_layer(p):
     """One ring layer's tree for the window: 2-D q4 leaves consumed via
-    ``layers.qmm`` stay packed (B3 dequantizes them tile by tile); any
-    other quantized leaf dequantizes to bf16 up front, as in the JAX
-    package (the port's dense and ssm blocks have none)."""
-    def walk(tree):
+    ``layers.qmm`` stay packed (B3 dequantizes them tile by tile), and so
+    do the q4 expert stacks (``layers.expert_mm``: B3 once an expert,
+    where the JAX ring dequantizes them to bf16 first). A q4 moe router
+    dequantizes to f32, as the layer-wise path dequantizes it (the JAX
+    ring rounds it to bf16): its logits pick the experts, so the ring
+    routes as the one-device decode does. Any other quantized leaf
+    dequantizes to bf16 up front, as in the JAX package."""
+    def walk(tree, experts=False):
         if isinstance(tree, dict):
             out = {}
             for k, v in tree.items():
                 if isinstance(v, QuantizedTensor):
                     keep = (k in _RING_QMM_KEYS and v.bits == 4
-                            and v.packed.dim() == 2)
-                    out[k] = v if keep else dequantize_leaf(v,
-                                                            torch.bfloat16)
+                            and v.packed.dim() == 2 + experts)
+                    out[k] = v if keep else dequantize_leaf(
+                        v, torch.float32 if k == "router" else torch.bfloat16)
                 else:
-                    out[k] = walk(v)
+                    out[k] = walk(v, k == "moe")
             return out
         return tree
 
@@ -312,9 +319,10 @@ def _head(params) -> Params:
     return out
 
 
-def ring_params(params, cfg: ModelConfig, plan: RingPlan) -> Params:
+def ring_params(params, cfg: ModelConfig, plan: RingPlan,
+                tp: int = 1) -> Params:
     """The ring's parameters: the head (``embed``, ``final_norm``[,
-    ``unembed``]) and ``blocks``, the L_pad layer blocks in ring order
+    ``unembed``], the vocab padded to a multiple of ``tp``) and ``blocks``, the L_pad layer blocks in ring order
     (``pad_and_permute``'s order) built over views of ``params`` (a
     ``DenseModel`` or a stacked tree, q4 leaves included), so the ring
     holds no second copy of the weights; padding rows share one zero
@@ -333,7 +341,7 @@ def ring_params(params, cfg: ModelConfig, plan: RingPlan) -> Params:
                 zero = map_tree(torch.zeros_like, trees[0])
             tree = zero
         blocks.append(block_from_tree(_prep_ring_layer(tree)))
-    return dict(pad_vocab(_head(params), cfg, 1), blocks=blocks)
+    return dict(pad_vocab(_head(params), cfg, tp), blocks=blocks)
 
 
 # --------------------------------------------------------------------------- #
@@ -354,7 +362,7 @@ def _ring_attn_layer(cfg: ModelConfig, p, x, c, ln):
                          decode=True)
     x = x + o
     g = ll.rms_norm(x, p.ffn_norm, cfg.norm_eps)
-    return x + ll.glu_ffn(p.ffn, g)
+    return x + ll.block_ffn(p, cfg, g, lossless=True)
 
 
 def _ring_ssd_layer(cfg: ModelConfig, p, x, c, ln):

@@ -245,7 +245,7 @@ def test_feasible_raises_when_no_ring_fits():
 
 def test_server_refuses_tp_and_ragged_batch():
     _, cfg = _cfgs()
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(ValueError, match="item 6"):
         ElasticRingServer(cfg, object(), batch=8, ctx=32, n_stages=4,
                           tp=2, device="cpu")
     with pytest.raises(ValueError, match="ring unsupported"):
@@ -276,8 +276,8 @@ def test_driver_chaos_failover(capsys):
                        "--new-tokens", "6"])
     out = capsys.readouterr().out
     ring = res["ring"]
-    assert np.array_equal(ring["streamed_tokens"], ring["tokens"])
-    fo = ring["failover"]
+    assert np.array_equal(ring["streamed_tokens"], ring["stored_tokens"])
+    fo = res["chaos"]
     ev = fo["event"]
     assert ev.failed_stage == 1 and ev.tokens_lost == 0
     assert ev.token_index == 2 and ev.n_stages_after == 2

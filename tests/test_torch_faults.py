@@ -278,7 +278,7 @@ def test_serve_cli_chaos_transient(capsys):
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_serve_cli_budgets_and_parking(quant, capsys):
-    flags = ["--prefill-chunk", "16", "--device-budget",
+    flags = ["--page-tokens", "16", "--prefill-chunk", "16", "--device-budget",
              "0.04" if quant else "0.1", "--host-budget",
              "0.017" if quant else "0.07", "--park-idle-s", "0",
              "--io-deadline-s", "10"]
@@ -288,17 +288,18 @@ def test_serve_cli_budgets_and_parking(quant, capsys):
     # the 16 requests, then their prompts again: recalled from both tiers
     assert "tiered paged decode: 32 reqs byte-identical" in out
     assert "session parking: split run byte-identical" in out
-    tiers, kv = res["tiered"]["tiers"], res["tiered"]["kv"]
+    tiered = res["paged"]["tiered"]
+    tiers, kv = tiered["tiers"], tiered["kv"]
     assert tiers["device"].peak <= tiers["device"].capacity
     assert tiers["host"].peak <= tiers["host"].capacity
     assert kv.evictions > 0 and kv.spilled_pages > 0
     assert 0 < kv.fetched_disk_pages < len(kv.fetch_events)
-    assert res["tiered"]["session"].disk_bytes_written > 0
+    assert tiered["session"].disk_bytes_written > 0
 
 
 def test_serve_cli_rejects_misplaced_flags():
     with pytest.raises(SystemExit):
-        serve.parse_args(["--chaos", "transient"])          # no streaming
+        serve.parse_args(["--check-resident"])              # no streaming
     with pytest.raises(SystemExit):
         serve.parse_args(["--stream-window", "2", "--park-idle-s", "0"])
     with pytest.raises(SystemExit):

@@ -46,9 +46,11 @@ def test_walk_covers_every_port_module():
     """The import check above walks every module of the port, the q4
     streaming slice's (quant, store, prefetcher, kernel B3) and the
     speculative slice's (decoder, kernel B5, the qwen1.5 configs), the
-    tiered slice's (faults, the recall-cost terms) and the ring slice's
+    tiered slice's (faults, the recall-cost terms), the ring slice's
     (schedule, profiles, Halda, cluster selection, elastic re-plan,
-    failover, the ring layout) included."""
+    failover, the ring layout) and the moe slice's (the mixtral,
+    phi3.5-moe and minitron configs, the simulator, baselines and
+    profiler) included."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in FILES if p.name != "chip_smoke.py"}
     for want in ("quant/__init__.py", "quant/grouped.py",
@@ -60,5 +62,8 @@ def test_walk_covers_every_port_module():
                  "runtime/faults.py", "core/latency.py",
                  "core/ring.py", "core/profiles.py", "core/halda.py",
                  "core/cluster.py", "runtime/elastic.py",
-                 "runtime/failover.py", "launch/mesh.py"):
+                 "runtime/failover.py", "launch/mesh.py",
+                 "configs/mixtral.py", "configs/phi35_moe.py",
+                 "configs/minitron_8b.py", "core/simulator.py",
+                 "core/baselines.py", "core/profiler.py"):
         assert want in names

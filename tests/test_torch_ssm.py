@@ -458,7 +458,7 @@ def test_speculative_decoding_over_an_ssm_target_fails_as_in_jax(world):
             TM.init_cache(tcfg, B, CTX, device=CPU), reqs)
 
 
-@pytest.mark.parametrize("extra", [[], ["--stream-window", "2",
+@pytest.mark.parametrize("extra", [["--paged-kv"], ["--stream-window", "2",
                                         "--store-quant", "q4",
                                         "--check-resident"]])
 def test_serve_cli_serves_mamba2(extra):
@@ -471,6 +471,7 @@ def test_serve_cli_serves_mamba2(extra):
     res = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                       "--dtype", "f32", "--layers", "2", "--batch", "2",
                       "--requests", "3", "--new-tokens", "4", *extra])
+    res = res["stream" if "--stream-window" in extra else "paged"]
     assert len(res["finished"]) == 3 and not res["rejected"]
     assert all(len(f.tokens) == 4 for f in res["finished"])
     for flag in (["--check-dense"], ["--prefill-chunk", "8"],

@@ -265,9 +265,15 @@ def test_driver_ring_path(argv, capsys):
 
 
 def test_driver_refuses_tp():
-    with pytest.raises(ValueError, match="item 8"):
-        driver.main(["--smoke", "--device", "cpu", "--stages", "4",
-                     "--tp", "2"])
+    """``--tp`` is layout only on the one card (the JAX driver's default 2
+    runs); a tensor-parallel layout of a stage is refused, and so is a
+    width under 1."""
+    from repro_torch.launch.mesh import make_ring_layout
+
+    with pytest.raises(ValueError, match="item 6"):
+        make_ring_layout(4, 2, "cpu")
+    with pytest.raises(SystemExit):
+        driver.parse_args(["--tp", "0"])
 
 
 def test_driver_ring_path_exits_on_a_token_mismatch(monkeypatch):

@@ -513,7 +513,7 @@ def test_serve_cli_streamed_q4_smoke():
     res = serve.main(["--smoke", "--device", "cpu", "--dtype", "f32",
                       "--layers", "2", "--batch", "2", "--requests", "3",
                       "--new-tokens", "4", "--stream-window", "2",
-                      "--store-quant", "q4", "--check-resident"])
+                      "--store-quant", "q4", "--check-resident"])["stream"]
     assert len(res["finished"]) == 3 and not res["rejected"]
     assert res["stats"].peak_resident_bytes <= 2 * res["store_layer_nbytes"]
     with pytest.raises(SystemExit):

@@ -394,7 +394,7 @@ def test_streamed_engine_trace_matches_jax(q4_store, tmp_path):
 
 
 @pytest.mark.parametrize("flags,tracks", [
-    ([], ("decode",)),
+    (["--paged-kv"], ("decode",)),
     (["--prefill-chunk", "8"], ("decode",)),
     (["--stream-window", "2", "--store-quant", "q4"],
      ("decode", "prefetcher")),
@@ -410,6 +410,7 @@ def test_serve_cli_trace_and_metrics(tmp_path, capsys, flags, tracks):
                       "--layers", "2", "--batch", "2", "--requests", "3",
                       "--new-tokens", "4", "--trace", t, "--metrics-out", m,
                       "--metrics-interval", "2", *flags])
+    res = res["stream" if "--stream-window" in flags else "paged"]
     assert len(res["finished"]) == 3 and not res["rejected"]
     out = capsys.readouterr().out
     assert "stall attribution: tpot" in out and "[step 2]" in out
