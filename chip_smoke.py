@@ -276,6 +276,40 @@ Phase 15 the moe family (mixtral-8x7b: 32 layers, d 4096, 8 experts of
          (``core.profiler.profile_local_device``) and Halda's plan for
          mixtral in q4 over it. Its numbers again beside the card's name
          and power limit.
+Phase 16 the four families left, random weights from a seed: (a)
+         minicpm3-4b (MLA) at published width and depth (62 layers, d
+         2560, bf16, 8.5 GB) through phase 3's paged mix on latent pages,
+         graphed and eager (no B-kernel launch: MLA attention is plain
+         torch, as in the reference), the dense-cache engine on the same
+         requests (near ties only: its prefill takes the expanded form,
+         the paged chunks the absorbed one), a T = 5 verify over latent
+         pages against 5 single steps, a tiered run (128 device, 32 host
+         pages, cost eviction, page files) whose every recalled latent
+         page is bit-equal to its bytes at eviction, then a q4 store built
+         on the card through phase 5's mix resident and streamed (window
+         4): 4 B3 launches a layer a pass exactly (``wo`` and the FFN);
+         (b) qwen2-vl-2b (vlm, M-RoPE) at published size through the paged
+         mix on bf16 pages (B2 28 a chunk, B1 28 a step) and int8 pages
+         (B4 for both), graphed and eager, a dense prefill of a 16 x 16
+         grid of patch embeddings at M-RoPE grid positions (its last row
+         against a full-sequence forward, then 4 graphed decode steps),
+         and the 4-stage ring at k 1 over 8 prompts of 512 tokens against
+         the one-device decode (112 B5 a pass); (c) recurrentgemma-9b
+         (hybrid, 38 layers, 19 GB bf16) through the dense-cache engine,
+         8 slots, ctx 4096 (a 2048-line rolling attention buffer), 8
+         prompts of 1024-3000 tokens, 32 new tokens, graphed and eager (12
+         B5 a decode step: MQA 16 over 1 at D 256); (d) whisper-tiny
+         (audio) at published width: 8 x 1500 frames encoded, a 16-token
+         prompt, then decode until the 448-line self-attention cache is
+         full, graphed and eager (4 B5 a step, 1728 in all); every pair of
+         runs equal but at near ties (phase 7's rule); the hot spots that
+         run plain torch (MLA's absorbed attention, the RG-LRU's scan and
+         decode block) timed at those shapes; (e) each family at
+         4 layers, full width, f32, eager, every launch held against its
+         plain version on the same inputs and logits within 2e-4 of
+         max|ref| of ``use_kernels(False)``'s with equal streams (int8
+         pages as phase 4 holds them). Its numbers again beside the card's
+         name and power limit.
 
 Prints the card's name and power limit again, the kernels' JSON line, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
@@ -1431,7 +1465,7 @@ class profile_window:
 
 
 def traced_paged_run(torch, params, cfg, reqs, args, *, graphs=False,
-                     dtype=None, profile_step=None):
+                     dtype=None, profile_step=None, count=None):
     """The paged engine as ``serve.serve_paged`` builds it (f32 pages
     unless ``dtype``), keeping the logits behind every greedy token by
     (uid, token index): the last chunk's last row for token 0, the decode
@@ -1466,6 +1500,8 @@ def traced_paged_run(torch, params, cfg, reqs, args, *, graphs=False,
 
     def decode_(cache, tokens):
         out = decode(cache, tokens)
+        if count is not None:
+            count[0] += 1
         for i in eng.active():
             st = eng.slots[i]
             key = (st.uid, len(st.generated))
@@ -1714,9 +1750,12 @@ SSM_PROJECTIONS = 2
 def projections(cfg) -> int:
     """The block's q4 leaves: its projections (B3 launches a layer a pass
     for dense and ssm blocks), for moe blocks the 4 attention projections,
-    the router and the 3 expert stacks."""
+    the router and the 3 expert stacks, for MLA blocks its 6 projections
+    and the FFN's 3."""
     if cfg.family == "ssm":
         return SSM_PROJECTIONS
+    if cfg.mla:
+        return 9
     return 8 if cfg.n_experts else PROJECTIONS
 
 
@@ -1797,6 +1836,12 @@ def layer_params(cfg):
         return (d * (2 * di + 2 * N + nh) + di * d,
                 cfg.conv_width * (di + 2 * N) + 3 * nh + di + d)
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.mla:
+        H, r_q, r_kv = cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        return (d * r_q + r_q * H * (dn + dr) + d * (r_kv + dr)
+                + r_kv * H * (dn + dv) + H * dv * d + 3 * d * f,
+                r_q + r_kv + 2 * d)
     hq, hk = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
     bias = hq + 2 * hk if cfg.qkv_bias else 0
     ffn = 3 * d * f * cfg.n_experts + d * cfg.n_experts if cfg.n_experts \
@@ -4421,6 +4466,757 @@ def report_moe() -> None:
             f"versions: {worst}")
 
 
+# --------------------------------------------------------------------------- #
+#  phase 16: the four families left (MLA, vlm, hybrid, audio)
+# --------------------------------------------------------------------------- #
+
+MLA_ARCH, VLM_ARCH = "minicpm3-4b", "qwen2-vl-2b"
+HYB_ARCH, AUD_ARCH = "recurrentgemma-9b", "whisper-tiny"
+#: phase 3's paged mix, for any --arch
+PAGED_MIX = ["--batch", "8", "--ctx", "2048", "--page-tokens", "16",
+             "--prefill-chunk", "256", "--prompt-len", "256",
+             "--prompt-len-max", "1025", "--requests", "16",
+             "--new-tokens", "32", "--seed", "0", "--dtype", "bf16"]
+#: (a)'s streamed run: phase 5's mix (a q4 store, window 4)
+STREAM_MIX = STREAM_ARGS[2:] + ["--dtype", "bf16"]
+#: (a)'s tiered run: the first two requests of each of phase 13's groups
+#: (768-token prefixes) through 128 device and 32 host pages of 62 layers
+#: of latent lines (571 KB a page): two requests fit at a time, so the
+#: other groups' prefixes go to the host and the disk and come back
+FAM_TIER_PAGES = (128, 32)
+#: (b)'s ring: phase 14's (8 prompts of 512 tokens, 4 stages) at k 1
+VLM_RING = RING_ARGS[2:] + ["--dtype", "bf16"]
+#: (b)'s patches: a 16 x 16 grid of patch embeddings before the prompt
+VLM_PATCHES = 16
+#: (c): 8 slots, ctx 4096 (the attention layers keep min(ctx, window) =
+#: 2048 rolling lines), prompts of 1024-3000 tokens, 32 new tokens
+HYB_ARGS = ["--arch", HYB_ARCH, "--batch", "8", "--ctx", "4096",
+            "--requests", "8", "--prompt-len", "1024", "--prompt-len-max",
+            "3001", "--new-tokens", "32", "--seed", "0", "--dtype", "bf16"]
+#: (d): 8 sequences of 1500 frames, a 16-token prompt, then decode until
+#: the 448-line self-attention cache is full
+AUD_B, AUD_PROMPT = 8, 16
+#: (e): 4 layers at full width, f32 (hybrid: one group and a tail)
+FAM_PARITY_ARGS = ["--batch", "4", "--ctx", "512", "--page-tokens", "16",
+                   "--prefill-chunk", "128", "--prompt-len", "64",
+                   "--prompt-len-max", "257", "--requests", "6",
+                   "--new-tokens", "8", "--seed", "1", "--layers", "4",
+                   "--dtype", "f32"]
+#: B3 launches an MLA layer a layer-wise pass: ``wo`` and the FFN's three
+#: (the latent projections are dequantized when the layer is pulled, as in
+#: the JAX package)
+MLA_B3 = 4
+#: phase 16's record, printed at its end beside the card
+FAM = {}
+
+
+def free_card(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def held(torch, ops, label, want, run_kern, run_plain, int8=False):
+    """Phase 16 (e): ``run_kern`` with every launch also run through its
+    plain version on the same inputs (attention atol 2e-5, B3 within
+    Q4_TOL of max|ref|; the kernels launched must be ``want``), then
+    ``run_plain`` under ``use_kernels(False)``; logits within LOGIT_REL of
+    max|ref| and streams equal (``int8`` pages, as phase 4 holds them:
+    logits may differ only where an int8 page byte does). Returns (worst,
+    streams equal, errs)."""
+    errs = {}
+    with substituted(ops, "shadow", errs):
+        kern = run_kern()
+    ops.use_kernels(False)
+    try:
+        plain = run_plain()
+    finally:
+        ops.use_kernels(True)
+    att = max((v for k, v in errs.items() if k != "q4_matmul"),
+              default=0.0)
+    if sorted(errs) != sorted(want) or att > 2e-5 \
+            or errs.get("q4_matmul", 0.0) > Q4_TOL:
+        raise AssertionError(f"{label}: launches against their plain "
+                             f"versions {errs} (wanted {sorted(want)})")
+    worst, n_equal, splits = compare_runs(kern, plain)
+    if int8:
+        flips = int8_flips(torch, kern[2], plain[2])
+        if flips[0] == 0 and worst > LOGIT_REL:
+            raise AssertionError(f"{label}: logits differ by {worst} with "
+                                 f"no int8 byte differing")
+        errs["flipped (layer, page) pairs"] = flips[0]
+    elif worst >= LOGIT_REL or splits:
+        raise AssertionError(f"{label}: logits {worst} of max|ref| (bound "
+                             f"{LOGIT_REL}), splits {splits}")
+    return worst, n_equal, errs
+
+
+def fam_paged(torch, ops, params, cfg, reqs, args, label):
+    """The paged mix graphed and eager (``traced_paged_run``, bf16 pages)
+    with exact launch counts: B2 a layer a chunk and B1 a layer a decode
+    step, or B4 for both over int8 pages, or none for MLA's latent pages
+    (its attention is plain torch, as in the reference). Returns the
+    graphed run and its launches."""
+    chunks = cfg.n_layers * sum(-(-len(r.prompt) // args.prefill_chunk)
+                                for r in reqs)
+    runs = {}
+    for graphs in (True, False):
+        way = "graphed" if graphs else "eager"
+        steps = [0]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = traced_paged_run(torch, params, cfg, reqs, args, graphs=graphs,
+                               dtype=torch.bfloat16, count=steps)
+        wall = time.perf_counter() - t0
+        layer_steps = cfg.n_layers * steps[0]
+        if cfg.mla:
+            want = {}
+        elif cfg.kv_dtype == "int8":
+            want = {"paged_verify_quant": chunks + layer_steps}
+        else:
+            want = {"paged_prefill": chunks, "paged_verify": layer_steps}
+        runs[way] = (run, launched(ops, want, f"{label} paged {way}"))
+        log(f"  {label}, paged {way}: {len(reqs)} requests in {wall:.3f} s "
+            f"(logits kept), {steps[0]} decode steps; launches {want or 0}"
+            f" exactly")
+        FAM[f"{label}_paged_{way}"] = {"wall_s": wall, "steps": steps[0]}
+    if runs["graphed"][0][0] != runs["eager"][0][0]:
+        raise AssertionError(f"{label}: graphed and eager streams differ")
+    d = max(float((runs["graphed"][0][1][k] - v).abs().max())
+            for k, v in runs["eager"][0][1].items())
+    log(f"  {label}: graphed and eager streams equal for {len(reqs)} "
+        f"requests, logits max|d| {d:.3g} between them")
+    return runs["graphed"]
+
+
+def dense_against_paged(torch, ops, params, cfg, reqs, args, paged, label):
+    """The dense-cache engine (graphed decode) on the paged mix: B5 a layer
+    a decode step (none for MLA, whose decode is plain torch); its bf16
+    streams against the paged run's under phase 7's near-tie rule (the
+    dense prefill sums in another order than the paged chunks)."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.engine import make_dense_engine
+
+    eng = make_dense_engine(params, cfg, args.batch, args.ctx,
+                            cache_dtype=torch.bfloat16, device="cuda")
+    ops.reset_launch_counts()
+    run = logged_run(torch, eng, "prefill", init_cache(
+        cfg, args.batch, args.ctx, dtype=torch.bfloat16, device="cuda"),
+        reqs)
+    launched(ops, {} if cfg.mla else {"flash_verify": cfg.n_layers
+                                      * run["steps"]}, f"{label} dense")
+    worst, n_equal, splits = near_tie_only(
+        f"{label} dense against paged", (run["streams"], run["logits"]),
+        paged[:2], SPEC_BF16_REL)
+    log(f"  {label}, dense-cache engine: {run['steps']} decode steps in "
+        f"{run['wall']:.3f} s; streams equal to the paged run's for "
+        f"{n_equal} of {len(reqs)}, logits within {worst:.3g} of max|ref| "
+        f"up to each first difference; splits {splits}")
+    del eng, run
+    free_card(torch)
+
+
+def mla_verify(torch, params, cfg):
+    """(a): a T = 5 verify pass over latent pages against 5 single steps
+    from the same pages (a 700-token prompt, bf16): logits within phase
+    7's bound and the same tokens but at near ties."""
+    from repro_torch.models import init_cache
+    from repro_torch.models import model as M
+    from repro_torch.runtime.kvcache import PagedKVCache
+
+    rng = np.random.default_rng(16)
+    prompt = rng.integers(0, cfg.vocab, 700)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (1, 5)), device="cuda")
+    kv = PagedKVCache(cfg, batch=1, ctx=1024, n_pages=70, page_tokens=16,
+                      dtype=torch.bfloat16, offload=False, device="cuda")
+    try:
+        cache = kv.init_cache()
+        kv.plan_admit(cache, 0, [int(t) for t in prompt], 8)
+        c1 = init_cache(cfg, 1, 1024, dtype=torch.bfloat16, device="cuda")
+        _, c1 = M.prefill(params, cfg, torch.tensor(prompt[None],
+                                                    device="cuda"), c1)
+        cache = kv.install(cache, 0, c1["layers"], len(prompt))
+        cache = kv.begin_step(cache, [0], 5)
+        ln0 = cache["len"].clone()
+        multi, cache = M.decode_step_paged(params, cfg, cache, toks)
+        single = []
+        for t in range(5):
+            M.rollback_cache(cache, ln0 + t)
+            one, _ = M.decode_step_paged(params, cfg, cache, toks[:, t:t + 1])
+            single.append(one[0, 0].float())
+    finally:
+        kv.close()
+    single = torch.stack(single)
+    multi = multi[0].float()
+    top = float(single.abs().max())
+    d = float((multi - single).abs().max()) / top
+    a, b = multi.argmax(-1), single.argmax(-1)
+    for t in torch.nonzero(a != b).flatten().tolist():
+        gap = float(single[t, b[t]] - single[t, a[t]]) / top
+        if gap > 2 * d:
+            raise AssertionError(f"MLA verify row {t}: token differs at a "
+                                 f"gap {gap} (logit difference {d})")
+    if d >= SPEC_BF16_REL:
+        raise AssertionError(f"MLA verify: {d} of max|ref| from 5 steps")
+    FAM["mla_verify"] = d
+    log(f"  minicpm3-4b verify T=5 over latent pages (700-token prompt): "
+        f"logits within {d:.3g} of max|ref| of 5 single steps; tokens "
+        f"equal for {int((a == b).sum())} of 5 rows")
+
+
+def mla_tiers(torch, serve, params, cfg, args):
+    """(a): the first two requests of each of phase 13's four prefix
+    groups through a tiered paged engine (``FAM_TIER_PAGES`` device and
+    host pages of latent lines, cost eviction, page files): every page
+    recalled from the host or disk bit-equal to its bytes at eviction, the
+    streams against an unbudgeted run (near ties only)."""
+    from repro_torch.runtime.memory import MemoryBudget, TierManager
+
+    reqs = [r for r in tier_requests(serve, cfg.vocab) if r.uid < 8]
+    pb = cfg.n_layers * args.page_tokens * (cfg.kv_lora_rank
+                                            + cfg.qk_rope_dim) * 2
+    dev, host = FAM_TIER_PAGES
+    ddir = tempfile.mkdtemp(prefix="chip_smoke_mla_kv_")
+    try:
+        ref = tier_run(torch, serve, params, cfg, reqs, args)
+        tier = tier_run(torch, serve, params, cfg, reqs, args,
+                        memory=TierManager(MemoryBudget(device=dev * pb,
+                                                        host=host * pb)),
+                        disk_dir=ddir, watch=True)
+    finally:
+        shutil.rmtree(ddir, ignore_errors=True)
+    st, rec = tier["stats"], tier["recalls"]
+    fetched = st.fetched_bytes // pb
+    if st.page_bytes != pb or rec["bad"] or rec["checked"] != fetched \
+            or not fetched:
+        raise AssertionError(f"MLA tiers: pages of {st.page_bytes} B "
+                             f"(wanted {pb}); {len(rec['bad'])} of "
+                             f"{rec['checked']} recalled pages differ, "
+                             f"{fetched} fetched")
+    worst, n_equal, splits = near_tie_only(
+        "MLA tiered against unbudgeted", (tier["streams"], tier["logits"]),
+        (ref["streams"], ref["logits"]), SPEC_BF16_REL)
+    FAM["mla_tiers"] = (fetched, st.fetched_disk_pages, st.evictions)
+    log(f"  minicpm3-4b tiered ({dev} device, {host} host pages of "
+        f"{pb / 1e6:.3f} MB, cost eviction, page files): {st.evictions} "
+        f"evictions, {fetched} latent pages recalled ({fetched - st.fetched_disk_pages} from "
+        f"host, {st.fetched_disk_pages} from disk), every one bit-equal "
+        f"to its bytes at eviction; streams equal to the unbudgeted run's "
+        f"for {n_equal} of {len(reqs)}, logits within {worst:.3g}; "
+        f"splits {splits}")
+
+
+def mla_streamed(torch, ops, serve):
+    """(a): minicpm3-4b as a q4 store built on the card one layer at a
+    time, phase 5's mix through the layer-wise engine resident and
+    streamed (window 4): 4 B3 launches a layer a pass exactly, no B5 (its
+    decode is plain torch), equal streams, peak under 5 layers. Returns
+    the streamed run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.paramstore import ParamStore, ResidentSource
+    from repro_torch.runtime.streaming import StreamingParamSource
+
+    args = serve.parse_args(["--arch", MLA_ARCH] + STREAM_MIX)
+    cfg = get_config(MLA_ARCH)
+    W, L = args.stream_window, cfg.n_layers
+    sdir, tree = write_store(torch, cfg, torch.bfloat16, seed=0)
+    try:
+        with ParamStore(sdir) as store:
+            nbytes = store.layer_nbytes
+        reqs = serve.make_requests(cfg, args)
+        streams, counts = {}, {}
+        for name in ("resident", "streamed"):
+            src = ResidentSource(tree) if name == "resident" else \
+                StreamingParamSource(ParamStore(sdir), window=W)
+            ops.reset_launch_counts()
+            try:
+                res = serve.serve_layerwise(src, cfg, reqs, args)
+            finally:
+                src.close()
+            res["requests"] = reqs
+            check_served(res)
+            passes = len(reqs) + res["steps"]
+            counts[name] = launched(ops, {"q4_matmul": MLA_B3 * L
+                                          * passes}, f"MLA q4 {name}")
+            stream_summary(f"minicpm3-4b q4 {name}", res, nbytes * L)
+            log(f"  {name}: {counts[name]['q4_matmul']} B3 launches = "
+                f"{passes} passes x {L} layers x {MLA_B3} (wo, w_gate,"
+                f" w_up, w_down)")
+            streams[name] = {f.uid: f.tokens for f in res["finished"]}
+            FAM[f"mla_{name}"] = {"wall_s": res["wall_s"],
+                                  "steps": res["steps"], **res["summary"]}
+            if name == "streamed":
+                st = res["stats"]
+                if st.peak_resident_bytes >= (W + 1) * nbytes:
+                    raise AssertionError(f"streamed: peak "
+                                         f"{st.peak_resident_bytes} B")
+                FAM["mla_peak_layers"] = st.peak_resident_bytes / nbytes
+        if streams["streamed"] != streams["resident"]:
+            raise AssertionError("MLA q4: streamed tokens differ from the "
+                                 "resident run's")
+        log(f"  streamed and resident tokens equal for {len(reqs)} "
+            f"requests; store {nbytes / 1e6:.1f} MB a layer")
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+        del tree
+        free_card(torch)
+    return counts["streamed"]
+
+
+def mla_full(torch, ops, serve):
+    """Phase 16 (a): minicpm3-4b at published width and depth, bf16."""
+    args = serve.parse_args(["--arch", MLA_ARCH] + PAGED_MIX)
+    t0 = time.perf_counter()
+    cfg, params = serve.build_model(args)
+    n = sum(p.numel() for p in params.parameters())
+    log(f"  minicpm3-4b: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{n / 1e9:.2f} B params bf16 ({2 * n / 1e9:.2f} GB), made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = serve.make_requests(cfg, args)
+    paged, _ = fam_paged(torch, ops, params, cfg, reqs, args, "minicpm3-4b")
+    dense_against_paged(torch, ops, params, cfg, reqs, args, paged,
+                        "minicpm3-4b")
+    mla_verify(torch, params, cfg)
+    mla_tiers(torch, serve, params, cfg, args)
+    del params, paged
+    free_card(torch)
+    return mla_streamed(torch, ops, serve)
+
+
+def vlm_patches(torch, ops, serve, params, cfg):
+    """(b): a dense prefill of 8 prompts after a 16 x 16 grid of patch
+    embeddings at M-RoPE positions (temporal 0, the patch's row and
+    column; the text after them from the grid's end on all three
+    streams): its last row equals a full-sequence forward's, and 4
+    graphed decode steps from its cache launch B5 once a layer a step."""
+    from repro_torch.models import init_cache
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import dense_decode
+
+    g, S, B = VLM_PATCHES, 32, 8
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    patches = torch.randn((B, g * g, cfg.d_model), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    grid = torch.arange(g * g, device="cuda")
+    text = g + torch.arange(S, device="cuda")
+    pos = torch.stack([torch.cat([torch.zeros_like(grid), text]),
+                       torch.cat([grid // g, text]),
+                       torch.cat([grid % g, text])]).int()
+    pos = pos[:, None].expand(3, B, g * g + S)
+    cache = init_cache(cfg, B, 512, dtype=torch.bfloat16, device="cuda")
+    ops.reset_launch_counts()
+    logits, cache = M.prefill(params, cfg, toks, cache, embeds=patches,
+                              positions=pos)
+    full = M.forward(params, cfg, toks, embeds=patches, positions=pos)
+    top = float(full[:, -1].float().abs().max())
+    d = float((logits[:, 0].float() - full[:, -1].float()).abs().max()) / top
+    if d >= 1e-2 or not torch.isfinite(logits).all():
+        raise AssertionError(f"vlm prefill with patches: last row differs "
+                             f"from the forward's by {d} of max|ref|")
+    del full
+    run = serve.greedy_steps(dense_decode(params, cfg, device="cuda"), cache,
+                             logits[:, -1:].argmax(-1).int(), 4,
+                             torch.device("cuda"))
+    launched(ops, {"flash_verify": 4 * cfg.n_layers}, "vlm patch decode")
+    log(f"  qwen2-vl-2b: prefill of {g * g} patch embeddings + {S} tokens "
+        f"x {B} (M-RoPE grid positions): last row within {d:.3g} of "
+        f"max|ref| of the full-sequence forward's; 4 graphed decode steps, {4 * cfg.n_layers} B5 "
+        f"launches; tokens {run['tokens'][:, :, 0][0].tolist()}")
+
+
+def vlm_ring(torch, ops, serve):
+    """(b): qwen2-vl-2b's 4-stage ring at k 1 over 8 prompts of 512 tokens,
+    graphed, against the one-device decode of the same cache: B5 28 x 4 a
+    pass exactly; streams equal but at near ties. Returns the launches."""
+    from repro_torch.runtime.serve import RingPlan, RingServeStep, ring_params
+
+    args = serve.parse_args(["--arch", VLM_ARCH] + VLM_RING)
+    dev, n, M = torch.device("cuda"), int(args.new_tokens), args.stages
+    cfg, params = serve.build_model(args)
+    _, cache, nxt, _ = serve.ring_prefill(params, cfg, args)
+    plan = RingPlan.make(cfg, M, 1)
+    step = RingServeStep(cfg, plan, ring_params(params, cfg, plan),
+                         graphs=True, device=dev)
+    ops.reset_launch_counts()
+    run = serve.greedy_steps(step, serve.to_ring_cache(cache, cfg, plan),
+                             nxt, n, dev, keep=True)
+    got = launched(ops, {"flash_verify": cfg.n_layers * M * n}, "vlm ring")
+    one = serve.greedy_steps(serve.one_device_decode(params, cfg, dev),
+                             serve.clone_cache(cache), nxt, n, dev,
+                             keep=True)
+    worst, n_equal, splits = near_tie_only(
+        "vlm ring against the one-device decode", by_row(run), by_row(one),
+        SPEC_BF16_REL)
+    ring_ms = 1e3 * float(np.median(run["step_s"][1:]))
+    one_ms = 1e3 * float(np.median(one["step_s"][1:]))
+    FAM.update(vlm_ring_ms=ring_ms, vlm_one_ms=one_ms,
+               vlm_ring_splits=len(splits))
+    log(f"  qwen2-vl-2b ring (k 1, w {plan.w}, M {M}), {n} graphed steps: "
+        f"step p50 {ring_ms:.2f} ms against the one-device step's "
+        f"{one_ms:.2f} ms; {cfg.n_layers * M} B5 a pass exactly; streams "
+        f"equal for {n_equal} of 8 rows, logits within {worst:.3g}; splits "
+        f"{splits}")
+    del step, run, one, cache, params
+    free_card(torch)
+    return got
+
+
+def vlm_full(torch, ops, serve):
+    """Phase 16 (b): qwen2-vl-2b at published size: the paged mix on bf16
+    and int8 pages, the dense prefill with patches, the ring. Returns the
+    main runs' launches."""
+    counts = {}
+    for quant in (False, True):
+        args = serve.parse_args(["--arch", VLM_ARCH] + PAGED_MIX + (
+            ["--kv-quant-kernel"] if quant else []))
+        cfg, params = serve.build_model(args)
+        reqs = serve.make_requests(cfg, args)
+        label = "qwen2-vl-2b int8" if quant else "qwen2-vl-2b"
+        _, got = fam_paged(torch, ops, params, cfg, reqs, args, label)
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        if not quant:
+            vlm_patches(torch, ops, serve, params, cfg)
+        del params
+        free_card(torch)
+    for k, v in vlm_ring(torch, ops, serve).items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def hybrid_full(torch, ops, serve):
+    """Phase 16 (c): recurrentgemma-9b at published size (38 layers, 19
+    GB bf16, untied embeddings) through the dense-cache engine, graphed
+    and eager: 12 B5 launches a decode step (its attention layers, MQA 16
+    over 1 at D 256 over a 2048-line rolling buffer), equal streams.
+    Returns the graphed run's launches."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.engine import make_dense_engine
+
+    args = serve.parse_args(HYB_ARGS)
+    t0 = time.perf_counter()
+    cfg, params = serve.build_model(args)
+    from repro_torch.models import model as M
+
+    n = sum(p.numel() for p in params.parameters())
+    n_attn = M.layer_kinds(cfg).count("attn")
+    reqs = serve.make_requests(cfg, args)
+    wraps = sum(len(r.prompt) > cfg.attn_window for r in reqs)
+    log(f"  recurrentgemma-9b: {cfg.n_layers} layers ({n_attn} attention), "
+        f"{n / 1e9:.2f} B params bf16, made in {time.perf_counter() - t0:.1f}"
+        f" s; {len(reqs)} prompts of {min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)} tokens, {wraps} past the "
+        f"{cfg.attn_window}-line window")
+    if not wraps:
+        raise AssertionError("no prompt wraps the attention buffer")
+    runs, got = {}, None
+    for graphs in (True, False):
+        way = "graphed" if graphs else "eager"
+        eng = make_dense_engine(params, cfg, args.batch, args.ctx,
+                                cache_dtype=torch.bfloat16, graphs=graphs,
+                                device="cuda")
+        cache = init_cache(cfg, args.batch, args.ctx, dtype=torch.bfloat16,
+                           device="cuda")
+        if cache["groups"]["b2"]["k"].shape[2] != cfg.attn_window:
+            raise AssertionError("the attention cache is not the window")
+        ops.reset_launch_counts()
+        run = logged_run(torch, eng, "prefill", cache, reqs)
+        c = launched(ops, {"flash_verify": n_attn * run["steps"]},
+                     f"hybrid {way}")
+        got = got or c
+        runs[way] = run
+        summ = serve._p50_summary(run["finished"], run["wall"])
+        FAM[f"hyb_{way}"] = dict(summ, wall_s=run["wall"],
+                                 steps=run["steps"])
+        log(f"  recurrentgemma-9b dense-cache engine, {way}: {run['steps']}"
+            f" decode steps, wall {run['wall']:.3f} s, TTFT p50 "
+            f"{summ['ttft_p50_s'] * 1e3:.2f} ms, TPOT p50 "
+            f"{summ['tpot_p50_s'] * 1e3:.2f} ms; {c['flash_verify']} B5 = "
+            f"{run['steps']} steps x {n_attn} attention layers")
+        del eng, cache
+        free_card(torch)
+    worst, n_equal, splits = near_tie_only(
+        "hybrid graphed against eager",
+        (runs["graphed"]["streams"], runs["graphed"]["logits"]),
+        (runs["eager"]["streams"], runs["eager"]["logits"]), SPEC_BF16_REL)
+    log(f"  graphed and eager: streams equal for {n_equal} of {len(reqs)}, "
+        f"logits within {worst:.3g} of max|ref|; splits {splits}")
+    del params, runs
+    free_card(torch)
+    return got
+
+
+def whisper_full(torch, ops, serve):
+    """Phase 16 (d): whisper-tiny at published width: 8 sequences of 1500
+    frames encoded, a 16-token prompt, then greedy decode until the
+    448-line self-attention cache is full, graphed (4 B5 launches a step:
+    its decoder layers) and eager; equal streams. Returns the graphed
+    run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import dense_decode
+
+    cfg = get_config(AUD_ARCH)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    frames = torch.randn((AUD_B, cfg.n_frontend_tokens, cfg.d_model),
+                         generator=gen, device="cuda").to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab, (AUD_B, AUD_PROMPT), generator=gen,
+                           device="cuda")
+    n = cfg.max_decode_len - AUD_PROMPT
+    runs, got = {}, None
+    for graphs in (True, False):
+        way = "graphed" if graphs else "eager"
+        cache = init_cache(cfg, AUD_B, cfg.max_decode_len,
+                           dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(params, cfg, prompt, cache, embeds=frames)
+        torch.cuda.synchronize()
+        pre = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        run = serve.greedy_steps(dense_decode(params, cfg, graphs=graphs,
+                                              device=dev), cache,
+                                 logits[:, -1:].argmax(-1).int(), n, dev,
+                                 keep=True)
+        c = launched(ops, {"flash_verify": cfg.n_layers * n},
+                     f"whisper {way}")
+        got = got or c
+        if int(run["cache"]["len"].min()) != cfg.max_decode_len or not all(
+                torch.isfinite(lg).all() for lg in run["logits"]):
+            raise AssertionError(f"whisper {way}: cache not full or logits "
+                                 f"not finite")
+        runs[way] = run
+        ms = 1e3 * float(np.median(run["step_s"][1:]))
+        FAM[f"aud_{way}"] = {"prefill_s": pre, "step_ms": ms}
+        log(f"  whisper-tiny, {way}: encoder + prefill of {AUD_B} x "
+            f"{cfg.n_frontend_tokens} frames and {AUD_PROMPT} tokens in "
+            f"{pre:.3f} s; {n} decode steps to the full {cfg.max_decode_len}"
+            f"-line cache, step p50 {ms:.3f} ms; {c['flash_verify']} B5 = "
+            f"{n} x {cfg.n_layers} layers")
+    worst, n_equal, splits = near_tie_only(
+        "whisper graphed against eager", by_row(runs["graphed"]),
+        by_row(runs["eager"]), SPEC_BF16_REL)
+    log(f"  graphed and eager: streams equal for {n_equal} of {AUD_B}, "
+        f"logits within {worst:.3g}; splits {splits}")
+    del params, runs, frames
+    free_card(torch)
+    return got
+
+
+def plain_hot_spots(torch) -> None:
+    """Phase 16: the hot spots that run plain torch on the card (the
+    reference computes them outside Pallas), timed at the main path's
+    shapes with ``Timer`` (median device time after an L2 flush: the call,
+    and its CUDA-graph replay) in bf16, beside a bound (bytes over 3.35
+    TB/s or, for MLA's f32 score products, operations over the f32 peak):
+    MLA's absorbed attention of one minicpm3-4b layer, 8 slots at T = 1
+    over 2048 lines gathered from pages (62 layers a step), the RG-LRU's
+    doubling scan over a 2048-token prefill at width 4096 and its decode
+    block at 8 slots (26 layers a step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as ll
+    from repro_torch.models import model as M
+
+    timer, bf = Timer(torch), torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    cfg = get_config(MLA_ARCH)
+    attn = M.init_block(cfg, gen, bf, "cuda").attn
+    B, S_kv, bs = 8, 2048, 16
+    r = cfg.kv_lora_rank + cfg.qk_rope_dim
+    pages = randn(B * S_kv // bs + 1, bs, r)
+    table = torch.arange(1, B * S_kv // bs + 1, dtype=torch.int32,
+                         device="cuda").reshape(B, -1)
+    ln = torch.full((B,), S_kv - 1, dtype=torch.int32, device="cuda")
+    q_nope, q_rope, _, _ = ll.mla_project(attn, cfg, randn(B, 1, cfg.d_model),
+                                          ln[:, None])
+
+    def mla():
+        ll._mla_absorbed(attn, cfg, q_nope, q_rope,
+                         ll.gather_pages(pages, table), ln, bf)
+    H, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    mla_bytes = 2 * (B * S_kv * r + cfg.kv_lora_rank * H * (dn + dv))
+    mla_ops = 2 * B * H * S_kv * (r + cfg.kv_lora_rank)
+    mla_bound = 1e3 * max(mla_bytes / HBM_BYTES_S,
+                          mla_ops / PEAK_OPS["float32"])
+    hcfg = get_config(HYB_ARCH)
+    w = hcfg.lru_width
+    rg = M.init_block(hcfg, gen, bf, "cuda", kind="rglru").rglru
+    a, b = torch.rand((1, 2048, w), generator=gen, device="cuda").to(bf), \
+        randn(1, 2048, w)
+    x1 = randn(B, 1, hcfg.d_model)
+    cache = {"h": torch.zeros((B, w), dtype=bf, device="cuda"),
+             "conv": torch.zeros((B, hcfg.conv_width - 1, w), dtype=bf,
+                                 device="cuda")}
+
+    def scan():
+        ll.doubling_scan(a, b)
+
+    def step():
+        ll.rglru_block(rg, hcfg, x1, cache=cache, decode=True)
+    n_rg = M.layer_kinds(hcfg).count("rglru")
+    rows = {"MLA absorbed attention, a layer": (mla, mla_bound,
+                                                cfg.n_layers),
+            "RG-LRU doubling scan, S 2048": (
+                scan, 1e3 * 4 * a.numel() * 2 / HBM_BYTES_S, n_rg),
+            "RG-LRU decode block, 8 slots": (
+                step, 1e3 * 3 * hcfg.d_model * w * 2 / HBM_BYTES_S, n_rg)}
+    for label, (fn, bound, layers) in rows.items():
+        ms, dev = timer(fn), timer.graph(fn)
+        FAM[f"hot {label}"] = {"ms": ms, "device_ms": dev, "bound_ms": bound}
+        log(f"  plain torch, {label}: {ms:.4f} ms a call (device "
+            f"{dev:.4f} ms replayed from a CUDA graph), bound {bound:.4f} ms;"
+            f" x {layers} layers: {layers * dev:.3f} ms device a pass")
+    free_card(torch)
+
+
+def fam_parity(torch, ops, serve) -> None:
+    """Phase 16 (e): each family at 4 layers, full width, f32, eager:
+    every kernel launch held against its plain version on the same
+    inputs, logits within 2e-4 of max|ref| of ``use_kernels(False)`` and
+    equal streams. minicpm3-4b: the layer-wise engine over a q4 store
+    (B3) and one q4 ring step (B3 on ``wq_a``, ``wq_b``, ``wkv_a`` too);
+    qwen2-vl-2b: the dense engine (B5), the paged engine (chunked, f32:
+    B1, B2; int8: B4) and the q4 layer-wise engine (B3, B5);
+    recurrentgemma-9b: the dense engine (B5); whisper-tiny: prefill and
+    decode (B5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import make_dense_engine
+    from repro_torch.runtime.paramstore import ResidentSource
+    from repro_torch.runtime.serve import RingPlan, RingServeStep, ring_params
+
+    found = {}
+
+    def dense(params, cfg, reqs, args):
+        def run():
+            eng = make_dense_engine(params, cfg, args.batch, args.ctx,
+                                    cache_dtype=torch.float32, graphs=False,
+                                    device="cuda")
+            r = logged_run(torch, eng, "prefill", init_cache(
+                cfg, args.batch, args.ctx, dtype=torch.float32,
+                device="cuda"), reqs)
+            return r["streams"], r["logits"]
+        return run
+
+    for arch in (MLA_ARCH, VLM_ARCH, HYB_ARCH):
+        argv = ["--arch", arch] + FAM_PARITY_ARGS
+        if arch == HYB_ARCH:       # past the 2048-line rolling window
+            argv += ["--ctx", "2304", "--prompt-len", "1900",
+                     "--prompt-len-max", "2200"]
+        args = serve.parse_args(argv)
+        cfg, params = serve.build_model(args)
+        reqs = serve.make_requests(cfg, args)
+        if arch != MLA_ARCH:
+            found[(arch, "dense")] = held(
+                torch, ops, f"{arch} dense", ("flash_verify",),
+                dense(params, cfg, reqs, args), dense(params, cfg, reqs,
+                                                      args))
+        if arch == VLM_ARCH:
+            for quant in (False, True):
+                c = dataclasses.replace(cfg, kv_dtype="int8") if quant \
+                    else cfg
+
+                def paged(c=c):
+                    return traced_paged_run(torch, params, c, reqs, args)
+                want = ("paged_verify_quant",) if quant else (
+                    "paged_prefill", "paged_verify")
+                found[(arch, "paged int8" if quant else "paged")] = held(
+                    torch, ops, f"{arch} paged", want, paged, paged,
+                    int8=quant)
+        if arch in (MLA_ARCH, VLM_ARCH):
+            args.store_quant = "q4"
+            tree, _ = serve.store_tree(params, cfg, args)
+
+            def layerwise():
+                return traced_stream_run(torch, ResidentSource(tree), cfg,
+                                         reqs, args)
+            want = ("q4_matmul",) if arch == MLA_ARCH else (
+                "flash_verify", "q4_matmul")
+            found[(arch, "q4 layer-wise")] = held(
+                torch, ops, f"{arch} q4", want, layerwise, layerwise)
+        if arch == MLA_ARCH:
+            plan = RingPlan.make(cfg, 2, 1)
+            rp = ring_params(tree, cfg, plan)
+            gen = torch.Generator(device="cuda").manual_seed(2)
+            tok = torch.randint(0, cfg.vocab, (4, 1), generator=gen,
+                                device="cuda")
+
+            def ring():
+                step = RingServeStep(cfg, plan, rp, graphs=False,
+                                     device="cuda")
+                cache = {"len": torch.full((4,), 5, dtype=torch.int32,
+                                           device="cuda"),
+                         "layers": {"latent": torch.randn(
+                             (plan.L_pad, 4, 64, cfg.kv_lora_rank
+                              + cfg.qk_rope_dim), generator=torch.Generator(
+                                 device="cuda").manual_seed(3),
+                             device="cuda")}}
+                lg, _ = step(cache, tok)
+                return ({b: [int(lg[b, 0].argmax())] for b in range(4)},
+                        {(b, 0): lg[b, 0].float() for b in range(4)})
+            found[(arch, "q4 ring step")] = held(
+                torch, ops, f"{arch} q4 ring", ("q4_matmul",), ring, ring)
+        del params
+        free_card(torch)
+
+    cfg = get_config(AUD_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    frames = torch.randn((4, cfg.n_frontend_tokens, cfg.d_model),
+                         generator=gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (4, 8), generator=gen,
+                           device="cuda")
+
+    def whisper():
+        cache = init_cache(cfg, 4, 64, dtype=torch.float32, device="cuda")
+        lg, cache = M.prefill(params, cfg, prompt, cache, embeds=frames)
+        streams = {b: [] for b in range(4)}
+        logits = {}
+        for n in range(24):
+            for b in range(4):
+                logits[(b, n)] = lg[b, -1].float().clone()
+                streams[b].append(int(lg[b, -1].argmax()))
+            tok = lg[:, -1:].argmax(-1).int()
+            lg, cache = M.decode_step(params, cfg, cache, tok)
+        return streams, logits
+    found[(AUD_ARCH, "prefill + decode")] = held(
+        torch, ops, "whisper", ("flash_verify",), whisper, whisper)
+    for (arch, label), (worst, n_equal, errs) in found.items():
+        errs_s = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        log(f"  {arch}, 4 layers f32, {label}: every launch within its plain"
+            f" version's ({errs_s}); logits within {worst:.3g} of max|ref| "
+            f"of use_kernels(False); streams equal ({n_equal})")
+    FAM["parity"] = {f"{a} {k}": v[0] for (a, k), v in found.items()}
+    del params
+    free_card(torch)
+
+
+def report_fam() -> None:
+    """Phase 16's numbers again, beside the card's name and power limit."""
+    log(f"  card: {card()}")
+    for key in sorted(k for k in FAM if isinstance(FAM[k], dict)
+                      and k != "parity"):
+        log(f"  {key}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in FAM[key].items()
+            if isinstance(v, float)))
+    log(f"  MLA verify {FAM['mla_verify']:.3g}; MLA tiers (recalled, from "
+        f"disk, evictions) {FAM['mla_tiers']}; MLA streamed peak "
+        f"{FAM['mla_peak_layers']:.2f} layers; vlm ring "
+        f"{FAM['vlm_ring_ms']:.2f} ms against {FAM['vlm_one_ms']:.2f} ms "
+        f"one device, {FAM['vlm_ring_splits']} splits")
+    log("  (e) worst logits over max|ref|: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in FAM["parity"].items()))
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4544,12 +5340,28 @@ def main() -> int:
     report_moe()
     log(f"  phase 15 done at {time.perf_counter() - t_start:.0f} s")
 
+    log("== phase 16: the four families left: minicpm3-4b (MLA), "
+        "qwen2-vl-2b (vlm), recurrentgemma-9b (hybrid), whisper-tiny "
+        "(audio) at published widths, then parity at 4 layers f32")
+    fam_counts = {}
+    for fn in (mla_full, vlm_full, hybrid_full, whisper_full):
+        for k, v in fn(torch, ops, serve).items():
+            fam_counts[k] = fam_counts.get(k, 0) + v
+        log(f"  {fn.__name__} done at {time.perf_counter() - t_start:.0f} s")
+    log(f"  main-path launches: {fam_counts}")
+    plain_hot_spots(torch)
+    fam_parity(torch, ops, serve)
+    report_fam()
+    log(f"  phase 16 done at {time.perf_counter() - t_start:.0f} s")
+
     counts["q4_matmul"] = stream_counts["q4_matmul"] \
         + moe_counts["q4_matmul"]
     counts["flash_verify"] = spec_counts["flash_verify"] \
         + moe_counts["flash_verify"]
     counts["ssd_scan"] = ssm_counts["ssd_scan"]
     for k, v in moe_paged_counts.items():
+        counts[k] += v
+    for k, v in fam_counts.items():
         counts[k] += v
     for name, row in rows.items():
         row["launches"] = counts[name]

@@ -60,6 +60,14 @@ chaos: ``--chaos transient`` decodes the batch again from the store (the
   ``--io-backoff-ms`` and ``--io-deadline-s`` set the ``IOPolicy`` of every
   store read and tier copy.
 
+Families, as in the JAX driver: MLA (``minicpm3-4b``) and vlm
+(``qwen2-vl-2b``) run every section (MLA refuses int8 pages:
+``--kv-quant-kernel`` skips its paged section with the JAX driver's
+message); the hybrid family (``recurrentgemma-9b``) decodes on one device
+and skips the stream, paged and chaos sections (no store and no pages for
+its recurrent state); ``--arch whisper-tiny`` is an argument error: its
+prefill needs audio frames, which neither driver makes.
+
 Observability, as in the JAX driver: ``--trace OUT.json`` attaches a
 ``runtime.telemetry.Tracer`` to the decode steps and the served engines
 (and the prefetcher) and writes its Chrome trace (open it at
@@ -95,7 +103,8 @@ from ..runtime.iopolicy import IOPolicy
 from ..runtime.kvcache import make_paged_engine
 from ..runtime.memory import MemoryBudget, TierManager
 from ..runtime.metrics import MetricsRegistry, validate_metrics_snapshot
-from ..runtime.paramstore import ParamStore, ResidentSource, save_param_store
+from ..runtime.paramstore import (STACKED_FAMILIES, ParamStore, ResidentSource,
+                                  save_param_store)
 from ..runtime.serve import (RingPlan, RingServeStep, pad_and_permute,
                              quantize_ring_params, ring_params,
                              ring_supported)
@@ -241,6 +250,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--store-quant needs a store: --stream-window or --chaos")
     tiered = args.device_budget > 0 or args.host_budget > 0 \
         or args.park_idle_s is not None
+    if get_config(args.arch).family == "audio":
+        ap.error(f"{args.arch} is an encoder-decoder: its prefill needs "
+                 f"audio frames, which this driver (as the JAX driver) "
+                 f"does not make; drive it through models.prefill(..., "
+                 f"embeds=frames) and models.decode_step")
     if get_config(args.arch).family == "ssm" and (
             args.check_dense or args.prefill_chunk or args.kv_quant_kernel
             or tiered):
@@ -1094,9 +1108,8 @@ def serve_decode(params, cfg, args: argparse.Namespace, *, tracer=None,
                                           ring["tokens"][:, :, 0]], 1),
                 "ring": ring}
     if Mst > 1:
-        print(f"{cfg.name}: ring unsupported for B={B}, M={Mst} (family "
-              f"{cfg.family}; the batch must split over the stages) -- "
-              f"decoding on one device")
+        print(f"{cfg.name}: ring unsupported for B={B}, M={Mst} "
+              f"(family={cfg.family}) -- decoding on one device")
     prompts, cache, nxt, ttft = ring_prefill(params, cfg, args)
     print(f"prefill: {B}x{prompts.shape[1]} tokens in {ttft * 1e3:.0f} ms")
     if metrics is not None:
@@ -1180,7 +1193,8 @@ def run(args: argparse.Namespace, params=None) -> Dict:
     res: Dict = {"decode": serve_decode(params, base, args, tracer=tracer,
                                         metrics=metrics)}
     res["ring"] = res["decode"]["ring"]
-    if args.stream_window:
+    stacked = cfg.family in STACKED_FAMILIES
+    if args.stream_window and stacked:
         res["stream"] = st = serve_stream(params, base, args, tracer=tracer,
                                           metrics=metrics)
         if st["ring"] is not None:
@@ -1188,10 +1202,16 @@ def run(args: argparse.Namespace, params=None) -> Dict:
         if st["rejected"]:
             raise SystemExit(f"{len(st['rejected'])} requests shed: "
                              f"{st['rejected'][0].reason}")
-    if args.paged_kv:
+    if args.paged_kv and not stacked:
+        print(f"paged-kv: unsupported family {cfg.family} -- skipped")
+    elif args.paged_kv and cfg.mla and cfg.kv_dtype == "int8":
+        print("paged-kv: int8 MLA latent pages unsupported -- skipped")
+    elif args.paged_kv:
         res["paged"] = serve_paged_section(params, cfg, args, tracer=tracer,
                                            metrics=metrics)
-    if args.chaos == "transient":
+    if args.chaos != "none" and not stacked:
+        print(f"chaos: unsupported family {cfg.family} -- skipped")
+    elif args.chaos == "transient":
         res["chaos"] = serve_chaos(params, base, args)
     elif args.chaos == "failover":
         if res["ring"] is None:

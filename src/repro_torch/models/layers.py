@@ -1,13 +1,16 @@
-"""Layer library of the port: the dense GQA, MoE FFN, Mamba-2 and
-paged-cache subset of ``repro.models.layers``, in PyTorch.
+"""Layer library of the port: ``repro.models.layers`` in PyTorch (GQA
+attention with RoPE or M-RoPE, MLA, the GLU and MoE FFNs, the RG-LRU,
+Mamba-2, and the paged-cache paths).
 
 Functions over tensors and parameter modules (``models.model``), at the
 JAX package's layouts so the tests compare like with like:
 
-  x          : (B, S, d) activations
-  attn cache : k/v (B, S_max, h_kv, hd)  [+ int8 scales if quantized]
-  page pool  : k/v (P, bs, h_kv, hd)     [+ (P, bs, h_kv) scales]
-  positions  : (B, S) int absolute positions
+  x            : (B, S, d) activations
+  attn cache   : k/v (B, S_max, h_kv, hd)  [+ int8 scales if quantized]
+  MLA cache    : latent (B, S_max, r_kv + rope dims)
+  page pool    : k/v (P, bs, h_kv, hd)     [+ (P, bs, h_kv) scales],
+                 MLA: latent (P, bs, r_kv + rope dims)
+  positions    : (B, S) int absolute positions (M-RoPE: (3, B, S))
 
 Cache writes are in place (the JAX package's ``.at[].set`` returns a new
 array): at full width a functional copy of a (P, bs, 8, 128) page pool per
@@ -33,6 +36,13 @@ Pages = Dict[str, torch.Tensor]
 #  basics
 # --------------------------------------------------------------------------- #
 
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` at the promoted dtype, as jnp promotes a mixed product
+    (bf16 activations against a weight dequantized to f32 give f32)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def q4_kernel_eligible(w) -> bool:
     """Whether a ``QuantizedTensor`` goes to the Hopper kernel B3: 2-D q4
     packing with K even and a multiple of the group. The kernel masks
@@ -48,14 +58,15 @@ def q4_kernel_eligible(w) -> bool:
 def qmm(x: torch.Tensor, w) -> torch.Tensor:
     """Matmul against a weight that may still be packed.
 
-    A plain tensor takes ``@``. A ``QuantizedTensor`` that
-    ``q4_kernel_eligible`` accepts goes to ``kernels.ops.q4_matmul``
-    (kernel B3 on the card, its plain version on the CPU) for any number
-    of rows; anything else (q2, stacked 3-D leaves) dequantizes at use.
-    Either way the result comes back in ``x.dtype``.
+    A plain tensor takes ``@`` at the promoted dtype (``_matmul``, as jnp
+    promotes). A ``QuantizedTensor`` that ``q4_kernel_eligible`` accepts
+    goes to ``kernels.ops.q4_matmul`` (kernel B3 on the card, its plain
+    version on the CPU) for any number of rows; anything else (q2,
+    stacked 3-D leaves) dequantizes at use; either way its result comes
+    back in ``x.dtype``.
     """
     if not isinstance(w, QuantizedTensor):
-        return x @ w
+        return _matmul(x, w)
     *lead, K = x.shape
     if q4_kernel_eligible(w):
         from ..kernels import ops
@@ -78,6 +89,14 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` at the promoted dtype, as ``jnp.einsum`` promotes
+    a mixed pair (bf16 activations against a weight dequantized to f32
+    give f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
 def rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                          device=device) / dim))
@@ -94,6 +113,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """Qwen2-VL 3-D rotary sections (t, h, w) summing to head_dim // 2."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float
+                ) -> torch.Tensor:
+    """M-RoPE: positions3 (3, B, S), the temporal, height and width
+    streams. RoPE's frequency layout; frequency index i turns by the
+    stream of its section (``mrope_sections``)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                   # (d/2,)
+    sec_id = torch.cat([torch.full((n,), i, device=x.device)
+                        for i, n in enumerate(mrope_sections(d))])  # (d/2,)
+    pos = positions3.float()[sec_id].permute(1, 2, 0)        # (B, S, d/2)
+    ang = pos * freqs
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+
+def rotate(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """RoPE, or M-RoPE for a ``cfg.mrope`` model (positions (3, B, S))."""
+    if cfg.mrope:
+        return apply_mrope(x, positions, cfg.rope_theta)
+    return apply_rope(x, positions, cfg.rope_theta)
 
 
 # --------------------------------------------------------------------------- #
@@ -279,9 +331,9 @@ def attn_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, hk, hd)
     v = v.reshape(B, S, hk, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    if not cfg.use_rope:
+        return q, k, v
+    return rotate(q, positions, cfg), rotate(k, positions, cfg), v
 
 
 def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -299,9 +351,23 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype
     return (q.float() * scale[..., None].float()).to(dtype)
 
 
+def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Bidirectional attention in f32 (whisper's encoder and cross
+    attention). q: (B, Sq, H, D); k, v: (B, Sk, h_kv, D)."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.float())
+    return out.to(q.dtype)
+
+
 def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
-               *, cache: Optional[Dict] = None, decode: bool = False
-               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+               *, cache: Optional[Dict] = None, decode: bool = False,
+               cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               causal: bool = True) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full attention block: qkv -> attention -> o-proj.
 
     ``cache``: {"k": (B,Smax,hk,hd), "v": ..., "len": (B,)} (+ int8
@@ -309,11 +375,22 @@ def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
     ``len`` (rolling for a window-sized buffer) and attends over the
     cache through ``_dense_attention`` (an int8 cache goes with its
     scales: B5 reads it as stored, the plain path dequantizes it first, as
-    in the reference); prefill runs causal attention over ``x``
-    and fills the cache in place. Returns (out, cache) with the cache's
+    in the reference); prefill runs causal attention over ``x`` (or,
+    ``causal=False``, bidirectional: whisper's encoder) and fills the
+    cache in place. ``cross_kv``: (k, v) of an encoder, the keys and
+    values of whisper's cross attention (only q is projected; plain
+    torch, as in the reference). Returns (out, cache) with the cache's
     ``len`` advanced.
     """
     B, S, _ = x.shape
+    if cross_kv is not None:
+        q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        if cfg.qkv_bias:
+            q = q + p.bq.reshape(cfg.n_heads, cfg.head_dim)
+        k, v = cross_kv
+        out = chunked_causal_attention(q, k, v, chunk=256) if causal \
+            else _full_attention(q, k, v)
+        return out.reshape(B, S, -1) @ p.wo, cache
     q, k, v = attn_qkv(p, cfg, x, positions)
     window = cfg.attn_window
     quantized = cache is not None and "k_scale" in cache
@@ -354,7 +431,8 @@ def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
             out = _dense_attention(q, kc.to(q.dtype), vc.to(q.dtype), kv_len,
                                    window=window)
     else:
-        out = chunked_causal_attention(q, k, v, window=window)
+        out = chunked_causal_attention(q, k, v, window=window) if causal \
+            else _full_attention(q, k, v)
         if cache is not None:
             Smax = cache["k"].shape[1]
             if window is not None and Smax <= S:
@@ -507,6 +585,125 @@ def attn_block_paged(p, cfg: ModelConfig, x: torch.Tensor, positions,
 
 
 # --------------------------------------------------------------------------- #
+#  MLA — multi-head latent attention (MiniCPM3 / DeepSeek-V2 style)
+# --------------------------------------------------------------------------- #
+
+def mla_project(p, cfg: ModelConfig, x: torch.Tensor, positions
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """MLA's projections: (q_nope (B, S, H, dn), q_rope (B, S, H, dr)
+    rotated, the normed latent (B, S, r_kv), the cache line (B, S, r_kv +
+    dr): latent and rotated key rope). Through ``qmm``: a ring bank may
+    keep ``wq_a``, ``wq_b`` and ``wkv_a`` packed (the layer-wise path
+    dequantizes them when it pulls the layer)."""
+    B, S, _ = x.shape
+    H, r_kv = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_lat = rms_norm(qmm(x, p.wq_a), p.q_norm, cfg.norm_eps)
+    q = qmm(q_lat, p.wq_b).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions,
+                                             cfg.rope_theta)
+    kv = qmm(x, p.wkv_a)                                  # (B, S, r_kv + dr)
+    latent = rms_norm(kv[..., :r_kv], p.kv_norm, cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, r_kv:], positions,
+                        cfg.rope_theta)[:, :, 0]          # (B, S, dr)
+    return q_nope, q_rope, latent, torch.cat([latent, k_rope], -1)
+
+
+def _mla_scores(p, cfg: ModelConfig, q_nope: torch.Tensor,
+                q_rope: torch.Tensor, lines: torch.Tensor, dtype
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The absorbed form's scores: W_UK folded into the query, so the
+    scores are taken in latent space against the cache lines (B, S_kv,
+    r_kv + dr). Returns (scores (B, H, S, S_kv) f32, scaled, unmasked;
+    the latents (B, S_kv, r_kv) in ``dtype``). The two score products
+    run in f32, where the reference asks for f32 results of its bf16
+    inputs (a bf16 product here would round them)."""
+    H, r_kv, dn = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_nope_dim
+    lat_all = lines[..., :r_kv].to(dtype)
+    rope_all = lines[..., r_kv:].to(dtype)
+    q_abs = _einsum("bshd,rhd->bshr", q_nope, p.wk_b.reshape(r_kv, H, dn))
+    s_nope = torch.einsum("bqhr,bsr->bhqs", q_abs.float(), lat_all.float())
+    s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope.float(), rope_all.float())
+    scale = 1.0 / math.sqrt(dn + cfg.qk_rope_dim)
+    return (s_nope + s_rope) * scale, lat_all
+
+
+def _mla_absorbed(p, cfg: ModelConfig, q_nope, q_rope, lines: torch.Tensor,
+                  ln: torch.Tensor, dtype) -> torch.Tensor:
+    """Attention of the S queries at ``ln + t`` over the cache lines
+    (B, S_kv, r_kv + dr) at positions 0..S_kv-1, causal (position <= the
+    query's). -> (B, S, H * dv)."""
+    S, S_kv = q_nope.shape[1], lines.shape[1]
+    s_all, lat_all = _mla_scores(p, cfg, q_nope, q_rope, lines, dtype)
+    dev = lines.device
+    qpos = ln.long()[:, None] + torch.arange(S, device=dev)[None]  # (B, S)
+    mask = torch.arange(S_kv, device=dev)[None, None] <= qpos[..., None]
+    pr = torch.softmax(s_all.masked_fill(~mask[:, None], -math.inf), -1)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", pr, lat_all.float())
+    B, S, H, r_kv = o_lat.shape
+    wv = p.wv_b.reshape(r_kv, H, cfg.v_head_dim)        # W_UV
+    return _einsum("bqhr,rhv->bqhv", o_lat.to(dtype), wv).reshape(B, S, -1)
+
+
+def mla_block(p, cfg: ModelConfig, x: torch.Tensor, positions, *,
+              cache: Optional[Dict] = None, decode: bool = False
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MLA attention over a dense latent cache ({"latent": (B, Smax, r_kv
+    + dr), "len"}, written in place). Prefill expands the latent to
+    per-head K and V (V zero-padded to dn + dr for the chunked attention,
+    then sliced) and writes the cache lines; decode (T >= 1, causal among
+    its tokens) takes the absorbed form over the cache. Plain torch on
+    every device, as the reference computes it outside any kernel."""
+    B, S, _ = x.shape
+    H, r_kv = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope, latent, lat_cat = mla_project(p, cfg, x, positions)
+    new_cache = cache
+    if decode:
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        lc, ln = cache["latent"], cache["len"]
+        bidx = torch.arange(B, device=x.device)
+        for t in range(S):                       # small (draft block)
+            slot = torch.clamp(ln + t, max=lc.shape[1] - 1).long()
+            lc[bidx, slot] = lat_cat[:, t].to(lc.dtype)
+        new_cache = {**cache, "len": ln + S}
+        out = _mla_absorbed(p, cfg, q_nope, q_rope, lc, ln, x.dtype)
+    else:
+        k_nope = _einsum("bsr,rhd->bshd", latent,
+                         p.wk_b.reshape(r_kv, H, dn))
+        vv = _einsum("bsr,rhv->bshv", latent, p.wv_b.reshape(r_kv, H, dv))
+        kk = torch.cat([k_nope, lat_cat[:, :, None, r_kv:].expand(
+            B, S, H, dr).to(k_nope.dtype)], -1)
+        qq = torch.cat([q_nope, q_rope], -1)
+        v_p = torch.nn.functional.pad(vv, (0, dn + dr - dv))
+        out = chunked_causal_attention(qq, kk, v_p)[..., :dv].reshape(
+            B, S, H * dv)
+        if cache is not None:
+            n = min(S, cache["latent"].shape[1])
+            cache["latent"][:, :n] = lat_cat[:, :n].to(cache["latent"].dtype)
+            new_cache = {**cache, "len": cache["len"] + S}
+    return qmm(out, p.wo), new_cache
+
+
+def mla_block_paged(p, cfg: ModelConfig, x: torch.Tensor, positions,
+                    pages: Pages, table: torch.Tensor, ln: torch.Tensor,
+                    *, write: bool = True) -> torch.Tensor:
+    """MLA over paged latent storage ({"latent": (P, bs, r_kv + dr)}):
+    ``mla_block``'s absorbed decode with the lines gathered through the
+    block table. Its masking is already chunk-causal, so chunked
+    admission takes this path too; ``write=False`` skips the line writes
+    (a fully prefix-shared prompt)."""
+    q_nope, q_rope, _, lat_cat = mla_project(p, cfg, x, positions)
+    if write:
+        write_pages(pages["latent"], table, ln, lat_cat)
+    lines = gather_pages(pages["latent"], table)
+    out = _mla_absorbed(p, cfg, q_nope, q_rope, lines, ln, x.dtype)
+    return qmm(out, p.wo)
+
+
+# --------------------------------------------------------------------------- #
 #  FFN
 # --------------------------------------------------------------------------- #
 
@@ -517,13 +714,6 @@ def glu_ffn(p, x: torch.Tensor) -> torch.Tensor:
 #: tokens a dispatch takes at once; a longer step splits into chunks, each
 #: with its own capacity (the JAX package's bound on the (E, C, d) buffer)
 MOE_MAX_CHUNK = 65_536
-
-
-def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` at the promoted dtype, as jnp promotes a mixed product
-    (bf16 activations against a router dequantized to f32 give f32)."""
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt)
 
 
 def expert_mm(x: torch.Tensor, w) -> torch.Tensor:
@@ -616,6 +806,59 @@ def block_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
     if cfg.n_experts:
         return moe_ffn(p.moe, cfg, x, lossless=lossless)
     return glu_ffn(p.ffn, x)
+
+
+# --------------------------------------------------------------------------- #
+#  RG-LRU recurrent block (RecurrentGemma / Griffin)
+# --------------------------------------------------------------------------- #
+
+def doubling_scan(a: torch.Tensor, b: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t along dim 1 from h = 0:
+    returns (the products of a up to t, h_t), the pair
+    ``lax.associative_scan`` gives for the combine (al ar, bl ar + br).
+    log2(S) doubling steps of whole-tensor ops (Hillis-Steele), not a loop
+    over the tokens; its sums associate in another order than the JAX
+    tree's, so the two agree to rounding."""
+    S, d = a.shape[1], 1
+    while d < S:
+        b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], 1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], 1)
+        d *= 2
+    return a, b
+
+
+def rglru_block(p, cfg: ModelConfig, x: torch.Tensor, *,
+                cache: Optional[Dict] = None, decode: bool = False
+                ) -> torch.Tensor:
+    """Griffin recurrent block: a gating branch, a causal conv, then the
+    RG-LRU gated linear recurrence. cache: {"h": (B, w), "conv": (B, K-1,
+    w)}, written in place. Prefill scans with ``doubling_scan`` from the
+    cache's state; decode (S = 1) is the one-step update. Plain torch, as
+    in the reference."""
+    B, S, _ = x.shape
+    branch_y = swish(x @ p.w_y)
+    u, new_conv = _causal_conv1d(x @ p.w_x, p.conv_w,
+                                 None if cache is None else cache["conv"])
+    i_gate = torch.sigmoid(u * p.gate_i)
+    r_gate = torch.sigmoid(u * p.gate_r)
+    log_a = -8.0 * r_gate * torch.nn.functional.softplus(getattr(p, "lambda"))
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) \
+        * (u * i_gate)
+    h0 = cache["h"].to(a.dtype) if cache is not None else a.new_zeros(
+        (B, a.shape[-1]))
+    if decode:
+        if S != 1:
+            raise ValueError("RG-LRU decode takes one token a sequence")
+        y_seq = (a[:, 0] * h0 + b[:, 0])[:, None]
+    else:
+        a_s, b_s = doubling_scan(a, b)
+        y_seq = a_s * h0[:, None] + b_s
+    if cache is not None:
+        cache["h"].copy_(y_seq[:, -1])
+        cache["conv"].copy_(new_conv)
+    return (y_seq.to(x.dtype) * branch_y) @ p.w_out
 
 
 # --------------------------------------------------------------------------- #

@@ -221,14 +221,30 @@ class GraphedDecode:
         return logits, cache
 
 
+#: the recurrent leaves of a dense cache (ssm, the hybrid's RG-LRU): a
+#: step writes all of them; every other leaf is (L, B, S, ...) lines
+RECURRENT_LEAVES = ("conv", "state", "h")
+
+
+def _cache_leaves(tree, name=None):
+    """(leaf name, tensor) of a nested cache tree in a fixed order, its
+    top-level ``len`` left out."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            if not (name is None and k == "len"):
+                yield from _cache_leaves(tree[k], k)
+    else:
+        yield name, tree
+
+
 def dense_scrub(cache, T: int):
     """A dense cache's capture scrub: lengths zero, so a step writes rows
-    0..T-1 of every slot (attention leaves, saved and restored) or the
-    whole recurrent state (the ssm family's conv and state, saved and
-    restored)."""
-    layers = cache["layers"]
-    keep = [layers[k] if k in ("conv", "state") else layers[k][:, :, :T]
-            for k in sorted(layers)]
+    0..T-1 of every slot's lines (saved and restored) or the whole
+    recurrent state (saved and restored), over any cache tree (the
+    hybrid family's groups and tail, whisper's cross K/V, which a step
+    only reads)."""
+    keep = [t if name in RECURRENT_LEAVES else t[:, :, :T]
+            for name, t in _cache_leaves(cache)]
     return saved([cache["len"], *keep], zero=[cache["len"]])
 
 
@@ -760,9 +776,10 @@ class ContinuousBatcher:
 
 def write_dense_slot(cache, slot_cache, slot: int, length: int):
     """Copy a one-sequence dense cache (a prefill's) into ``slot`` of the
-    batch cache, in place."""
-    for name, dst in cache["layers"].items():
-        dst[:, slot] = slot_cache["layers"][name][:, 0]
+    batch cache, in place: every leaf of the tree is (layers, B, ...)."""
+    for (_, dst), (_, src) in zip(_cache_leaves(cache),
+                                  _cache_leaves(slot_cache)):
+        dst[:, slot] = src[:, 0]
     cache["len"][slot] = slot_cache["len"][0]
     return cache
 

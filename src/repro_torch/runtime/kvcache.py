@@ -1009,16 +1009,18 @@ class KVStats:
 
 
 def paged_cache_spec(cfg) -> Dict[str, Tuple[int, ...]]:
-    """Per-leaf trailing shapes of one cache line (one token, one layer)."""
+    """Per-leaf trailing shapes of one cache line (one token, one layer):
+    K/V (and int8 scales), or MLA's latent line."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(
             f"paged KV cache unsupported for family {cfg.family} "
             "(recurrent state has no per-token pages)")
-    if cfg.family not in ("dense", "moe") or cfg.mla:
-        raise NotImplementedError(
-            f"the port's paged cache serves the dense GQA and moe families "
-            f"(got {cfg.name}): MLA latent pages (minicpm3) and vlm "
-            f"(qwen2-vl-2b) are ROADMAP Queue A item 5")
+    if cfg.mla:
+        if cfg.kv_dtype == "int8":
+            raise NotImplementedError(
+                "paged MLA latent storage does not support int8 "
+                "quantization (the latent is already compressed)")
+        return {"latent": (cfg.kv_lora_rank + cfg.qk_rope_dim,)}
     hk, hd = max(cfg.kv_heads, 1), cfg.head_dim
     if cfg.kv_dtype == "int8":
         # int8 K/V plus per-(position, kv-head) scales in the pool dtype

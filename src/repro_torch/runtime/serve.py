@@ -24,9 +24,13 @@ on one stream.
 Every ring layer's attention is ``layers.attn_block``'s decode over its
 stage's cache slice: kernel B5 (``kernels.flash_decode.flash_verify``) on
 the card, the int8 cache read as stored, and its plain version on the CPU
-(the JAX ring's stats merged over a tensor-parallel group of one); every
-projection goes through ``layers.qmm`` (kernel B3 for a packed q4 ring
-bank). Cache and length
+(the JAX ring's stats merged over a tensor-parallel group of one); an MLA
+layer's is ``layers.mla_block``'s absorbed decode over its latent lines,
+plain torch as in the JAX ring's ``_ring_mla_layer``. Every projection
+goes through ``layers.qmm`` (kernel B3 for a packed q4 ring bank; MLA's
+``wq_a``, ``wq_b`` and ``wkv_a`` too, where the layer-wise path
+dequantizes them).
+Cache and length
 writes are in place. ``RingServeStep`` replays the step from CUDA graphs
 on the card (``runtime.engine.StepGraphs``) unless ``graphs=False``.
 
@@ -56,9 +60,9 @@ Params = Dict[str, Any]
 # --------------------------------------------------------------------------- #
 
 def ring_supported(cfg: ModelConfig, batch: int, n_stages: int) -> bool:
-    """Ring decode needs a uniform layer stack the port serves (dense GQA,
-    moe or ssm) and the same number of sequences on every stage."""
-    return (cfg.family in ("dense", "moe", "ssm") and not cfg.mla
+    """Ring decode needs a uniform layer stack (dense GQA or MLA, moe,
+    vlm or ssm) and the same number of sequences on every stage."""
+    return (cfg.family in ("dense", "moe", "vlm", "ssm")
             and n_stages >= 1 and batch % n_stages == 0)
 
 
@@ -349,17 +353,18 @@ def ring_params(params, cfg: ModelConfig, plan: RingPlan,
 # --------------------------------------------------------------------------- #
 
 def _ring_attn_layer(cfg: ModelConfig, p, x, c, ln):
-    """One dense decoder layer, ring decode mode: ``attn_block``'s decode
-    (B5 on the card) over the stage's cache slice. x: (mb, T, d) (T = 1
-    decode, T > 1 the speculative verify block); c: the stage's cache
-    slice {k/v: (mb, S, hk, hd)[, scales]}, written in place; ln: (mb,)
-    tokens so far."""
-    T = x.shape[1]
-    pos = ln[:, None] + torch.arange(T, dtype=ln.dtype,
-                                     device=ln.device)[None]
+    """One dense, moe or vlm decoder layer, ring decode mode:
+    ``attn_block``'s decode (B5 on the card) over the stage's cache slice,
+    or an MLA layer's ``mla_block`` absorbed decode over its latent lines.
+    x: (mb, T, d) (T = 1 decode, T > 1 the speculative verify block); c:
+    the stage's cache slice {k/v: (mb, S, hk, hd)[, scales]} or {latent:
+    (mb, S, r_kv + dr)}, written in place; ln: (mb,) tokens so far."""
+    from ..models.model import default_positions
+
+    pos = default_positions(cfg, x.shape[0], x.shape[1], ln)
     h = ll.rms_norm(x, p.attn_norm, cfg.norm_eps)
-    o, _ = ll.attn_block(p.attn, cfg, h, pos, cache={**c, "len": ln},
-                         decode=True)
+    block = ll.mla_block if cfg.mla else ll.attn_block
+    o, _ = block(p.attn, cfg, h, pos, cache={**c, "len": ln}, decode=True)
     x = x + o
     g = ll.rms_norm(x, p.ffn_norm, cfg.norm_eps)
     return x + ll.block_ffn(p, cfg, g, lossless=True)

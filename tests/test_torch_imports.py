@@ -48,9 +48,10 @@ def test_walk_covers_every_port_module():
     speculative slice's (decoder, kernel B5, the qwen1.5 configs), the
     tiered slice's (faults, the recall-cost terms), the ring slice's
     (schedule, profiles, Halda, cluster selection, elastic re-plan,
-    failover, the ring layout) and the moe slice's (the mixtral,
+    failover, the ring layout), the moe slice's (the mixtral,
     phi3.5-moe and minitron configs, the simulator, baselines and
-    profiler) included."""
+    profiler) and the last families' (the minicpm3, qwen2-vl,
+    recurrentgemma and whisper configs) included."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in FILES if p.name != "chip_smoke.py"}
     for want in ("quant/__init__.py", "quant/grouped.py",
@@ -65,5 +66,7 @@ def test_walk_covers_every_port_module():
                  "runtime/failover.py", "launch/mesh.py",
                  "configs/mixtral.py", "configs/phi35_moe.py",
                  "configs/minitron_8b.py", "core/simulator.py",
-                 "core/baselines.py", "core/profiler.py"):
+                 "core/baselines.py", "core/profiler.py",
+                 "configs/minicpm3.py", "configs/qwen2_vl_2b.py",
+                 "configs/recurrentgemma_9b.py", "configs/whisper_tiny.py"):
         assert want in names
