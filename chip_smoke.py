@@ -102,11 +102,11 @@ Phase 6  the same path at 4 layers, full width, f32: every B3 launch agrees
          every B5 launch too (atol 2e-5), streamed and resident tokens are
          equal, and kernel and plain-version logits agree to 2e-4 of
          max|ref|.
-Phase 7  speculative serve of qwen1.5-32b at full width and depth (64
-         layers, 40 heads MHA, d_ff 27392, int8 dense cache): built and
-         quantized on the card one layer at a time into a ~18 GB q4 layer
-         store (phase 5's store is gone; free space checked first; deleted
-         at the end), with a resident bf16 qwen1.5-0.5b draft (24 layers,
+Phase 7  speculative serve of qwen1.5-32b at full width, 32 of its 64
+         layers (``SPEC_LAYERS``; 40 heads MHA, d_ff 27392, int8 dense
+         cache): built and quantized on the card one layer at a time into
+         a ~9 GB q4 layer store (phase 5's store is gone; free space
+         checked first; deleted at the end), with a resident bf16 qwen1.5-0.5b draft (24 layers,
          tied embeddings), gamma 4, 2 slots (the verify runs B3 at M = 10,
          its decode kernel), ctx 1024; 4 requests (seed 7), prompts
          128-512, 16 new tokens. Spec streamed (window 4), then spec with
@@ -115,9 +115,10 @@ Phase 7  speculative serve of qwen1.5-32b at full width and depth (64
          equal the vanilla ones but at a near-tie: where they split, the
          vanilla top-2 logit gap must be under twice the two runs' logit
          difference there (no flip is possible otherwise), and before any
-         split the logits agree to 5e-2 of max|ref| (bf16, 64 layers).
-         Asserts per cycle 64 B5 launches at T = 5, 120 at T = 1 (5
-         draft steps x 24 layers) and 448 B3 launches. The resident runs
+         split the logits agree to 5e-2 of max|ref| (bf16; the bound was
+         set at 64 layers).
+         Asserts per cycle 32 B5 launches at T = 5, 120 at T = 1 (5
+         draft steps x 24 layers) and 224 B3 launches. The resident runs
          replay the target's step and the draft's from CUDA graphs and run
          again eagerly for phase 12 (equal streams); the vanilla streamed
          run (its layers come in rotating buffers: eager) carries a
@@ -310,6 +311,29 @@ Phase 16 the four families left, random weights from a seed: (a)
          max|ref| of ``use_kernels(False)``'s with equal streams (int8
          pages as phase 4 holds them). Its numbers again beside the card's
          name and power limit.
+
+Phase 17 training on the card, f32, TF32 off, random weights from a seed,
+         through ``repro_torch.launch.train.run`` (the train loop):
+         (a) qwen2.5-14b at full width, 4 of its 48 layers (2.658 B
+         params; params, grads and two moments 42.5 GB), batch 8 x 128:
+         20 steps with one checkpoint, at step 20 (the JAX layout,
+         31.9 GB, in the temp dir), then ``--resume`` to 30, beside an uninterrupted 30-step run:
+         finite losses, the mean of steps 16-20 below the first, steps
+         21-30 within 1e-3 relative of the uninterrupted run's; (b)
+         mamba2-780m at full width and depth, batch 4 x 1024, 10 steps:
+         exactly 480 B6 launches (48 a step: its backward recomputes the
+         plain scan) and nothing else; each run's step ms between syncs,
+         tokens/s and ``max_memory_allocated`` against 16 B a param; (c)
+         one train step of mamba2-780m at 4 layers with B6 against
+         ``use_kernels(False)``: loss within 1e-5 relative, every
+         gradient within 1e-4 of its leaf's max|ref|, each run's
+         parameters after the step within 1e-6 of max|ref| of AdamW's
+         step written out in f64 on that run's own gradients (the two
+         runs' parameters are only read against each other: Adam's
+         g / (|g| + eps) turns a rounding of a g near eps into a
+         sizeable part of lr); the same step with B6's outputs detached must
+         fail the gradient check; and a qwen2.5-14b-width step's
+         gradients with remat against without, within 1e-5.
 
 Prints the card's name and power limit again, the kernels' JSON line, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
@@ -2109,6 +2133,11 @@ SPEC_ARGS = ["--arch", "qwen1.5-32b", "--batch", "2", "--ctx", "1024",
 #: before any split, as a fraction of max|logit| (about 13 bf16 ulps,
 #: 2^-8 each, of the largest logit)
 SPEC_BF16_REL = 5e-2
+#: phase 7's depth: 32 of qwen1.5-32b's 64 layers, cut so that the whole
+#: script, phase 17's training included, stays inside its time limit
+#: (the two streamed runs and the store scale with the depth: 64 layers
+#: took 131-158 s of the phase)
+SPEC_LAYERS = 32
 PARITY_ARGS = ["--batch", "4", "--ctx", "1024", "--requests", "8",
                "--prompt-len", "128", "--prompt-len-max", "513",
                "--new-tokens", "16", "--seed", "0", "--dtype", "f32",
@@ -2335,7 +2364,8 @@ def serve_spec_full(torch, ops, serve):
     from repro_torch.runtime.telemetry import Tracer
 
     args = serve.parse_args(SPEC_ARGS)
-    cfg = get_config(args.arch)                # 64 layers, int8 cache
+    # int8 cache; the depth cut to SPEC_LAYERS
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=SPEC_LAYERS)
     dcfg = get_config(DRAFT_ARCH)              # 24 layers, tied
     bf16, B, ctx = torch.bfloat16, args.batch, args.ctx
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -5217,6 +5247,283 @@ def report_fam() -> None:
         f"{k} {v:.3g}" for k, v in FAM["parity"].items()))
 
 
+# --------------------------------------------------------------------------- #
+#  phase 17: training on the card
+# --------------------------------------------------------------------------- #
+
+TRAIN = {}
+#: phase 17's runs: (a) qwen2.5-14b at full width, 4 layers; (b)
+#: mamba2-780m at full width and depth
+QWEN_TRAIN = ["--arch", "qwen2.5-14b", "--n-layers", "4", "--batch", "8",
+              "--seq", "128", "--device", "cuda", "--seed", "0"]
+MAMBA_TRAIN = ["--arch", "mamba2-780m", "--batch", "4", "--seq", "1024",
+               "--steps", "10", "--ckpt-every", "1000", "--device", "cuda",
+               "--seed", "0"]
+
+
+def train_line(label, res, args, reckoned) -> dict:
+    """Log one training run's step time, tokens/s and peak bytes beside
+    the params + grads + two moments reckoned (16 B a parameter)."""
+    steady = res["step_s"][1:] or res["step_s"]
+    ms = float(np.median(steady)) * 1e3
+    tok_s = args.batch * args.seq / ms * 1e3
+    log(f"  {label}: {len(res['losses'])} steps from {res['start']}, step "
+        f"{ms:.1f} ms median after the first (between syncs; first "
+        f"{res['step_s'][0] * 1e3:.1f} ms), {tok_s:.0f} tokens/s, "
+        f"max_memory_allocated {res['peak_bytes'] / 1e9:.2f} GB against "
+        f"{reckoned / 1e9:.2f} GB reckoned for params, grads and moments, "
+        f"TF32 {res['tf32']}; checkpoint saves "
+        f"{[round(x, 1) for x in res['ckpt_s']]} s, restore "
+        f"{res['restore_s'] if res['restore_s'] is None else round(res['restore_s'], 1)} s")
+    losses = np.asarray(res["losses"])
+    assert np.isfinite(losses).all(), (label, losses)
+    return {"ms": ms, "tok_s": tok_s, "peak_gb": res["peak_bytes"] / 1e9,
+            "losses": res["losses"]}
+
+
+def trained(torch, LT, argv):
+    """``launch.train.run`` on ``argv``; the model and the optimizer
+    state are dropped before the next run."""
+    res = LT.run(LT.parse_args(argv))
+    res["params"] = res["opt"] = None
+    free_card(torch)
+    return res
+
+
+def train_qwen(torch, ops) -> None:
+    """(a) qwen2.5-14b at full width, 4 of 48 layers, f32: 20 steps with
+    one checkpoint, at step 20, then ``--resume`` to 30, beside one
+    uninterrupted 30-step run. One checkpoint (31.9 GB: params and two
+    f32 moments) is all the resume needs; a second would double the
+    disk the run writes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=4)
+    n = cfg.total_params()
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    log(f"  {n / 1e9:.3f} B params; a checkpoint of {12 * n / 1e9:.1f} GB "
+        f"in {d} ({shutil.disk_usage(d).free / 1e9:.1f} GB free)")
+    try:
+        t0 = time.perf_counter()
+        first = trained(torch, LT, QWEN_TRAIN + [
+            "--steps", "20", "--ckpt-every", "20", "--ckpt-dir", d])
+        resumed = trained(torch, LT, QWEN_TRAIN + [
+            "--steps", "30", "--ckpt-every", "1000", "--resume",
+            "--ckpt-dir", d])
+        straight = trained(torch, LT, QWEN_TRAIN + [
+            "--steps", "30", "--ckpt-every", "1000", "--ckpt-dir",
+            os.path.join(d, "straight")])
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    args = LT.parse_args(QWEN_TRAIN)
+    rows = {k: train_line(f"(a) {k}", r, args, 16 * n)
+            for k, r in (("first 20", first), ("resumed to 30", resumed),
+                         ("straight 30", straight))}
+    head = first["losses"]
+    assert np.mean(head[15:20]) < head[0], (head[0], head[15:20])
+    assert resumed["start"] == 20 and len(resumed["losses"]) == 10
+    rel = np.abs(np.asarray(resumed["losses"])
+                 - np.asarray(straight["losses"][20:30])) \
+        / np.abs(np.asarray(straight["losses"][20:30]))
+    log(f"  (a) loss {head[0]:.4f} -> {np.mean(head[15:20]):.4f} (mean of "
+        f"steps 16-20); steps 21-30 resumed against uninterrupted: largest "
+        f"relative difference {rel.max():.3g} (limit 1e-3); the three runs "
+        f"{wall:.1f} s")
+    assert rel.max() <= 1e-3, rel
+    TRAIN["qwen"] = dict(rows, resume_rel=float(rel.max()),
+                         ckpt_s=first["ckpt_s"],
+                         restore_s=resumed["restore_s"], wall=wall,
+                         reckoned_gb=16 * n / 1e9)
+
+
+def train_mamba(torch, ops) -> None:
+    """(b) mamba2-780m at full width and depth, f32: 10 steps of batch 4
+    x 1024; B6 launches once a layer a step (its backward recomputes the
+    plain scan)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+
+    cfg = get_config("mamba2-780m")
+    n = cfg.total_params()
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ops.reset_launch_counts()
+        res = trained(torch, LT, MAMBA_TRAIN + ["--ckpt-dir", d])
+        counts = ops.launch_counts()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    row = train_line("(b) mamba2-780m", res, LT.parse_args(MAMBA_TRAIN),
+                     16 * n)
+    want = dict.fromkeys(counts, 0)
+    want["ssd_scan"] = cfg.n_layers * 10
+    log(f"  (b) launches {counts} (want {want['ssd_scan']} B6)")
+    assert counts == want, counts
+    TRAIN["mamba"] = dict(row, launches=counts["ssd_scan"],
+                          reckoned_gb=16 * n / 1e9)
+
+
+def leaves_close(kern, plain, names, tol):
+    """The worst |d| / max|ref| over the leaves, and whether every leaf
+    is within ``tol`` (a leaf whose reference is 0 must be 0)."""
+    worst, ok, where = 0.0, True, ""
+    for name, a, b in zip(names, plain, kern):
+        m = float(a.abs().max())
+        e = float((a - b).abs().max()) / (m if m > 0 else 1.0)
+        if (m == 0 and float(b.abs().max()) != 0) or e > tol:
+            ok = False
+        if e > worst:
+            worst, where = e, name
+    return worst, where, ok
+
+
+def parity_step(torch, ops, cfg, batch, *, kernels, detach=False):
+    """One ``make_train_step`` of a fresh seed-5 model: {loss, grads,
+    before, after (the parameters), names, scale (the clip), opt}.
+    ``detach``: B6's outputs detached (the negative control: the scan's
+    share of the gradient is lost)."""
+    from repro_torch.models import init_params
+    from repro_torch.runtime.optim import AdamW
+    from repro_torch.runtime.train import make_train_step
+
+    seen = []
+
+    class Recording(AdamW):
+        def update(self, grads, state, params, *, gnorm=None):
+            seen.append(([g.detach().clone() for g in grads],
+                         min(1.0, self.clip_norm / max(float(gnorm),
+                                                       1e-12))))
+            return super().update(grads, state, params, gnorm=gnorm)
+
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(5),
+                         device="cuda")
+    before = [p.detach().clone() for p in params.parameters()]
+    opt = Recording(lr=3e-3, warmup_steps=20)
+    step = make_train_step(cfg, opt, grad_dtype=None, remat=False)
+    scan = ops.ssd_scan
+    if detach:
+        ops.ssd_scan = lambda *a, **k: tuple(t.detach()
+                                             for t in scan(*a, **k))
+    ops.use_kernels(kernels)
+    try:
+        params, _, m = step(params, opt.init(list(params.parameters())),
+                            batch)
+        loss = float(m["loss"])
+    finally:
+        ops.use_kernels(True)
+        ops.ssd_scan = scan
+    after = [p.detach().clone() for p in params.parameters()]
+    names = [k for k, _ in params.named_parameters()]
+    del params
+    free_card(torch)
+    return dict(loss=loss, grads=seen[0][0], before=before, after=after,
+                names=names, scale=seen[0][1], opt=opt)
+
+
+def update_close(run, tol):
+    """(worst |d| / max|ref|, its leaf, ok): the run's parameters after
+    its step against AdamW's first step (zero moments, step 1) written
+    out in f64 on the run's own recorded gradients and clip scale,
+    within ``tol`` of each leaf's max|ref| everywhere."""
+    opt = run["opt"]
+    lr = opt.lr * min(1 / max(opt.warmup_steps, 1), 1.0)
+    ref = []
+    for p, g in zip(run["before"], run["grads"]):
+        p, g = p.double(), g.double() * run["scale"]
+        mu, nu = (1 - opt.b1) * g, (1 - opt.b2) * g * g
+        u = (mu / (1 - opt.b1)) / ((nu / (1 - opt.b2)).sqrt() + opt.eps)
+        ref.append(p - lr * (u + opt.weight_decay * p))
+    return leaves_close(run["after"], ref, run["names"], tol)
+
+
+def train_parity(torch, ops) -> None:
+    """(c) mamba2-780m at 4 layers, full width, f32, TF32 off: one train
+    step with B6 against ``use_kernels(False)``, and its detached-B6
+    negative control; a qwen2.5-14b-width step's gradients with remat
+    against without."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus, batches
+    from repro_torch.models import init_params
+    from repro_torch.runtime.train import lm_loss, make_trainable
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config("mamba2-780m"), n_layers=4)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(batches(
+        SyntheticCorpus(vocab=cfg.vocab, seed=5), 4, 1024, seed=5)).items()}
+    ops.reset_launch_counts()
+    kern = parity_step(torch, ops, cfg, batch, kernels=True)
+    assert ops.launch_counts()["ssd_scan"] == cfg.n_layers
+    plain = parity_step(torch, ops, cfg, batch, kernels=False)
+    cut = parity_step(torch, ops, cfg, batch, kernels=True, detach=True)
+    names = kern["names"]
+    loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    g_worst, g_at, g_ok = leaves_close(kern["grads"], plain["grads"], names,
+                                       1e-4)
+    upd = [update_close(r, 1e-6) for r in (kern, plain)]
+    u_worst, u_at, _ = max(upd)
+    u_ok = all(ok for *_, ok in upd)
+    p_worst, p_at, _ = leaves_close(kern["after"], plain["after"], names,
+                                    1e-6)
+    log(f"  (c) mamba2-780m 4 layers: loss {kern['loss']:.6f} against "
+        f"{plain['loss']:.6f} plain (relative {loss_rel:.3g}, limit 1e-5); "
+        f"gradients worst {g_worst:.3g} of max|ref| at {g_at} (limit 1e-4); "
+        f"each run's parameters after the step against AdamW in f64 on "
+        f"its own gradients: worst {u_worst:.3g} at {u_at} (limit 1e-6); "
+        f"parameters kernels against plain (read, not bounded: Adam's "
+        f"g / (|g| + eps) near eps turns a rounding of g into part of lr) "
+        f"worst {p_worst:.3g} of max|ref| at {p_at}")
+    c_worst, c_at, c_ok = leaves_close(cut["grads"], plain["grads"], names,
+                                       1e-4)
+    log(f"  (c) negative control, B6's outputs detached: gradients worst "
+        f"{c_worst:.3g} of max|ref| at {c_at}: the check "
+        f"{'passes (a fault)' if c_ok else 'fails, as it should'}")
+    assert loss_rel <= 1e-5 and g_ok and u_ok
+    assert not c_ok
+    del kern, plain, cut
+    # remat on and off at qwen2.5-14b's width (4 layers)
+    qcfg = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=4)
+    params = init_params(qcfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    leaves = make_trainable(params)
+    qb = {k: torch.from_numpy(v).cuda() for k, v in next(batches(
+        SyntheticCorpus(vocab=qcfg.vocab, seed=0), 8, 128, seed=0)).items()}
+    grads = []
+    for remat in (False, True):
+        loss = lm_loss(params, qcfg, qb["tokens"], qb["labels"],
+                       remat=remat)
+        grads.append(torch.autograd.grad(loss, leaves))
+        del loss
+    r_worst, r_at, r_ok = leaves_close(
+        grads[1], grads[0], [k for k, _ in params.named_parameters()], 1e-5)
+    log(f"  (c) qwen2.5-14b width, 4 layers: remat against none, gradients "
+        f"worst {r_worst:.3g} of max|ref| at {r_at} (limit 1e-5)")
+    del params, leaves, grads
+    free_card(torch)
+    assert r_ok
+    TRAIN["parity"] = dict(loss_rel=loss_rel, grad=g_worst, update=u_worst,
+                           param=p_worst, control=c_worst, remat=r_worst)
+
+
+def report_train() -> None:
+    """Phase 17's numbers again, beside the card's name and power limit."""
+    log(f"  card: {card()}")
+    q = TRAIN["qwen"]
+    for label, row in q.items():
+        if isinstance(row, dict):
+            log(f"  qwen {label}: step {row['ms']:.1f} ms, {row['tok_s']:.0f}"
+                f" tokens/s, peak {row['peak_gb']:.2f} GB (reckoned "
+                f"{q['reckoned_gb']:.2f} GB)")
+    log(f"  qwen checkpoint saves {[round(x, 1) for x in q['ckpt_s']]} s, "
+        f"restore {q['restore_s']:.1f} s, resume {q['resume_rel']:.3g}, "
+        f"three runs {q['wall']:.1f} s")
+    m = TRAIN["mamba"]
+    log(f"  mamba step {m['ms']:.1f} ms, {m['tok_s']:.0f} tokens/s, peak "
+        f"{m['peak_gb']:.2f} GB (reckoned {m['reckoned_gb']:.2f}), "
+        f"{m['launches']} B6 launches")
+    log(f"  parity {TRAIN['parity']}")
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5285,8 +5592,8 @@ def main() -> int:
     q4_parity(torch, ops, serve)
     log(f"  phase 6 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 7: speculative serve of qwen1.5-32b at full width, 64 "
-        "layers, streamed q4, qwen1.5-0.5b draft")
+    log(f"== phase 7: speculative serve of qwen1.5-32b at full width, "
+        f"{SPEC_LAYERS} layers, streamed q4, qwen1.5-0.5b draft")
     spec_counts = serve_spec_full(torch, ops, serve)
     log(f"  main-path launches: {spec_counts}")
     log(f"  phase 7 done at {time.perf_counter() - t_start:.0f} s")
@@ -5354,11 +5661,20 @@ def main() -> int:
     report_fam()
     log(f"  phase 16 done at {time.perf_counter() - t_start:.0f} s")
 
+    log("== phase 17: training on the card: qwen2.5-14b at full width (4 "
+        "layers, f32) with a checkpoint and a resume, mamba2-780m at full "
+        "width and depth through B6, parity")
+    train_qwen(torch, ops)
+    train_mamba(torch, ops)
+    train_parity(torch, ops)
+    report_train()
+    log(f"  phase 17 done at {time.perf_counter() - t_start:.0f} s")
+
     counts["q4_matmul"] = stream_counts["q4_matmul"] \
         + moe_counts["q4_matmul"]
     counts["flash_verify"] = spec_counts["flash_verify"] \
         + moe_counts["flash_verify"]
-    counts["ssd_scan"] = ssm_counts["ssd_scan"]
+    counts["ssd_scan"] = ssm_counts["ssd_scan"] + TRAIN["mamba"]["launches"]
     for k, v in moe_paged_counts.items():
         counts[k] += v
     for k, v in fam_counts.items():

@@ -27,7 +27,7 @@ and ``scale`` bf16 children, as ``quant.quantize_tree`` or
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -37,7 +37,6 @@ from .models.model import (GLU, MLA, MLA_KEYS, MOE_KEYS, RGLRU, RGLRU_KEYS,
                            DenseModel, MoE, RGLRUBlock, SSDBlock,
                            WhisperModel)
 from .quant.grouped import QuantizedTensor, map_tree, tree_tensors
-from .runtime.paramstore import stack_layers
 
 _ATTN_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv") + MLA_KEYS
 _BLOCK_KEYS = {"attn": _ATTN_KEYS, "cross": _ATTN_KEYS,
@@ -134,48 +133,147 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda",
     return DenseModel(*head, _unstack(t["blocks"]), t.get("unembed"))
 
 
-def tree_from_block(block) -> Dict[str, Any]:
+def _detached(t: torch.Tensor) -> torch.Tensor:
+    return t.detach()
+
+
+def tree_from_block(block, leaf=_detached) -> Dict[str, Any]:
     """One block as its per-layer tree (the inverse of
-    ``block_from_tree``)."""
+    ``block_from_tree``), each parameter ``t`` as ``leaf(t)``."""
     if isinstance(block, SSDBlock):
-        return {"norm": block.norm.detach(),
-                "ssd": {k: getattr(block.ssd, k).detach()
-                        for k in SSD_KEYS}}
-    out = {k: getattr(block, k).detach() for k in _NORMS
+        return {"norm": leaf(block.norm),
+                "ssd": {k: leaf(getattr(block.ssd, k)) for k in SSD_KEYS}}
+    out = {k: leaf(getattr(block, k)) for k in _NORMS
            if hasattr(block, k)}
     for sub, keys in _BLOCK_KEYS.items():
         mod = getattr(block, sub, None)
         if mod is not None:
-            out[sub] = {k: getattr(mod, k).detach() for k in keys
+            out[sub] = {k: leaf(getattr(mod, k)) for k in keys
                         if hasattr(mod, k)}
     return out
 
 
-def _stacked(blocks) -> Dict[str, Any]:
-    return stack_layers([tree_from_block(b) for b in blocks])
+def _merge(trees: List[Any], stack) -> Any:
+    """Per-layer trees merged leaf by leaf: ``stack`` of each leaf's
+    list over the layers."""
+    if isinstance(trees[0], dict):
+        return {k: _merge([t[k] for t in trees], stack) for k in trees[0]}
+    return stack(trees)
 
 
-def tree_from_params(params: DenseModel) -> Dict[str, Any]:
+def tree_from_params(params: DenseModel, leaf=_detached,
+                     stack=torch.stack) -> Dict[str, Any]:
     """The model as the JAX package's stacked tree (block leaves stacked
     over the layers on their device): the layout
     ``runtime.paramstore.save_param_store`` and ``ResidentSource`` take
     (``groups``/``tail`` for a hybrid model, ``enc_blocks``/``enc_norm``/
-    ``dec_blocks`` for whisper)."""
-    out = {"embed": params.embed.detach(),
-           "final_norm": params.final_norm.detach()}
+    ``dec_blocks`` for whisper). Each parameter ``t`` enters as
+    ``leaf(t)`` (a gradient, a moment, a copy on the host), and a block
+    leaf's list over the layers as ``stack(list)``."""
+    def stacked(blocks):
+        return _merge([tree_from_block(b, leaf) for b in blocks], stack)
+
+    out = {"embed": leaf(params.embed),
+           "final_norm": leaf(params.final_norm)}
     blocks = list(params.blocks)
     if isinstance(params, WhisperModel):
-        out.update(enc_blocks=_stacked(params.enc_blocks),
-                   enc_norm=params.enc_norm.detach(),
-                   dec_blocks=_stacked(blocks))
+        out.update(enc_blocks=stacked(params.enc_blocks),
+                   enc_norm=leaf(params.enc_norm),
+                   dec_blocks=stacked(blocks))
     elif params.groups is not None:
         G, P = params.groups
-        out["groups"] = {f"b{i}": _stacked(blocks[i:G * P:P])
+        out["groups"] = {f"b{i}": stacked(blocks[i:G * P:P])
                          for i in range(P)}
         if len(blocks) > G * P:
-            out["tail"] = _stacked(blocks[G * P:])
+            out["tail"] = stacked(blocks[G * P:])
     else:
-        out["blocks"] = _stacked(blocks)
+        out["blocks"] = stacked(blocks)
     if hasattr(params, "unembed"):
-        out["unembed"] = params.unembed.detach()
+        out["unembed"] = leaf(params.unembed)
     return out
+
+
+# --------------------------------------------------------------------------- #
+#  training state: gradients, AdamW moments, checkpoints
+# --------------------------------------------------------------------------- #
+
+def _slots(params: DenseModel) -> Dict[str, Any]:
+    """The JAX tree with the model's parameters in place of its leaves: a
+    block leaf is the list of its layers' parameters."""
+    return tree_from_params(params, leaf=lambda t: t, stack=list)
+
+
+def _pairs(slots: Any, tree: Any):
+    """(parameter, its array in ``tree``) for every parameter, a block
+    leaf's row ``i`` for layer ``i``."""
+    if isinstance(slots, dict):
+        for k in slots:
+            yield from _pairs(slots[k], tree[k])
+    elif isinstance(slots, list):
+        for i, p in enumerate(slots):
+            yield p, tree[i]
+    else:
+        yield slots, tree
+
+
+def _as_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return _bf16(a)
+    return torch.from_numpy(np.array(a))
+
+
+def leaves_from_tree(params: DenseModel, tree: Dict[str, Any]
+                     ) -> List[torch.Tensor]:
+    """A JAX-shaped tree (numpy or torch leaves, e.g. a gradient or a
+    moment tree) as one tensor for each of ``params.parameters()``, in
+    that order, each on its parameter's device in the tree's dtype."""
+    by_id = {id(p): _as_tensor(a).to(p.device)
+             for p, a in _pairs(_slots(params), tree)}
+    return [by_id[id(p)] for p in params.parameters()]
+
+
+@torch.no_grad()
+def load_params_tree(params: DenseModel, tree: Dict[str, Any]) -> None:
+    """Copy a JAX-shaped tree (numpy or torch leaves) into the model's
+    parameters in place, cast to each parameter's dtype."""
+    for p, a in _pairs(_slots(params), tree):
+        p.copy_(_as_tensor(a))
+
+
+def tree_of_leaves(params: DenseModel, leaves) -> Dict[str, Any]:
+    """One tensor for each of ``params.parameters()`` (a gradient, a
+    moment) as the JAX-shaped tree, stacked where the leaves are."""
+    by_id = {id(p): t for p, t in zip(params.parameters(), leaves)}
+    return tree_from_params(params, leaf=lambda p: by_id[id(p)].detach())
+
+
+def grads_tree(params: DenseModel) -> Dict[str, Any]:
+    """The parameters' ``.grad`` as the JAX-shaped gradient tree (a zero
+    where a parameter got no gradient)."""
+    return tree_of_leaves(params, [torch.zeros_like(p) if p.grad is None
+                                   else p.grad
+                                   for p in params.parameters()])
+
+
+def opt_state_tree(params: DenseModel, state):
+    """The port's ``AdamState`` (step, one moment for each parameter) as
+    the JAX ``AdamState`` layout: (step, mu tree, nu tree), in the port's
+    ``AdamState`` NamedTuple."""
+    return type(state)(step=state.step,
+                       mu=tree_of_leaves(params, state.mu),
+                       nu=tree_of_leaves(params, state.nu))
+
+
+def opt_state_from_tree(params: DenseModel, tree, state_type):
+    """A JAX ``AdamState`` (or its checkpointed tree: step, mu tree, nu
+    tree) as the port's ``state_type`` over ``params``: f32 moments on
+    each parameter's device, the step an int32 scalar."""
+    step, mu, nu = tree
+    dev = next(params.parameters()).device
+    return state_type(
+        step=_as_tensor(step).to(device=dev, dtype=torch.int32).reshape(()),
+        mu=[t.float() for t in leaves_from_tree(params, mu)],
+        nu=[t.float() for t in leaves_from_tree(params, nu)])

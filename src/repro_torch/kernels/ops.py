@@ -11,6 +11,12 @@ The model path asks ``kernels_active`` once per attention call, in
 and calls the kernel wrappers itself (``layers.qmm`` goes through
 ``q4_matmul`` below, ``layers.ssd_block``'s zero-state prefill through
 ``ssd_scan``); the functions below route a direct call of one kernel.
+
+A kernel fills its output through a raw pointer, so that output carries
+no ``grad_fn``. B6 is wrapped in ``ssd_scan.SSDScan``, whose backward
+differentiates the plain scan; every other kernel is refused, through
+``_launch``, while grad is enabled and one of its inputs requires grad,
+so a training path cannot lose a gradient without a word.
 """
 from __future__ import annotations
 
@@ -48,16 +54,31 @@ def reset_launch_counts() -> None:
         _build.LAUNCHES[name] = 0
 
 
+def _launch(kernel, *args, **kw):
+    """``kernel(*args, **kw)``, refused with ``RuntimeError`` while grad
+    is enabled and a tensor argument requires grad: its output would
+    carry no ``grad_fn``."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad
+            for a in (*args, *kw.values())):
+        raise RuntimeError(
+            f"{kernel.__name__}: the CUDA kernel has no backward, and an "
+            f"input requires grad; call it under torch.no_grad() or with "
+            f"ops.use_kernels(False)")
+    return kernel(*args, **kw)
+
+
 def q4_matmul(x, packed, scale, *, group: int = 64):
     if not kernels_active(x):
         return _q4.q4_matmul_ref(x, packed, scale, group=group)
-    return _q4.q4_matmul(x, packed, scale, group=group)
+    return _launch(_q4.q4_matmul, x, packed, scale, group=group)
 
 
 def ssd_scan(x, dt, A, Bmat, Cmat, *, chunk: int = 128):
+    """B6 under autograd (``ssd_scan.SSDScan``) on the card."""
     if not kernels_active(x):
         return _ssd.ssd_scan_ref(x, dt, A, Bmat, Cmat, chunk=chunk)
-    return _ssd.ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk)
+    return _ssd.SSDScan.apply(_ssd.ssd_scan, x, dt, A, Bmat, Cmat, chunk)
 
 
 def flash_verify(q, k, v, kv_len, *, window: Optional[int] = None,
@@ -65,17 +86,14 @@ def flash_verify(q, k, v, kv_len, *, window: Optional[int] = None,
     if not kernels_active(q):
         return _fd.flash_verify_ref(q, k, v, kv_len, window=window,
                                     k_scale=k_scale, v_scale=v_scale)
-    return _fd.flash_verify(q, k, v, kv_len, window=window, k_scale=k_scale,
-                            v_scale=v_scale)
+    return _launch(_fd.flash_verify, q, k, v, kv_len, window=window,
+                   k_scale=k_scale, v_scale=v_scale)
 
 
 def flash_decode(q, k, v, kv_len, *, window: Optional[int] = None,
                  k_scale=None, v_scale=None):
-    if not kernels_active(q):
-        return _fd.flash_decode_ref(q, k, v, kv_len, window=window,
-                                    k_scale=k_scale, v_scale=v_scale)
-    return _fd.flash_decode(q, k, v, kv_len, window=window, k_scale=k_scale,
-                            v_scale=v_scale)
+    return flash_verify(q[:, None], k, v, kv_len, window=window,
+                        k_scale=k_scale, v_scale=v_scale)[:, 0]
 
 
 def paged_verify(q, k_pages, v_pages, table, kv_len, *,
@@ -83,8 +101,8 @@ def paged_verify(q, k_pages, v_pages, table, kv_len, *,
     if not kernels_active(q):
         return _pd.paged_verify_ref(q, k_pages, v_pages, table, kv_len,
                                     window=window)
-    return _pd.paged_verify(q, k_pages, v_pages, table, kv_len,
-                            window=window)
+    return _launch(_pd.paged_verify, q, k_pages, v_pages, table, kv_len,
+                   window=window)
 
 
 def paged_decode(q, k_pages, v_pages, table, kv_len, *,
@@ -98,8 +116,8 @@ def paged_prefill(q, k_pages, v_pages, table, kv_len, *,
     if not kernels_active(q):
         return _pp.paged_prefill_ref(q, k_pages, v_pages, table, kv_len,
                                      window=window)
-    return _pp.paged_prefill(q, k_pages, v_pages, table, kv_len,
-                             window=window)
+    return _launch(_pp.paged_prefill, q, k_pages, v_pages, table, kv_len,
+                   window=window)
 
 
 def paged_verify_quant(q, k_pages, v_pages, k_scale, v_scale, table, kv_len,
@@ -108,8 +126,8 @@ def paged_verify_quant(q, k_pages, v_pages, k_scale, v_scale, table, kv_len,
         return _pd.paged_verify_quant_ref(q, k_pages, v_pages, k_scale,
                                           v_scale, table, kv_len,
                                           window=window)
-    return _pd.paged_verify_quant(q, k_pages, v_pages, k_scale, v_scale,
-                                  table, kv_len, window=window)
+    return _launch(_pd.paged_verify_quant, q, k_pages, v_pages, k_scale,
+                   v_scale, table, kv_len, window=window)
 
 
 def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, table,

@@ -110,6 +110,42 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
+class SSDScan(torch.autograd.Function):
+    """The scan under autograd: ``SSDScan.apply(scan, x, dt, A, Bmat,
+    Cmat, chunk)`` returns ``scan``'s (y, h_final) (``ssd_scan``, kernel
+    B6, on the card; a plain version in the tests) with a ``grad_fn``.
+
+    The backward recomputes the scan from the saved inputs through the
+    plain ``models.layers.ssd_chunked`` under ``enable_grad`` and returns
+    its vector-Jacobian product: the gradient the JAX package trains
+    with, XLA's autodiff of its plain chunked scan. The JAX package has
+    no backward kernel to port, and none is written here; the recompute
+    launches no kernel."""
+
+    @staticmethod
+    def forward(ctx, scan, x, dt, A, Bmat, Cmat, chunk):
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return scan(x, dt, A, Bmat, Cmat, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        from ..models.layers import ssd_chunked
+        saved = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(saved, ctx.needs_input_grad[1:6])]
+        with torch.enable_grad():
+            outs = ssd_chunked(*inputs, chunk=ctx.chunk)
+        used, cot = zip(*[(o, g) for o, g in zip(outs, (gy, gh))
+                          if g is not None])
+        grads = iter(torch.autograd.grad(
+            used, [t for t in inputs if t.requires_grad], cot,
+            allow_unused=True))
+        return (None, *(next(grads) if t.requires_grad else None
+                        for t in inputs), None)
+
+
 # --------------------------------------------------------------------------- #
 #  plain versions
 # --------------------------------------------------------------------------- #

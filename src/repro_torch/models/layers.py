@@ -302,11 +302,10 @@ def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``ops.use_kernels(False)``), which reads an int8 cache with its scales
     as it is stored; otherwise ``verify_attention``, over an int8 cache
     dequantized to q's dtype first, as in the reference."""
-    from ..kernels import flash_decode, ops
+    from ..kernels import ops
     if ops.kernels_active(q):
-        return flash_decode.flash_verify(q, k, v, kv_len.int(),
-                                         window=window, k_scale=k_scale,
-                                         v_scale=v_scale)
+        return ops.flash_verify(q, k, v, kv_len.int(), window=window,
+                                k_scale=k_scale, v_scale=v_scale)
     if k_scale is not None:
         k = dequantize_kv(k, k_scale, q.dtype)
         v = dequantize_kv(v, v_scale, q.dtype)
@@ -527,14 +526,13 @@ def _paged_attention(q: torch.Tensor, pages: Pages, table: torch.Tensor,
     int8 pools go through the fused-dequant kernel for decode and chunked
     admission alike, as in the reference: chunk row t sits at
     ``kv_len - S + t``, which is the prefill geometry at B = 1."""
-    from ..kernels import ops, paged_decode, paged_prefill
+    from ..kernels import ops
     if ops.kernels_active(q):
         if "k_scale" in pages:
-            return paged_decode.paged_verify_quant(
+            return ops.paged_verify_quant(
                 q, pages["k"], pages["v"], pages["k_scale"],
                 pages["v_scale"], table, kv_len, window=window)
-        kern = paged_prefill.paged_prefill if prefill \
-            else paged_decode.paged_verify
+        kern = ops.paged_prefill if prefill else ops.paged_verify
         return kern(q, pages["k"], pages["v"], table, kv_len, window=window)
     if "k_scale" in pages:
         k = dequantize_kv(gather_pages(pages["k"], table),

@@ -67,6 +67,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..quant.grouped import QuantizedTensor, dequantize_leaf, dequantize_tree
@@ -75,7 +76,8 @@ from . import layers as ll
 
 
 def _param(t):
-    """A frozen parameter; a packed ``QuantizedTensor`` stays a plain
+    """A frozen parameter (``runtime.train.make_trainable`` thaws a
+    model's float leaves); a packed ``QuantizedTensor`` stays a plain
     attribute (``layers.qmm`` consumes it)."""
     if isinstance(t, QuantizedTensor):
         return t
@@ -573,10 +575,18 @@ def _layer(p, cfg: ModelConfig, x, positions, c: Optional[Dict], *,
 
 
 def _backbone(params: DenseModel, cfg: ModelConfig, x, positions,
-              cache: Optional[Dict], *, decode: bool, fresh: bool = False):
+              cache: Optional[Dict], *, decode: bool, fresh: bool = False,
+              remat: bool = False):
+    """The blocks in order. ``remat``: each layer under
+    ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward), the counterpart of ``jax.checkpoint`` on the scan body."""
     for i, p in enumerate(params.blocks):
-        x = _layer(p, cfg, x, positions, _layer_cache(cfg, cache, i),
-                   decode=decode, fresh=fresh)
+        c = _layer_cache(cfg, cache, i)
+        if remat:
+            x = checkpoint(_layer, p, cfg, x, positions, c, decode=decode,
+                           fresh=fresh, use_reentrant=False)
+        else:
+            x = _layer(p, cfg, x, positions, c, decode=decode, fresh=fresh)
     return x, _advance(cache, x.shape[1])
 
 
@@ -601,6 +611,27 @@ def _check_frames(cfg: ModelConfig, embeds) -> None:
                          f"embeds (B, {cfg.n_frontend_tokens}, d)")
 
 
+def train_forward(params: DenseModel, cfg: ModelConfig,
+                  tokens: torch.Tensor, *,
+                  embeds: Optional[torch.Tensor] = None,
+                  positions: Optional[torch.Tensor] = None,
+                  remat: bool = False) -> torch.Tensor:
+    """``forward`` without ``no_grad``: the body the trainer
+    differentiates (``runtime.train.lm_loss``). ``remat``: see
+    ``_backbone`` (whisper's stacks take none, as in the reference)."""
+    _check_frames(cfg, embeds)
+    if cfg.family == "audio":
+        return _whisper_forward(params, cfg, tokens, embeds)
+    x = _embed_input(params, cfg, tokens, embeds)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = default_positions(cfg, B, S)
+    x, _ = _backbone(params, cfg, x, positions.to(x.device), None,
+                     decode=False, remat=remat)
+    x = ll.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(params, cfg, x)
+
+
 @torch.no_grad()
 def forward(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor, *,
             embeds: Optional[torch.Tensor] = None,
@@ -608,17 +639,8 @@ def forward(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Full-sequence logits (B, S, V), no cache. ``embeds``: frontend
     embeddings prepended to the tokens' (vlm patches), or whisper's
     frames."""
-    _check_frames(cfg, embeds)
-    if cfg.family == "audio":
-        return whisper_forward(params, cfg, tokens, embeds)
-    x = _embed_input(params, cfg, tokens, embeds)
-    B, S, _ = x.shape
-    if positions is None:
-        positions = default_positions(cfg, B, S)
-    x, _ = _backbone(params, cfg, x, positions.to(x.device), None,
-                     decode=False)
-    x = ll.rms_norm(x, params.final_norm, cfg.norm_eps)
-    return unembed(params, cfg, x)
+    return train_forward(params, cfg, tokens, embeds=embeds,
+                         positions=positions)
 
 
 @torch.no_grad()
@@ -887,9 +909,8 @@ def _dec_input(params, cfg: ModelConfig, tokens):
     return x, default_positions(cfg, B, S).to(x.device)
 
 
-@torch.no_grad()
-def whisper_forward(params: WhisperModel, cfg: ModelConfig, tokens,
-                    frames) -> torch.Tensor:
+def _whisper_forward(params: WhisperModel, cfg: ModelConfig, tokens,
+                     frames) -> torch.Tensor:
     enc_out = whisper_encode(params, cfg, frames)
     x, positions = _dec_input(params, cfg, tokens)
     for p in params.blocks:
@@ -897,6 +918,12 @@ def whisper_forward(params: WhisperModel, cfg: ModelConfig, tokens,
         x = _dec_layer(p, cfg, x, positions, None, ck, cv, decode=False)
     x = ll.rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x)
+
+
+@torch.no_grad()
+def whisper_forward(params: WhisperModel, cfg: ModelConfig, tokens,
+                    frames) -> torch.Tensor:
+    return _whisper_forward(params, cfg, tokens, frames)
 
 
 @torch.no_grad()

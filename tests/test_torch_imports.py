@@ -42,6 +42,17 @@ def test_serve_entry_point_leaves_jax_unloaded():
     assert res.returncode == 0, res.stderr
 
 
+def test_train_entry_point_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.launch.train, repro_torch.launch.specs; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro imported'")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_walk_covers_every_port_module():
     """The import check above walks every module of the port, the q4
     streaming slice's (quant, store, prefetcher, kernel B3) and the
@@ -50,8 +61,10 @@ def test_walk_covers_every_port_module():
     (schedule, profiles, Halda, cluster selection, elastic re-plan,
     failover, the ring layout), the moe slice's (the mixtral,
     phi3.5-moe and minitron configs, the simulator, baselines and
-    profiler) and the last families' (the minicpm3, qwen2-vl,
-    recurrentgemma and whisper configs) included."""
+    profiler), the last families' (the minicpm3, qwen2-vl,
+    recurrentgemma and whisper configs) and the trainer's (optimizer,
+    checkpoints, train step, train driver, shape stand-ins, the plain
+    kernels under their JAX names) included."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in FILES if p.name != "chip_smoke.py"}
     for want in ("quant/__init__.py", "quant/grouped.py",
@@ -68,5 +81,8 @@ def test_walk_covers_every_port_module():
                  "configs/minitron_8b.py", "core/simulator.py",
                  "core/baselines.py", "core/profiler.py",
                  "configs/minicpm3.py", "configs/qwen2_vl_2b.py",
-                 "configs/recurrentgemma_9b.py", "configs/whisper_tiny.py"):
+                 "configs/recurrentgemma_9b.py", "configs/whisper_tiny.py",
+                 "runtime/optim.py", "runtime/checkpoint.py",
+                 "runtime/train.py", "launch/train.py", "launch/specs.py",
+                 "kernels/ref.py"):
         assert want in names
