@@ -50,6 +50,17 @@ Phase 2  hold each kernel against its plain torch version on the card and
          * B1, B2, B4 and B5 at head dims 16, 96 and 256 (staged
            zero-padded to 64, 128 and 256), H 8 over 2, f32 and bf16, each
            with its negative control (not timed);
+         * B5 with its row stats (``flash_verify_stats``, the ring's
+           sequence-split merge) at a rank's shard of qwen2.5-14b's cache
+           (B 2, 40 over 8 heads, D 128, 512 lines; kv_len counted from
+           the shard's first line, 700 past it, -100 and 0 before it),
+           T 1 and 5, f32 and bf16, over a float cache and over an int8
+           one with bf16 scales (``k_scale``/``v_scale``): o by B5's rule
+           and lse within 1e-4
+           of the plain f32 version, an overwritten newest line must
+           fail both (its scales too), a shard no row sees gives lse -inf
+           and o 0; the library call is ATen's memory-efficient attention
+           with its log-sum-exp (on the dequantized cache for int8);
          * B6 ssd_scan at mamba2-780m's prefill shapes (48 heads, P 64, N
            128): B 1 with S 1024, 1000 and 77 (ragged, shorter than a
            chunk) and B 2 with S 512, x, B and C strided as
@@ -97,15 +108,16 @@ Phase 5  the streamed q4 path at full width, all 48 layers, bf16: build
          weights <= 4 layers, and equal tokens. The store was just
          written, so its reads likely come from the page cache, not the
          disk.
-Phase 6  the same path at 4 layers, full width, f32: every B3 launch agrees
+Phase 6  the same path at 3 layers (one past the window of 2), full width,
+         f32: every B3 launch agrees
          with its plain version on the same inputs (1e-5 of max|ref|),
          every B5 launch too (atol 2e-5), streamed and resident tokens are
          equal, and kernel and plain-version logits agree to 2e-4 of
          max|ref|.
-Phase 7  speculative serve of qwen1.5-32b at full width, 32 of its 64
+Phase 7  speculative serve of qwen1.5-32b at full width, 16 of its 64
          layers (``SPEC_LAYERS``; 40 heads MHA, d_ff 27392, int8 dense
          cache): built and quantized on the card one layer at a time into
-         a ~9 GB q4 layer store (phase 5's store is gone; free space
+         a ~4.5 GB q4 layer store (phase 5's store is gone; free space
          checked first; deleted at the end), with a resident bf16 qwen1.5-0.5b draft (24 layers,
          tied embeddings), gamma 4, 2 slots (the verify runs B3 at M = 10,
          its decode kernel), ctx 1024; 4 requests (seed 7), prompts
@@ -117,8 +129,8 @@ Phase 7  speculative serve of qwen1.5-32b at full width, 32 of its 64
          difference there (no flip is possible otherwise), and before any
          split the logits agree to 5e-2 of max|ref| (bf16; the bound was
          set at 64 layers).
-         Asserts per cycle 32 B5 launches at T = 5, 120 at T = 1 (5
-         draft steps x 24 layers) and 224 B3 launches. The resident runs
+         Asserts per cycle 16 B5 launches at T = 5, 120 at T = 1 (5
+         draft steps x 24 layers) and 112 B3 launches. The resident runs
          replay the target's step and the draft's from CUDA graphs and run
          again eagerly for phase 12 (equal streams); the vanilla streamed
          run (its layers come in rotating buffers: eager) carries a
@@ -135,16 +147,17 @@ Phase 8  spec parity at 4 layers, full width, f32 and an f32 cache: (a)
          plain version on the same inputs, verify logits agree to 2e-4 of
          max|ref|, per-request accepted counts are equal, and every spec
          stream equals the vanilla greedy stream.
-Phase 9  serve mamba2-780m (the ssm family) at full width and depth (48
-         layers, d 1536, 48 SSD heads of P 64, N 128, vocab 50280, tied),
+Phase 9  serve mamba2-780m (the ssm family) at full width, 24 of its 48
+         layers (``SSM_LAYERS``; d 1536, 48 SSD heads of P 64, N 128,
+         vocab 50280, tied),
          bf16, random weights from a seed: 16 requests (prompts 200-2000
          tokens, 32 new tokens) through 8 slots, ctx 2080. (a) The
-         resident dense engine: exactly 48 B6 launches a prefill and
+         resident dense engine: exactly 24 B6 launches a prefill and
          nothing else; (b) the same with ``use_kernels(False)``: streams
          equal but at a near-tie (phase 7's rule); (c) a q4 layer store
          built and quantized on the card one layer at a time, written to
          a temporary directory and served resident and streamed (window
-         4): equal streams, 48 B6 launches a prefill and 2 B3 launches
+         4): equal streams, 24 B6 launches a prefill and 2 B3 launches
          (in_proj, out_proj) a layer a pass.
 Phase 10 ssm parity at 4 layers, full width, f32 and an f32 cache: the
          dense engine and the streamed q4 engine, kernels against
@@ -173,8 +186,11 @@ Phase 11 the CI smokes' shapes on the card: the reduced configs (head_dim
          ran with before the driver took the JAX driver's defaults); then
          every ``repro.launch.serve`` line of ``.github/workflows/ci.yml``
          as written, with ``repro_torch`` in its place (decode through the
-         4-stage ring, then its ``--paged-kv``, ``--stream-window`` or
-         ``--chaos`` section), each exiting 0 with its kernels launched,
+         4-stage ring across 8 rank processes, then its ``--paged-kv``,
+         ``--stream-window`` or ``--chaos`` section), each exiting 0 with
+         its kernels launched (the ranks' B5-stats launches, which the
+         driver prints summed over its ranks, above 0 on every line whose
+         decode ran across ranks),
          and the metrics and trace files the CI validates passing the
          port's validators with the names the CI requires.
 Phase 12 steps replayed from CUDA graphs against eager, recorded in phases
@@ -221,8 +237,9 @@ Phase 13 tiered KV memory at qwen2.5-14b's full width and depth (48
          a pinned buffer and the card), the modeled against measured recall
          seconds (``core.latency.tier_recall_crosscheck``), park, demote
          and restore ms, beside the card's name and power limit.
-Phase 14 the piped ring (PRP) at qwen2.5-14b's full width and depth, all 4
-         stages on the card (seed 0; 8 prompts of 512 tokens, drawn as
+Phase 14 the piped ring (PRP) in one process at qwen2.5-14b's full width
+         and depth (48 layers), all 4 stages on the card (seed 0; 8
+         prompts of 512 tokens, drawn as
          the JAX driver draws its batch (seed 1), prefilled on one
          device, ctx 1024): (a) bf16, the resident ring
          at k 1 (w 12) and k 2 (w 6), 32 greedy steps replayed from CUDA
@@ -231,9 +248,11 @@ Phase 14 the piped ring (PRP) at qwen2.5-14b's full width and depth, all 4
          eager (logits equal to the graphed steps', max|d| 0), a T = 5
          verify pass against 5 single steps, exactly 192 B5 launches a
          pass (48 layers x 4 microbatches); (b) phase 5's q4 store (built
-         again from the same seed) at k 2: the resident q4 ring and the
-         streamed ring (banks 2 steps ahead), 8 steps, equal tokens,
-         exactly 1344 B3 (7 x 192) and 192 B5 launches a pass; one
+         again from the same seed) at k 2: the resident q4 ring, 32
+         graphed steps (kept, with the store and the prefilled cache, as
+         phase 18 (a)'s reference), and the streamed ring (banks 2 steps
+         ahead), 8 steps, equal tokens, exactly 1344 B3 (7 x 192) and 192
+         B5 launches a pass; one
          eager resident step with every B3 launch (M = 2 rows) held
          against its plain version on the same inputs; peak
          resident weight bytes against the resident q4 bank's, the stall,
@@ -252,21 +271,22 @@ Phase 14 the piped ring (PRP) at qwen2.5-14b's full width and depth, all 4
 Phase 15 the moe family (mixtral-8x7b: 32 layers, d 4096, 8 experts of
          d_ff 14336, top 2, sliding window 4096; phi3.5-moe: 16 experts of
          d_ff 6400), random weights from a seed: (a) mixtral at published
-         width and depth as a ~25 GB q4 store built and quantized on the
+         width, 16 of its 32 layers (``MOE_LAYERS``), as a ~12 GB q4 store
+         built and quantized on the
          card one layer at a time (every expert stack and the router q4),
          written to a temporary directory; 8 requests (prompts 128-512,
          seed 7, 16 new tokens) through 8 slots, ctx 640, the layer-wise
          engine with the q4 weights resident, then streamed (window 4):
-         exactly (4 + 3 x 8) x 32 = 896 B3 launches a pass (each expert's
-         slice at M = C) and 32 B5 a decode step, peak under 5 layers,
+         exactly (4 + 3 x 8) x 16 = 448 B3 launches a pass (each expert's
+         slice at M = C) and 16 B5 a decode step, peak under 5 layers,
          equal streams; (c) the resident q4 bank over 4 stages at k 1, 8
          rows, 8 graphed steps against the one-device decode (phase 7's
          near-tie rule), 3584 B3 and 128 B5 a pass exactly, one eager
          step with every B3 launch held against its plain version; (b)
-         mixtral at full width, 16 of 32 layers, bf16 (46 GB), through
+         mixtral at full width, 8 of 32 layers, bf16 (23 GB), through
          the paged engine (8 slots, ctx 2048, 16-token pages, 256-token
          chunks; 16 requests, prompts 256-1024, 32 new tokens) graphed
-         and eager: B2 16 a chunk and B1 16 a decode step exactly, equal
+         and eager: B2 8 a chunk and B1 8 a decode step exactly, equal
          streams; (d) mixtral and phi3.5-moe at 4 layers, full width, f32,
          eager: the dense engine, the paged engine (chunked, f32 and int8
          pages) and the layer-wise engine over a q4 store, every launch
@@ -278,8 +298,9 @@ Phase 15 the moe family (mixtral-8x7b: 32 layers, d 4096, 8 experts of
          mixtral in q4 over it. Its numbers again beside the card's name
          and power limit.
 Phase 16 the four families left, random weights from a seed: (a)
-         minicpm3-4b (MLA) at published width and depth (62 layers, d
-         2560, bf16, 8.5 GB) through phase 3's paged mix on latent pages,
+         minicpm3-4b (MLA) at published width, 31 of its 62 layers
+         (``MLA_LAYERS``; d 2560, bf16) through phase 3's paged mix on
+         latent pages,
          graphed and eager (no B-kernel launch: MLA attention is plain
          torch, as in the reference), the dense-cache engine on the same
          requests (near ties only: its prefill takes the expanded form,
@@ -314,10 +335,11 @@ Phase 16 the four families left, random weights from a seed: (a)
 
 Phase 17 training on the card, f32, TF32 off, random weights from a seed,
          through ``repro_torch.launch.train.run`` (the train loop):
-         (a) qwen2.5-14b at full width, 4 of its 48 layers (2.658 B
-         params; params, grads and two moments 42.5 GB), batch 8 x 128:
-         20 steps with one checkpoint, at step 20 (the JAX layout,
-         31.9 GB, in the temp dir), then ``--resume`` to 30, beside an uninterrupted 30-step run:
+         (a) qwen2.5-14b at full width, 2 of its 48 layers
+         (``QWEN_TRAIN_LAYERS``; 2.108 B params; params, grads and two
+         moments 33.7 GB), batch 8 x 128: 20 steps with one checkpoint,
+         at step 20 (the JAX layout, 25.3 GB, in the temp dir), then
+         ``--resume`` to 30, beside an uninterrupted 30-step run:
          finite losses, the mean of steps 16-20 below the first, steps
          21-30 within 1e-3 relative of the uninterrupted run's; (b)
          mamba2-780m at full width and depth, batch 4 x 1024, 10 steps:
@@ -334,6 +356,29 @@ Phase 17 training on the card, f32, TF32 off, random weights from a seed,
          sizeable part of lr); the same step with B6's outputs detached must
          fail the gradient check; and a qwen2.5-14b-width step's
          gradients with remat against without, within 1e-5.
+
+Phase 18 the ring across ranks (PR 24): 4 stages x tp 2 = 8 rank
+         processes on the card (``launch.mesh.RankWorld``, gloo, one torch
+         thread a rank), each reading only its part of a layer store: (a)
+         qwen2.5-14b at full width and depth from phase 14 (b)'s q4 store
+         and prefilled cache (batch 8, prompts of 512, ctx 1024), 32
+         greedy steps at k 2 then 4 T = 5 verify passes, against phase 14
+         (b)'s one-process resident ring on the same store (streams equal
+         but at near ties, phase 7's rule; every rank the same tokens); (c)
+         exactly 1536 B5-stats and 10752 B3 launches a rank (48 layer
+         rows x 32 steps, x 7 projections), nothing else; (d) rank 0's
+         step and verify ms and the step's share in the collectives and
+         their host staging (``comms`` phases on the ``comm`` track); (b)
+         4 layers at full width, f32, an f32 and an int8 cache: the
+         ranks' logits (kernels) against the one-process ring on
+         ``use_kernels(False)`` within 2e-4 of max|ref| with equal tokens
+         at every step (int8 too; the int8 k/v bytes that differ from the
+         plain run's are counted and printed), every replicated activation
+         (x after each layer, the
+         merged attention, the final hiddens) equal to the bit across a
+         stage's members on every rank, and the negative control (members
+         merging without their shard's offset) failing. Its numbers again
+         beside the card's name and power limit.
 
 Prints the card's name and power limit again, the kernels' JSON line, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
@@ -370,11 +415,21 @@ REPLACES = {"paged_verify": "src/repro/kernels/paged_decode.py:89",
             "paged_verify_quant": "src/repro/kernels/paged_decode.py:214",
             "q4_matmul": "src/repro/kernels/q4_matmul.py:67",
             "flash_verify": "src/repro/kernels/flash_decode.py:89",
+            "flash_verify_stats": "src/repro/kernels/flash_decode.py:89",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:73"}
 
 
+_LOG = []
+
+
 def log(msg: str) -> None:
+    """Print ``msg``, and keep the whole log in ``chiprun_out/`` (the chip
+    tool returns only the end of the output)."""
     print(msg, flush=True)
+    if not _LOG:
+        _LOG.append(open(out_path("chip_smoke.log"), "w"))
+    _LOG[0].write(msg + "\n")
+    _LOG[0].flush()
 
 
 # --------------------------------------------------------------------------- #
@@ -461,13 +516,14 @@ def visible(kv_len, T, window, S=None):
 
 
 def bound_ms(*, q_elems, elt, kv_pos, keys, dtype, kv_elt=None,
-             scale_elt=0, h_kv=H_KV, head_dim=D, heads=H):
+             scale_elt=0, h_kv=H_KV, head_dim=D, heads=H, extra_bytes=0):
     """Least time for the work: q read once and the output written once
-    (q's dtype), the live K/V positions read once (with their int8 scales
-    when ``scale_elt``), against the operations (QK and PV multiply-adds
-    over the keys each row sees)."""
+    (q's dtype; ``extra_bytes`` more written, e.g. B5's row stats), the
+    live K/V positions read once (with their int8 scales when
+    ``scale_elt``), against the operations (QK and PV multiply-adds over
+    the keys each row sees)."""
     kv_elt = elt if kv_elt is None else kv_elt
-    nbytes = 2 * q_elems * elt + \
+    nbytes = 2 * q_elems * elt + extra_bytes + \
         sum(kv_pos) * h_kv * (head_dim * kv_elt + scale_elt) * 2
     flops = 4 * head_dim * heads * sum(keys)
     t_bytes = nbytes / HBM_BYTES_S
@@ -947,6 +1003,184 @@ def check_flash(torch, timer, rng):
                        "replaces": REPLACES["flash_verify"],
                        "launches": 0, "max_abs_err": err, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": lib_ms}
+        del k32, v32, q32
+    return row
+
+
+#: B5 with its stats at the ring's shard shapes (phase 18 (a)): a
+#: microbatch of 2 of qwen2.5-14b's rows over one member's 512 of 1024
+#: cache lines. kv_len is counted from the shard's first line: 700 is a
+#: member-0 shard whose sequence runs past it; -100 and 0 a shard whose
+#: lines no row sees yet (every row: lse -inf, o 0);
+#: each over a float and an int8 cache
+STATS_CASES = (
+    ("B5-stats 14B ring shard T=1", 2, 1, (300, 700), False),
+    ("B5-stats 14B ring shard T=5", 2, 5, (300, 700), False),
+    ("B5-stats 14B fully masked shard T=5", 2, 5, (-100, 0), False),
+    # the int8 ring cache (int8 lines, bf16 scales a line and head)
+    ("B5-stats 14B ring shard T=1 int8 cache", 2, 1, (300, 700), True),
+    ("B5-stats 14B ring shard T=5 int8 cache", 2, 5, (300, 700), True),
+    ("B5-stats 14B fully masked shard T=5 int8 cache", 2, 5, (-100, 0),
+     True),
+)
+STATS_ROW = "B5-stats 14B ring shard T=1"
+STATS_S = 512
+#: |lse - plain f32 lse| allowed (the scores' f32 sums in another order,
+#: and exp2 on the MUFU for bf16 results)
+LSE_ATOL = 1e-4
+
+
+def lse_library(torch, q, k, v, kv_len, window):
+    """The library yardstick of B5 with its stats: ATen's memory-efficient
+    attention with ``compute_log_sumexp`` (one call that returns the
+    output and each row's log-sum-exp), heads expanded and the
+    causal-among-drafts mask as an additive bias, beforehand."""
+    B, T, H_q = q.shape[:3]
+    S = k.shape[1]
+    pos = torch.arange(S, device=q.device)
+    qpos = kv_len.long()[:, None] - T + torch.arange(T, device=q.device)
+    mask = pos[None, None] <= qpos[..., None]
+    if window:
+        mask &= pos[None, None] > qpos[..., None] - window
+    bias = torch.zeros((B, H_q, T, S), dtype=q.dtype, device=q.device)
+    bias.masked_fill_(~mask[:, None], float("-inf"))
+    n_rep = H_q // k.shape[2]
+    kt = k.permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+    vt = v.permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+    qt = q.permute(0, 2, 1, 3).contiguous()
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, bias, True)
+    return call
+
+
+def check_flash_stats(torch, timer, rng):
+    """Phase 2, B5 with its stats (``flash_verify_stats``: o and lse from
+    one launch) at the ring's shard shapes, f32 and bf16, over a float and
+    an int8 cache (``k_scale``/``v_scale``), against its plain version
+    (``verify_attention_stats``) on q in f32: o by B5's rule, lse within
+    ``LSE_ATOL``; a cache whose newest seen line (and its scales) was
+    overwritten must fail both; a shard no row sees must give lse -inf and
+    o 0 exactly. Returns its JSON row (bf16, T = 1, float cache)."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models.layers import quantize_kv
+
+    row = None
+    Hh, hk, Dd, S = H, H_KV, D, STATS_S
+    for label0, B, T, kvl, int8 in STATS_CASES:
+        kvl = np.asarray(kvl)
+        k32 = torch.from_numpy(rng.standard_normal(
+            (B, S, hk, Dd), dtype=np.float32) * 0.5).cuda()
+        v32 = torch.from_numpy(rng.standard_normal(
+            (B, S, hk, Dd), dtype=np.float32) * 0.5).cuda()
+        q32 = torch.from_numpy(rng.standard_normal(
+            (B, T, Hh, Dd), dtype=np.float32)).cuda()
+        kv_len = torch.from_numpy(kvl.astype(np.int32)).cuda()
+        masked = bool((kvl <= 0).all())
+        if int8:           # the ring cache's layout: int8 + bf16 scales
+            (k8, ks), (v8, vs) = quantize_kv(k32), quantize_kv(v32)
+            ks, vs = ks.to(torch.bfloat16), vs.to(torch.bfloat16)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q = q32.to(dt)
+            if int8:
+                k, v, sc = k8, v8, (ks, vs)
+            else:
+                k, v, sc = k32.to(dt), v32.to(dt), (None, None)
+            label = f"{label0} " + tile_label(
+                pd, "flash_verify", B, T, Hh, hk, Dd, 1, S,
+                torch.int8 if int8 else dt)
+
+            def kern(q=q, k=k, v=v, sc=sc):
+                return fd.flash_verify_stats(q, k, v, kv_len, k_scale=sc[0],
+                                             v_scale=sc[1])
+
+            def plain32(kk=k, vv=v, s=sc):
+                return fd.flash_verify_stats_ref(q.float(), kk, vv, kv_len,
+                                                 k_scale=s[0], v_scale=s[1])
+
+            def plain():
+                return fd.flash_verify_stats_ref(q, k, v, kv_len,
+                                                 k_scale=sc[0],
+                                                 v_scale=sc[1])
+
+            o, lse = kern()
+            torch.cuda.synchronize()
+            want_o, want_lse = plain32()
+            fin = torch.isfinite(want_lse)
+            if not torch.equal(torch.isfinite(lse), fin):
+                raise AssertionError(f"{label} {dtype}: lse is finite on "
+                                     f"other rows than the plain version's")
+            if masked:
+                if fin.any() or o.abs().max() != 0 or bool(
+                        (lse != float("-inf")).any()):
+                    raise AssertionError(f"{label} {dtype}: a shard no row "
+                                         f"sees must give lse -inf, o 0")
+                log(f"  {label} B={B} T={T} S={S} kv_len={kvl.tolist()} "
+                    f"{dtype}: every row lse -inf and o 0, as required")
+                continue
+            # negative control: sequence 1's newest line, which all of its
+            # rows see, overwritten with its line 0 (scales too)
+            newest = min(int(kvl[1]), S) - 1
+            bad_k, bad_v = k.clone(), v.clone()
+            bad_k[1, newest], bad_v[1, newest] = k[1, 0], v[1, 0]
+            bad_sc = tuple(None if t is None else t.clone() for t in sc)
+            for t in bad_sc:
+                if t is not None:
+                    t[1, newest] = t[1, 0]
+            ctrl_o, ctrl_lse = plain32(bad_k, bad_v, bad_sc)
+            err, ratio, control = hold(label, dtype, o, want_o,
+                                       ctrl_o.to(dt))
+            lse_err = float((lse[fin] - want_lse[fin]).abs().max())
+            lse_ctrl = float((ctrl_lse[fin] - want_lse[fin]).abs().max())
+            if lse_err > LSE_ATOL or lse_ctrl <= LSE_ATOL:
+                raise AssertionError(
+                    f"{label} {dtype}: lse max|err| {lse_err:.3g} (limit "
+                    f"{LSE_ATOL}); the overwritten line moves it by "
+                    f"{lse_ctrl:.3g}")
+            ms, plain_ms = timer(kern), timer(plain)
+            dev_ms = timer.graph(kern)
+            if int8:
+                kl = (ks.float()[..., None] * k.float()).to(dt)
+                vl = (vs.float()[..., None] * v.float()).to(dt)
+            else:
+                kl, vl = k, v
+            try:
+                lib = lse_library(torch, q, kl, vl, kv_len, None)
+                lib()
+                lib_ms, dev_lib = timer(lib), timer.graph(lib)
+                lib_text = (f"ATen efficient attention with its log-sum-exp"
+                            f" on the {'dequantized ' if int8 else ''}cache "
+                            f"(library_ms) {lib_ms:.4f} ms (device "
+                            f"{dev_lib:.4f})")
+            except RuntimeError as e:
+                lib_ms = None
+                lib_text = (f"ATen efficient attention refused the shape "
+                            f"({str(e).splitlines()[0]}): library_ms null")
+            kv_pos, keys = visible(kvl, T, None, S)
+            bms, by = bound_ms(q_elems=q.numel(), elt=q.element_size(),
+                               kv_pos=kv_pos, keys=keys, dtype=dtype,
+                               kv_elt=1 if int8 else None,
+                               scale_elt=2 if int8 else 0,
+                               h_kv=hk, head_dim=Dd, heads=Hh,
+                               extra_bytes=B * Hh * T * 4)
+            log(f"  {label} B={B} H={Hh} h_kv={hk} D={Dd} S={S} kv_len="
+                f"{kvl.tolist()} {dtype}: o max|err| {err:.3g}, {ratio:.3g}x"
+                f" the tolerance (an overwritten line: {control:.3g}x); lse "
+                f"max|err| {lse_err:.3g} (limit {LSE_ATOL}; the overwritten "
+                f"line: {lse_ctrl:.3g}); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, {lib_text}, bound {bms * 1e3:.2f} us "
+                f"({by}); replayed from a CUDA graph (device alone): kernel "
+                f"{dev_ms:.4f} ms")
+            if dtype == "bfloat16" and label0 == STATS_ROW:
+                row = {"name": "flash_verify_stats", "route": "cuda",
+                       "source": FLASH_SOURCE,
+                       "replaces": REPLACES["flash_verify_stats"],
+                       "launches": 0, "max_abs_err": max(err, lse_err),
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                        "bound_by": by, "library_ms": lib_ms}
         del k32, v32, q32
     return row
@@ -2068,7 +2302,9 @@ def traced_stream_run(torch, source, cfg, reqs, args):
 
 
 def q4_parity(torch, ops, serve) -> None:
-    """Phase 6, 4 layers at full width, f32: B3 against its plain version
+    """Phase 6, 3 layers at full width, f32 (one more than the window of 2,
+    so the streamed run evicts and reads a layer again each pass): B3
+    against its plain version
     on the same inputs, streamed against resident tokens, kernel against
     plain-version logits."""
     from repro_torch.configs import get_config
@@ -2076,8 +2312,8 @@ def q4_parity(torch, ops, serve) -> None:
     from repro_torch.runtime.streaming import StreamingParamSource
 
     args = serve.parse_args(STREAM_ARGS + ["--dtype", "f32"])
-    cfg = dataclasses.replace(get_config(args.arch), n_layers=4)
-    log(f"  depth cut: 4 of 48 layers")
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=3)
+    log(f"  depth cut: 3 of 48 layers")
     sdir, tree = write_store(torch, cfg, torch.float32, seed=1)
     try:
         reqs = serve.make_requests(cfg, args)
@@ -2137,7 +2373,7 @@ SPEC_BF16_REL = 5e-2
 #: script, phase 17's training included, stays inside its time limit
 #: (the two streamed runs and the store scale with the depth: 64 layers
 #: took 131-158 s of the phase)
-SPEC_LAYERS = 32
+SPEC_LAYERS = 16
 PARITY_ARGS = ["--batch", "4", "--ctx", "1024", "--requests", "8",
                "--prompt-len", "128", "--prompt-len-max", "513",
                "--new-tokens", "16", "--seed", "0", "--dtype", "f32",
@@ -2766,6 +3002,9 @@ def spec_parity(torch, ops, serve) -> None:
 #  phases 9 and 10: the ssm family (mamba2-780m)
 # --------------------------------------------------------------------------- #
 
+#: phase 9's depth: 24 of mamba2-780m's 48 layers (phase 17 (b) trains
+#: all 48)
+SSM_LAYERS = 24
 SSM_ARGS = ["--arch", "mamba2-780m", "--batch", "8", "--ctx", "2080",
             "--requests", "16", "--prompt-len", "200", "--prompt-len-max",
             "2001", "--new-tokens", "32", "--seed", "0", "--stream-window",
@@ -2808,10 +3047,11 @@ def serve_ssm_full(torch, ops, serve):
     from repro_torch.runtime.streaming import (StreamingParamSource,
                                                make_streaming_engine)
 
-    args = serve.parse_args(SSM_ARGS + ["--dtype", "bf16"])
+    args = serve.parse_args(SSM_ARGS + ["--dtype", "bf16", "--layers",
+                                        str(SSM_LAYERS)])
     bf16, Bn, ctx = torch.bfloat16, args.batch, args.ctx
     t0 = time.perf_counter()
-    cfg, params = serve.build_model(args)     # full width, all 48 layers
+    cfg, params = serve.build_model(args)     # full width
     torch.cuda.synchronize()
     n = sum(p.numel() for p in params.parameters())
     log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, d_inner "
@@ -3133,6 +3373,18 @@ def ci_smokes() -> None:
             if idle:
                 raise AssertionError(f"{label}: {idle} never launched "
                                      f"({counts})")
+            # the decode section's ring across ranks: its ranks' launches
+            # (the driver prints them; the counts above are the parent's)
+            ranked = ""
+            if "rank processes over gloo" in out:
+                lines = [ln for ln in out.splitlines()
+                         if "rank launches" in ln]
+                summed = ast.literal_eval(lines[-1].rsplit("ranks: ", 1)[1]
+                                          .strip()) if lines else {}
+                if not summed.get("flash_verify_stats"):
+                    raise AssertionError(f"{label}: the ranks never "
+                                         f"launched B5-stats ({summed})")
+                ranked = f"; the ranks' launches summed {summed}"
             checks = [ln.strip() for ln in out.splitlines()
                       if "identical" in ln]
             if "--device-budget" in cmd and label.startswith("("):
@@ -3152,7 +3404,7 @@ def ci_smokes() -> None:
                 else:
                     validate_chrome_trace(path, tuple(want))
             log(f"  {label}: exit 0 by {time.perf_counter() - t0:.1f} s; "
-                f"launches {counts}; {'; '.join(checks)}"
+                f"launches {counts}{ranked}; {'; '.join(checks)}"
                 + (f"; {len(files)} output file(s) validated" if files
                    else ""))
     finally:
@@ -3674,10 +3926,18 @@ def report_tiers() -> None:
 RING_ARGS = ["--arch", "qwen2.5-14b", "--batch", "8", "--ctx", "1024",
              "--prompt-len", "512", "--new-tokens", "32", "--seed", "0",
              "--stages", "4"]
+#: phase 14's depth: all of qwen2.5-14b's 48 layers
+RING_LAYERS = 48
 #: B5 launches a ring pass: every layer of every microbatch (4 stages)
-RING_B5 = 48 * 4
+RING_B5 = RING_LAYERS * 4
+#: greedy steps of phase 14 (b)'s resident q4 ring, the reference of phase
+#: 18 (a)'s ranks on the same store
+RANK_STEPS = 32
 #: phase 14's record, printed at its end beside the card
 RING = {}
+#: phase 14 (b)'s store, prefilled cache and resident ring run, for
+#: phase 18 (a)
+RANK_REF = {}
 
 
 def by_row(run):
@@ -3704,7 +3964,8 @@ def ring_resident(torch, ops, serve):
     """Phase 14 (a): the resident ring at full width, bf16."""
     from repro_torch.runtime.serve import RingPlan, RingServeStep, ring_params
 
-    args = serve.parse_args(RING_ARGS + ["--dtype", "bf16"])
+    args = serve.parse_args(RING_ARGS + ["--dtype", "bf16", "--layers",
+                                         str(RING_LAYERS)])
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     cfg, params = serve.build_model(args)
@@ -3820,7 +4081,11 @@ def bank_copies(torch):
 def ring_streamed(torch, ops, serve):
     """Phase 14 (b) and (c): phase 5's q4 store through the resident and
     the streamed ring (M 4, k 2, banks 2 steps ahead), then a stage killed
-    mid-decode."""
+    mid-decode. The store, the prefilled cache and the resident ring's
+    ``RANK_STEPS`` steps stay for phase 18 (a) (``RANK_REF``; the store
+    is removed at exit if phase 18 does not take it)."""
+    import atexit
+
     from repro_torch.configs import get_config
     from repro_torch.core.profiles import (paper_table2_cluster,
                                            profile_from_config)
@@ -3831,12 +4096,15 @@ def ring_streamed(torch, ops, serve):
     from repro_torch.runtime.telemetry import (Tracer, format_summary,
                                                validate_chrome_trace)
 
-    cfg = get_config("qwen2.5-14b")
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"),
+                              n_layers=RING_LAYERS)
     dev = torch.device("cuda")
     n = 8
     args = serve.parse_args(RING_ARGS + ["--dtype", "bf16", "--ring-k", "2",
                                          "--new-tokens", str(n)])
     sdir, tree = write_store(torch, cfg, torch.bfloat16, 0)
+    atexit.register(shutil.rmtree, sdir, True)
+    kept = False
     try:
         q4_bytes = sum(t.numel() * t.element_size()
                        for t in tree_tensors(tree["blocks"]))
@@ -3845,11 +4113,14 @@ def ring_streamed(torch, ops, serve):
         step = RingServeStep(cfg, plan, ring_params(tree, cfg, plan),
                              graphs=True, device=dev)
         ops.reset_launch_counts()
-        res = serve.greedy_steps(step, serve.to_ring_cache(cache, cfg, plan),
-                                 nxt, n, dev)
+        res = serve.greedy_steps(serve.vocab_cut(step, cfg),
+                                 serve.to_ring_cache(cache, cfg, plan),
+                                 nxt, RANK_STEPS, dev, keep=True)
+        launched(ops, {"flash_verify": RING_B5 * RANK_STEPS,
+                       "q4_matmul": PROJECTIONS * RING_B5 * RANK_STEPS},
+                 "resident q4 ring")
         want = {"flash_verify": RING_B5 * n,
                 "q4_matmul": PROJECTIONS * RING_B5 * n}
-        launched(ops, want, "resident q4 ring")
         res_ms = 1e3 * float(np.median(res["step_s"][1:]))
         # B3 at the ring's own rows (a microbatch of 2 at qwen2.5-14b's
         # shapes): one eager step with every launch held against its plain
@@ -3886,7 +4157,7 @@ def ring_streamed(torch, ops, serve):
             drv.close()
             store.close()
         launched(ops, want, "streamed q4 ring")
-        if not np.array_equal(run["tokens"], res["tokens"]):
+        if not np.array_equal(run["tokens"], res["tokens"][:, :n]):
             raise AssertionError("streamed ring tokens differ from the "
                                  "resident q4 ring's")
         st = drv.stats()
@@ -3911,11 +4182,11 @@ def ring_streamed(torch, ops, serve):
                     bank_h2d_ms=banks["h2d_ms"],
                     h2d_ms=float(np.median(h2d)),
                     read_ms=1e3 * float(np.median(reads)))
-        log(f"  q4 ring (k 2, w 6, M 4), 8 steps from a prefill of 8 x 512 "
-            f"({ttft:.2f} s): resident graphed step p50 {res_ms:.2f} ms; "
-            f"streamed (2 banks ahead) {stream_ms:.2f} ms; tokens equal; "
-            f"{want} launches each run ({PROJECTIONS} x {RING_B5} B3 a "
-            f"pass)")
+        log(f"  q4 ring (k 2, w {plan.w}, M 4) from a prefill of 8 x 512 "
+            f"({ttft:.2f} s): resident graphed, {RANK_STEPS} steps, step "
+            f"p50 {res_ms:.2f} ms; streamed (2 banks ahead), {n} steps, "
+            f"{stream_ms:.2f} ms; tokens equal; {want} launches a run of "
+            f"{n} steps ({PROJECTIONS} x {RING_B5} B3 a pass)")
         log(f"  streamed: peak resident weights "
             f"{st.peak_resident_bytes / 1e9:.3f} GB against the resident "
             f"q4 bank's {q4_bytes / 1e9:.3f} GB "
@@ -3932,6 +4203,12 @@ def ring_streamed(torch, ops, serve):
             f"per token: {format_summary(summ)}; trace "
             f"{os.path.relpath(path, ROOT)} ({info['n_events']} events, "
             f"tracks {info['tracks']})")
+        path = os.path.join(sdir, "cache.pt")
+        save_cache(torch, cache, path)
+        RANK_REF.update(store=sdir, cache=path, first=nxt.cpu().numpy(),
+                        k=plan.k, L=plan.L_pad, ms=res_ms,
+                        tokens=res["tokens"],
+                        logits=[lg.cpu() for lg in res["logits"]])
         del tree, cache, res, run
         gc.collect()
         torch.cuda.empty_cache()
@@ -3973,8 +4250,11 @@ def ring_streamed(torch, ops, serve):
             f"take {RING['recovery_b_s']:.1f} s (extrapolated from this "
             f"replay's pass; {hist_b} x (b)'s streamed step "
             f"{stream_ms / 1e3:.3f} s = {hist_b * stream_ms / 1e3:.1f} s)")
+        kept = True
     finally:
-        shutil.rmtree(sdir, ignore_errors=True)
+        if not kept:
+            RANK_REF.clear()
+            shutil.rmtree(sdir, ignore_errors=True)
 
 
 def staging_by_bank(plan, n_layers, spans, h2d, passes):
@@ -4079,7 +4359,9 @@ def report_ring() -> None:
 
 MOE_ARCH = "mixtral-8x7b"
 MOE_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
-#: (a): phase 5's mix at mixtral's published width and depth
+#: (a) and (c): the depth of the q4 store (mixtral has 32 layers)
+MOE_LAYERS = 16
+#: (a): phase 5's mix at mixtral's published width
 MOE_STREAM_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "640",
                    "--requests", "8", "--prompt-len", "128",
                    "--prompt-len-max", "513", "--new-tokens", "16",
@@ -4089,12 +4371,12 @@ MOE_STREAM_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "640",
 MOE_RING_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "640",
                  "--prompt-len", "128", "--new-tokens", "8", "--seed", "0",
                  "--stages", "4"]
-#: (b): phase 3's mix, 16 of mixtral's 32 layers in bf16
+#: (b): phase 3's mix, 8 of mixtral's 32 layers in bf16
 MOE_PAGED_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "2048",
                   "--page-tokens", "16", "--prefill-chunk", "256",
                   "--prompt-len", "256", "--prompt-len-max", "1025",
                   "--requests", "16", "--new-tokens", "32", "--seed", "0",
-                  "--layers", "16", "--dtype", "bf16"]
+                  "--layers", "8", "--dtype", "bf16"]
 #: (d): 4 layers at full width, f32
 MOE_PARITY_ARGS = ["--batch", "4", "--ctx", "512", "--page-tokens", "16",
                    "--prefill-chunk", "128", "--prompt-len", "64",
@@ -4116,7 +4398,9 @@ def moe_streamed(torch, ops, serve):
     from repro_torch.runtime.streaming import StreamingParamSource
 
     args = serve.parse_args(MOE_STREAM_ARGS + ["--dtype", "bf16"])
-    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=MOE_LAYERS)
+    log(f"  depth cut: {MOE_LAYERS} of {get_config(args.arch).n_layers} "
+        f"layers")
     W, L, b3 = args.stream_window, cfg.n_layers, moe_b3(cfg)
     sdir, tree = write_store(torch, cfg, torch.bfloat16, seed=0)
     try:
@@ -4281,7 +4565,7 @@ def moe_paged_run(torch, ops, params, cfg, reqs, args, graphs):
 
 
 def moe_paged(torch, ops, serve):
-    """Phase 15 (b): 16 of mixtral's 32 layers in bf16 through the paged
+    """Phase 15 (b): 8 of mixtral's 32 layers in bf16 through the paged
     engine, graphed against eager. Every prompt chunk launches B2 once a
     layer and every decode step B1 once a layer, exactly; streams equal,
     logits max|d| between the two printed. Returns the graphed run's
@@ -4423,7 +4707,8 @@ def moe_parity(torch, ops, serve) -> None:
                                  f" {n_equal} streams equal")
         for label, (worst, n_equal, errs, *flips) in found.items():
             errs_s = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-            log(f"  {arch}, 4 layers f32, {label}: every launch within its "
+            log(f"  {arch}, {args.layers} layers f32, {label}: every launch "
+                f"within its "
                 f"plain version's on the same inputs by ({errs_s}; B3 over "
                 f"max|ref|); logits within "
                 f"{worst:.3g} of max|ref|; streams equal for {n_equal} of "
@@ -4477,14 +4762,14 @@ def report_moe() -> None:
     log(f"  card: {card()}")
     for name in ("resident", "streamed"):
         r = MOE[name]
-        log(f"  (a) mixtral-8x7b q4, 32 layers, {name}: wall "
+        log(f"  (a) mixtral-8x7b q4, {MOE_LAYERS} layers, {name}: wall "
             f"{r['wall_s']:.3f} s, {r['steps']} steps, TTFT p50 "
             f"{r['ttft_p50_s'] * 1e3:.2f} ms, TPOT p50 "
             f"{r['tpot_p50_s'] * 1e3:.2f} ms, {r['tokens_per_s']:.2f} "
             f"tokens/s")
     log(f"  (a) streamed: peak {MOE['peak_layers']:.2f} layers, median "
         f"layer read {MOE['read_ms']:.2f} ms, stall {MOE['stall_s']:.3f} s")
-    log(f"  (b) paged bf16, 16 layers: graphed "
+    log(f"  (b) paged bf16, 8 layers: graphed "
         f"{MOE['paged_graphed']['wall_s']:.3f} s, eager "
         f"{MOE['paged_eager']['wall_s']:.3f} s ({MOE['paged_counts']})")
     log(f"  (c) q4 ring step {MOE['ring_ms']:.2f} ms against one device "
@@ -4501,6 +4786,8 @@ def report_moe() -> None:
 # --------------------------------------------------------------------------- #
 
 MLA_ARCH, VLM_ARCH = "minicpm3-4b", "qwen2-vl-2b"
+#: (a)'s depth: 31 of minicpm3-4b's 62 layers
+MLA_LAYERS = 31
 HYB_ARCH, AUD_ARCH = "recurrentgemma-9b", "whisper-tiny"
 #: phase 3's paged mix, for any --arch
 PAGED_MIX = ["--batch", "8", "--ctx", "2048", "--page-tokens", "16",
@@ -4747,7 +5034,7 @@ def mla_streamed(torch, ops, serve):
     from repro_torch.runtime.streaming import StreamingParamSource
 
     args = serve.parse_args(["--arch", MLA_ARCH] + STREAM_MIX)
-    cfg = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
     W, L = args.stream_window, cfg.n_layers
     sdir, tree = write_store(torch, cfg, torch.bfloat16, seed=0)
     try:
@@ -4794,8 +5081,10 @@ def mla_streamed(torch, ops, serve):
 
 
 def mla_full(torch, ops, serve):
-    """Phase 16 (a): minicpm3-4b at published width and depth, bf16."""
-    args = serve.parse_args(["--arch", MLA_ARCH] + PAGED_MIX)
+    """Phase 16 (a): minicpm3-4b at published width, ``MLA_LAYERS`` of
+    its 62 layers, bf16."""
+    args = serve.parse_args(["--arch", MLA_ARCH, "--layers",
+                             str(MLA_LAYERS)] + PAGED_MIX)
     t0 = time.perf_counter()
     cfg, params = serve.build_model(args)
     n = sum(p.numel() for p in params.parameters())
@@ -5252,10 +5541,12 @@ def report_fam() -> None:
 # --------------------------------------------------------------------------- #
 
 TRAIN = {}
-#: phase 17's runs: (a) qwen2.5-14b at full width, 4 layers; (b)
-#: mamba2-780m at full width and depth
-QWEN_TRAIN = ["--arch", "qwen2.5-14b", "--n-layers", "4", "--batch", "8",
-              "--seq", "128", "--device", "cuda", "--seed", "0"]
+#: phase 17's runs: (a) qwen2.5-14b at full width, ``QWEN_TRAIN_LAYERS``
+#: layers; (b) mamba2-780m at full width and depth
+QWEN_TRAIN_LAYERS = 2
+QWEN_TRAIN = ["--arch", "qwen2.5-14b", "--n-layers", str(QWEN_TRAIN_LAYERS),
+              "--batch", "8", "--seq", "128", "--device", "cuda", "--seed",
+              "0"]
 MAMBA_TRAIN = ["--arch", "mamba2-780m", "--batch", "4", "--seq", "1024",
                "--steps", "10", "--ckpt-every", "1000", "--device", "cuda",
                "--seed", "0"]
@@ -5291,15 +5582,16 @@ def trained(torch, LT, argv):
 
 
 def train_qwen(torch, ops) -> None:
-    """(a) qwen2.5-14b at full width, 4 of 48 layers, f32: 20 steps with
-    one checkpoint, at step 20, then ``--resume`` to 30, beside one
-    uninterrupted 30-step run. One checkpoint (31.9 GB: params and two
-    f32 moments) is all the resume needs; a second would double the
+    """(a) qwen2.5-14b at full width, ``QWEN_TRAIN_LAYERS`` of 48 layers,
+    f32: 20 steps with one checkpoint, at step 20, then ``--resume`` to
+    30, beside one uninterrupted 30-step run. One checkpoint (params and
+    two f32 moments) is all the resume needs; a second would double the
     disk the run writes."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as LT
 
-    cfg = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=4)
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"),
+                              n_layers=QWEN_TRAIN_LAYERS)
     n = cfg.total_params()
     d = tempfile.mkdtemp(prefix="chip_smoke_train_")
     log(f"  {n / 1e9:.3f} B params; a checkpoint of {12 * n / 1e9:.1f} GB "
@@ -5524,6 +5816,265 @@ def report_train() -> None:
     log(f"  parity {TRAIN['parity']}")
 
 
+# --------------------------------------------------------------------------- #
+#  phase 18: the ring across ranks
+# --------------------------------------------------------------------------- #
+
+RANK_JOB = "repro_torch.runtime.serve:rank_ring_job"
+#: ranks: 4 stages x tp 2, every rank on the one card
+RANK_STAGES, RANK_TP = 4, 2
+#: phase 18's record, printed at its end beside the card
+RANKS = {}
+
+
+def rank_view(torch, r):
+    """A rank's result as ``by_row`` reads a ``serve.greedy_steps`` run."""
+    return {"tokens": r["tokens"].transpose(1, 0, 2),
+            "logits": [torch.from_numpy(lg).cuda() for lg in r["logits"]]}
+
+
+def rank_launches(ranks, want, label):
+    """Every rank's launch counts over its greedy steps must be ``want``
+    exactly (kernels not named: 0); returns their sum over the ranks."""
+    total = {}
+    for r in ranks:
+        full = {k: want.get(k, 0) for k in r["launches"]}
+        if r["launches"] != full:
+            raise AssertionError(f"{label}: rank {r['rank']} launched "
+                                 f"{r['launches']}, wanted {full}")
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def save_cache(torch, cache, path):
+    torch.save({"len": cache["len"].cpu(),
+                "layers": {n: a.cpu() for n, a in cache["layers"].items()}},
+               path)
+
+
+def ranks_full(torch, world):
+    """Phase 18 (a), (c), (d): qwen2.5-14b at full width and depth from
+    phase 14 (b)'s q4 store and prefilled cache, 8 rank processes on the
+    card, against phase 14 (b)'s one-process resident ring on the same
+    store (graphed, k 2, as the ranks run); returns the launches summed
+    over the ranks."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2.5-14b")
+    ref = RANK_REF
+    n = RANK_STEPS
+    try:
+        t0 = time.perf_counter()
+        ranks = world.run(RANK_JOB, cfg=cfg, n_stages=RANK_STAGES,
+                          tp=RANK_TP, k=ref["k"], store=ref["store"],
+                          cache=ref["cache"], first=ref["first"], steps=n,
+                          verify_tokens=5, verify_reps=4, keep_logits=True,
+                          trace=True)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref["store"], ignore_errors=True)
+    ref_ms = ref["ms"]
+    want = {"tokens": ref["tokens"],
+            "logits": [lg.cuda() for lg in ref["logits"]]}
+    for r in ranks:
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+            raise AssertionError(f"rank {r['rank']} took other tokens")
+    worst, n_equal, splits = near_tie_only(
+        "ranks against the one-process ring", by_row(rank_view(
+            torch, ranks[0])), by_row(want), SPEC_BF16_REL)
+    del want
+    L = ref["L"]
+    total = rank_launches(ranks, {"flash_verify_stats": L * n,
+                                  "q4_matmul": PROJECTIONS * L * n},
+                          "phase 18 (a)")
+    r0 = ranks[0]
+    step_ms = 1e3 * float(np.median(r0["step_s"][1:]))
+    verify_ms = 1e3 * float(np.median(r0["verify_s"][1:]))
+    share = float(np.median([c / s for c, s in zip(r0["comm_s"][1:],
+                                                  r0["step_s"][1:])]))
+    RANKS["a"] = dict(step_ms=step_ms, verify_ms=verify_ms, share=share,
+                      ref_ms=ref_ms, wall=wall, n_equal=n_equal,
+                      splits=len(splits), worst=worst,
+                      load_s=max(r["load_s"] for r in ranks),
+                      gb=max(r["nbytes"] for r in ranks) / 1e9)
+    log(f"  (a) 8 ranks (4 stages x tp 2) over gloo on the card, each "
+        f"reading its part of the q4 store ({RANKS['a']['gb']:.2f} GB at "
+        f"most, loaded in {RANKS['a']['load_s']:.1f} s): {n} greedy steps, "
+        f"rank 0's step p50 {step_ms:.2f} ms (eager), "
+        f"{share:.3f} of it in the collectives and their host staging "
+        f"(the comm track's spans), a T = 5 verify pass {verify_ms:.2f} ms;"
+        f" phase 14 (b)'s one-process ring on the same store {ref_ms:.2f} "
+        f"ms a step (graphed, k {ref['k']}); streams equal for {n_equal} of"
+        f" 8 rows, logits within "
+        f"{worst:.3g} of max|ref| up to each row's first difference, "
+        f"splits (row, token, top-2 gap, logit difference) {splits}; the "
+        f"world's run {wall:.1f} s")
+    log(f"  (c) launches a rank exactly {L * n} B5-stats ({L} a step: "
+        f"every layer row of every microbatch) and {PROJECTIONS * L * n} B3 "
+        f"({PROJECTIONS} projections x {L}), none else; over the 8 ranks "
+        f"{total}")
+    return total
+
+
+def ranks_parity(torch, ops, serve, world):
+    """Phase 18 (b): 4 layers at full width, f32, an f32 and an int8
+    cache: the ranks' logits (kernels on) against the one-process ring on
+    ``use_kernels(False)``, the replicated activations equal to the bit
+    across members, launches as derived, and the negative control
+    (members merging without their shard's offset) failing."""
+    from repro_torch.bridge import tree_from_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime import sharding as S
+    from repro_torch.runtime.paramstore import save_param_store
+    from repro_torch.runtime.serve import (RingPlan, RingServeStep,
+                                           ring_cache_spec, ring_params)
+
+    dev = torch.device("cuda")
+    base = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=4)
+    n = 4
+    params = init_params(base, torch.Generator("cuda").manual_seed(0),
+                         dtype=torch.float32, device="cuda")
+    sdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        t0 = time.perf_counter()
+        save_param_store(tree_from_params(params), base, sdir)
+        log(f"  (b) a 4-layer f32 store written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        path = os.path.join(sdir, "cache.pt")
+        out = {}
+        for kv in ("float32", "int8"):
+            cfg = base if kv == "float32" else dataclasses.replace(
+                base, kv_dtype="int8")
+            args = serve.parse_args(RING_ARGS + [
+                "--dtype", "f32", "--tp", str(RANK_TP), "--layers", "4"])
+            _, cache, nxt, _ = serve.ring_prefill(params, cfg, args)
+            save_cache(torch, cache, path)
+            plan = RingPlan.make(cfg, RANK_STAGES, 1)
+            step = RingServeStep(cfg, plan, ring_params(params, cfg, plan,
+                                                        tp=RANK_TP),
+                                 graphs=False, device=dev)
+            rc = serve.to_ring_cache(cache, cfg, plan)
+            ops.use_kernels(False)
+            want, wcaches, tok = [], [], nxt
+            try:
+                for _ in range(n):
+                    lg, rc = step(rc, tok)
+                    lg = lg[..., :cfg.vocab].float()
+                    want.append(lg.cpu().numpy())
+                    wcaches.append({k: rc["layers"][k].cpu().numpy().copy()
+                                    for k in ("k", "v")})
+                    tok = lg.argmax(-1).to(torch.int32)
+            finally:
+                ops.use_kernels(True)
+            del step, rc, cache
+            free_card(torch)
+            runs = {}
+            for offsets in ((True, False) if kv == "float32" else (True,)):
+                runs[offsets] = world.run(
+                    RANK_JOB, cfg=cfg, n_stages=RANK_STAGES, tp=RANK_TP,
+                    store=sdir, cache=path, first=nxt.cpu().numpy(),
+                    steps=n, keep_logits=True, check_replicated=True,
+                    return_cache=kv == "int8", offsets=offsets)
+            ranks = runs[True]
+            rank_launches(ranks, {"flash_verify_stats": plan.L_pad * n},
+                          f"phase 18 (b) {kv} cache")
+            for r in ranks:
+                if r["unequal"] or not r["replicated"].get("x"):
+                    raise AssertionError(f"rank {r['rank']}: replicated "
+                                         f"activations differ across "
+                                         f"members at {r['unequal']}")
+            # every step held to 2e-4 and equal tokens, the int8 cache
+            # too; the int8 k/v bytes that differ from the plain run's (a
+            # line quantized on either side of a rounding boundary) are
+            # counted after each step and reported
+            flips = []
+            if kv == "int8":
+                mesh = {"data": RANK_STAGES, "model": RANK_TP}
+                for t in range(n):
+                    f = 0
+                    for name in ("k", "v"):
+                        spec = ring_cache_spec(f"['layers']['{name}']",
+                                               wcaches[t][name].ndim, mesh)
+                        got = S.assemble({(r["stage"], r["member"]):
+                                          torch.from_numpy(
+                                              r["caches"][t][name])
+                                          for r in ranks}, spec, mesh)
+                        f += int((got.numpy() != wcaches[t][name]).sum())
+                    flips.append(f)
+            r0, worst = ranks[0], 0.0
+            for t in range(n):
+                rel = float(np.abs(r0["logits"][t] - want[t]).max()
+                            / np.abs(want[t]).max())
+                worst = max(worst, rel)
+                if rel >= 2e-4 or not np.array_equal(
+                        r0["tokens"][t], want[t].argmax(-1)):
+                    raise AssertionError(f"(b) {kv} cache step {t}: ranks "
+                                         f"against plain {rel:.3g} of "
+                                         f"max|ref|, or other tokens")
+            ctrl = 0.0
+            if kv == "float32":
+                c0 = runs[False][0]
+                ctrl = max(float(np.abs(c0["logits"][t] - want[t]).max()
+                                 / np.abs(want[t]).max()) for t in range(n))
+                if ctrl < 2e-4:
+                    raise AssertionError("(b) the negative control (no "
+                                         "shard offsets) passes: the check "
+                                         "is blind")
+            checks = sum(r0["replicated"].values())
+            out[kv] = dict(worst=worst, control=ctrl, checks=checks,
+                           flips=flips)
+            log(f"  (b) {kv} cache: ranks' logits (kernels) within "
+                f"{worst:.3g} of max|ref| of the one-process ring on "
+                f"use_kernels(False) over all {n} steps, tokens equal"
+                + (f" (int8 k/v bytes differing from the plain run's after "
+                   f"each step {flips})" if kv == "int8" else "")
+                + f"; {checks} replicated activations a member "
+                f"equal to the bit on rank 0's stage (every rank checked)"
+                + (f"; negative control without shard offsets "
+                   f"{ctrl:.3g} of max|ref| (fails, as it should)"
+                   if kv == "float32" else ""))
+        RANKS["b"] = out
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+        del params
+        free_card(torch)
+
+
+def report_ranks() -> None:
+    """Phase 18's numbers again, beside the card's name and power limit."""
+    log(f"  card: {card()}")
+    a = RANKS["a"]
+    log(f"  (a) rank 0's step {a['step_ms']:.2f} ms, comm share "
+        f"{a['share']:.3f}, verify T=5 {a['verify_ms']:.2f} ms; the "
+        f"one-process ring {a['ref_ms']:.2f} ms; {a['n_equal']} of 8 rows "
+        f"equal, {a['splits']} near-tie splits")
+    log(f"  (b) {RANKS['b']}")
+
+
+def share_bytecode():
+    """Where the environment sets ``PYTHONDONTWRITEBYTECODE``, every new
+    Python process compiles torch's sources again, seconds of its start;
+    phase 11 starts 16 driver processes and 72 ranks, phase 18 8 ranks.
+    Every process this script starts shares one bytecode cache in the
+    temp dir instead (``PYTHONPYCACHEPREFIX``; nothing is written beside
+    the installed packages), removed at exit. Returns the process that
+    warms it with the imports a rank makes."""
+    import atexit
+
+    pyc = tempfile.mkdtemp(prefix="chip_smoke_pycache_")
+    atexit.register(shutil.rmtree, pyc, True)
+    os.environ["PYTHONPYCACHEPREFIX"] = pyc
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    return subprocess.Popen(
+        [sys.executable, "-c", "import torch, repro_torch.launch.serve"],
+        cwd=ROOT, env=env)
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5552,11 +6103,15 @@ def main() -> int:
 
     log("== phase 1: build")
     t0 = time.perf_counter()
+    warm = share_bytecode()
     paths = _build.build()
     for name in paths:
         _build.load(name)
+    if warm.wait() != 0:
+        raise AssertionError("importing the port in a new process failed")
     log(f"  {', '.join(p.name for p in paths.values())} ready in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (and the processes' shared "
+        f"bytecode cache warmed)")
     for name, out in _build.build_log.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -5569,6 +6124,8 @@ def main() -> int:
     rows["q4_matmul"] = check_q4(torch, timer, np.random.default_rng(1))
     rows["flash_verify"] = check_flash(torch, timer,
                                        np.random.default_rng(2))
+    rows["flash_verify_stats"] = check_flash_stats(
+        torch, timer, np.random.default_rng(5))
     check_head_dims(torch, np.random.default_rng(4))
     rows["ssd_scan"] = check_ssd(torch, timer, np.random.default_rng(3))
     log(f"  phase 2 done at {time.perf_counter() - t_start:.0f} s")
@@ -5588,7 +6145,7 @@ def main() -> int:
     log(f"  main-path launches: {stream_counts}")
     log(f"  phase 5 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 6: q4 parity, 4 layers full width f32")
+    log("== phase 6: q4 parity, 3 layers full width f32")
     q4_parity(torch, ops, serve)
     log(f"  phase 6 done at {time.perf_counter() - t_start:.0f} s")
 
@@ -5602,8 +6159,8 @@ def main() -> int:
     spec_parity(torch, ops, serve)
     log(f"  phase 8 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 9: serve mamba2-780m at full width, 48 layers, bf16: "
-        "dense engine, then streamed q4")
+    log(f"== phase 9: serve mamba2-780m at full width, {SSM_LAYERS} of 48 "
+        f"layers, bf16: dense engine, then streamed q4")
     ssm_counts = serve_ssm_full(torch, ops, serve)
     log(f"  main-path launches: {ssm_counts}")
     log(f"  phase 9 done at {time.perf_counter() - t_start:.0f} s")
@@ -5628,17 +6185,19 @@ def main() -> int:
     report_tiers()
     log(f"  phase 13 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 14: the piped ring, qwen2.5-14b at full width, 48 "
-        "layers: resident bf16, streamed q4, failover, parity")
+    log(f"== phase 14: the piped ring, qwen2.5-14b at full width, "
+        f"{RING_LAYERS} layers: resident bf16, streamed q4, failover, "
+        f"parity")
     ring_resident(torch, ops, serve)
     ring_streamed(torch, ops, serve)
     ring_parity(torch, ops, serve)
     report_ring()
     log(f"  phase 14 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 15: the moe family: mixtral-8x7b q4 resident, streamed "
-        "and through the ring (32 layers), bf16 paged (16 layers), parity "
-        "with phi3.5-moe (4 layers f32), the card's profile")
+    log(f"== phase 15: the moe family: mixtral-8x7b q4 resident, streamed "
+        f"and through the ring ({MOE_LAYERS} of 32 layers), bf16 paged (8 "
+        f"layers), parity with phi3.5-moe (4 layers f32), the card's "
+        f"profile")
     moe_counts = moe_streamed(torch, ops, serve)
     log(f"  main-path launches: {moe_counts}")
     moe_paged_counts = moe_paged(torch, ops, serve)
@@ -5661,14 +6220,26 @@ def main() -> int:
     report_fam()
     log(f"  phase 16 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 17: training on the card: qwen2.5-14b at full width (4 "
-        "layers, f32) with a checkpoint and a resume, mamba2-780m at full "
-        "width and depth through B6, parity")
+    log(f"== phase 17: training on the card: qwen2.5-14b at full width "
+        f"({QWEN_TRAIN_LAYERS} layers, f32) with a checkpoint and a resume, "
+        f"mamba2-780m at full width and depth through B6, parity")
     train_qwen(torch, ops)
     train_mamba(torch, ops)
     train_parity(torch, ops)
     report_train()
     log(f"  phase 17 done at {time.perf_counter() - t_start:.0f} s")
+
+    log("== phase 18: the ring across ranks: 4 stages x tp 2 = 8 rank "
+        "processes on the card over gloo (qwen2.5-14b at full width and "
+        "depth from phase 14's q4 store; parity at 4 layers f32)")
+    from repro_torch.launch.mesh import RankWorld
+    with RankWorld(RANK_STAGES * RANK_TP, device="cuda:0",
+                   threads=1) as world:
+        world.start()            # the ranks reach the card meanwhile
+        rank_counts = ranks_full(torch, world)
+        ranks_parity(torch, ops, serve, world)
+    report_ranks()
+    log(f"  phase 18 done at {time.perf_counter() - t_start:.0f} s")
 
     counts["q4_matmul"] = stream_counts["q4_matmul"] \
         + moe_counts["q4_matmul"]
@@ -5679,6 +6250,7 @@ def main() -> int:
         counts[k] += v
     for k, v in fam_counts.items():
         counts[k] += v
+    counts["flash_verify_stats"] = rank_counts["flash_verify_stats"]
     for name, row in rows.items():
         row["launches"] = counts[name]
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s on")

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES: Dict[str, int] = {"paged_verify": 0, "paged_prefill": 0,
                             "paged_verify_quant": 0, "q4_matmul": 0,
-                            "flash_verify": 0, "ssd_scan": 0}
+                            "flash_verify": 0, "flash_verify_stats": 0,
+                            "ssd_scan": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -116,7 +117,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ssd_scan.argtypes = [P] * 10 + [I] * 8 + [L] * 10 + [P]
         lib.ssd_scan.restype = I
         return
-    lib.paged_tiles.argtypes = [P] * 10 + [I] * 12 + [F] + [I] * 3 + \
+    lib.paged_tiles.argtypes = [P] * 11 + [I] * 12 + [F] + [I] * 3 + \
         [L] * 9 + [P]
     lib.paged_tiles.restype = I
     lib.paged_tiles_smem_bytes.argtypes = [I, I, I, I, I]

@@ -684,12 +684,15 @@ paged_tile_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
 // Design 2's second pass: one CTA per (row, kv head, sequence), one thread
 // per d < Dl (scratch rows are D_pad wide); the splits merge in split
 // order. A split that saw no key of a row (m = -inf) adds nothing; a row
-// no split saw returns 0.
+// no split saw returns 0. With ``lse`` (B5's stats, (B, H, T) f32) thread 0
+// also writes the row's natural-log log-sum-exp of its scaled scores: m + ln
+// l for f32 results (base e), (m + log2 l) ln 2 for bf16 ones (base 2, the
+// scale carrying log2 e); -inf for a row no split saw.
 template <typename QT, int D>
 __global__ void __launch_bounds__(D)
 combine_splits(const float* __restrict__ part_acc,
                const float* __restrict__ part_ml, QT* __restrict__ out,
-               Geo g) {
+               float* __restrict__ lse, Geo g) {
   const int row = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int d = threadIdx.x;
   const long long n_part = (long long)gridDim.z * g.h_kv * g.n_split * g.rows;
@@ -711,11 +714,18 @@ combine_splits(const float* __restrict__ part_acc,
   const int t = row / g.n_rep, head = h * g.n_rep + (row - t * g.n_rep);
   store_as(out + (((long long)b * g.T + t) * g.H + head) * g.D + d,
            a / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0) {
+    float v = -INFINITY;
+    if (M != -INFINITY)
+      v = sizeof(QT) == 4 ? M + logf(l)
+                          : (M + log2f(l)) * 0.6931471805599453f;
+    lse[((long long)b * g.H + head) * g.T + t] = v;
+  }
 }
 
 struct Args {
   const void *q, *k, *v, *ks, *vs, *table, *kv_len;
-  void *out, *part_acc, *part_ml;
+  void *out, *part_acc, *part_ml, *lse;
 };
 
 template <typename QT, typename KT, typename ST, int D, int KS, bool kPartial,
@@ -746,7 +756,8 @@ int launch(const Args& a, const Geo& g, int B, cudaStream_t stream) {
   if (e != cudaSuccess || !kPartial) return int(e);
   combine_splits<QT, D><<<dim3(g.rows, g.h_kv, B), g.D, 0, stream>>>(
       static_cast<const float*>(a.part_acc),
-      static_cast<const float*>(a.part_ml), static_cast<QT*>(a.out), g);
+      static_cast<const float*>(a.part_ml), static_cast<QT*>(a.out),
+      static_cast<float*>(a.lse), g);
   return int(cudaGetLastError());
 }
 
@@ -869,10 +880,12 @@ const char* paged_tiles_error_string(int code) {
 // null, bs 1, nb S; design 2 only). The caller's plan gives key_split,
 // n_split and split_pages; part_acc and part_ml are design 2's scratch
 // (null for design 1): (B, h_kv, n_split, rows, D_pad) and (2, B, h_kv,
-// n_split, rows) f32.
+// n_split, rows) f32. lse: null, or design 2's (B, H, T) f32 log-sum-exp
+// of each row (B5 with its stats).
 int paged_tiles(const void* q, const void* k, const void* v,
                 const void* k_scale, const void* v_scale, const void* table,
                 const void* kv_len, void* out, void* part_acc, void* part_ml,
+                void* lse,
                 int q_dtype, int kv_dtype, int sc_dtype, int contig, int B,
                 int T, int H, int h_kv, int D, int bs, int nb, int window,
                 float scale, int key_split, int n_split, int split_pages,
@@ -891,7 +904,8 @@ int paged_tiles(const void* q, const void* k, const void* v,
   g.kv_sp = kv_sp; g.kv_ss = kv_ss; g.kv_sh = kv_sh;
   g.sc_sp = sc_sp; g.sc_ss = sc_ss; g.sc_sh = sc_sh;
   const Args a{q, k, v, k_scale, v_scale, table, kv_len, out, part_acc,
-               part_ml};
+               part_ml, lse};
+  if (lse != nullptr && part_acc == nullptr) return int(cudaErrorInvalidValue);
   const bool partial = part_acc != nullptr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == kF32)

@@ -1,6 +1,7 @@
 """Dispatch of the port's kernels: paged attention (B1, B2, B4) and
-contiguous-cache attention (B5), all four on ``csrc/paged_tiles.cu``, the
-q4 matmul (B3) and the SSD scan (B6).
+contiguous-cache attention (B5, and B5 with its row stats for the ring's
+sequence-split merge), all on ``csrc/paged_tiles.cu``, the q4 matmul (B3)
+and the SSD scan (B6).
 
 A tensor on the CPU goes to the kernel's plain torch version; a CUDA
 tensor launches the CUDA kernel, which raises when it cannot run — there
@@ -87,6 +88,16 @@ def flash_verify(q, k, v, kv_len, *, window: Optional[int] = None,
         return _fd.flash_verify_ref(q, k, v, kv_len, window=window,
                                     k_scale=k_scale, v_scale=v_scale)
     return _launch(_fd.flash_verify, q, k, v, kv_len, window=window,
+                   k_scale=k_scale, v_scale=v_scale)
+
+
+def flash_verify_stats(q, k, v, kv_len, *, window: Optional[int] = None,
+                       k_scale=None, v_scale=None):
+    """B5 with its stats: (o, lse (B, H, T) f32)."""
+    if not kernels_active(q):
+        return _fd.flash_verify_stats_ref(q, k, v, kv_len, window=window,
+                                          k_scale=k_scale, v_scale=v_scale)
+    return _launch(_fd.flash_verify_stats, q, k, v, kv_len, window=window,
                    k_scale=k_scale, v_scale=v_scale)
 
 

@@ -222,11 +222,12 @@ def _tile_smem(q_code: int, kv_code: int, D: int, key_split: int,
 
 def _launch_tiles(name: str, q, k, v, table, kv_len,
                   window: Optional[int], k_scale=None,
-                  v_scale=None) -> torch.Tensor:
+                  v_scale=None, stats: bool = False):
     """B1 or B2 (float pages), B4 (int8 pages with their scales) or, with
     ``table`` None, B5 over a contiguous (B, S, h_kv, D) cache (float, or
     int8 with its (B, S, h_kv) scales) on the tile kernels; one count per
-    call, whichever design runs."""
+    call, whichever design runs. ``stats`` (B5 only): also each row's
+    natural-log log-sum-exp, returned as (out, lse (B, H, T) f32)."""
     if table is None:
         B, T, H, h_kv, D, S = _check_cache(q, k, v, kv_len, name)
         bs, nb = 1, S
@@ -253,12 +254,17 @@ def _launch_tiles(name: str, q, k, v, table, kv_len,
         kc = _code(k, _FLOATS, f"{name} k/v")
         sc, sc_strides = 0, (0, 0, 0)
     _check_aligned(name, q=q, k=k, v=v)
-    plan = tile_plan(B, T, H, h_kv, D, bs, nb, pool=k.dtype, kernel=name)
+    plan = tile_plan(B, T, H, h_kv, D, bs, nb, pool=k.dtype,
+                     kernel=name.removesuffix("_stats"))
     lib = _build.load("paged_tiles")
     _check_smem(_tile_smem(qc, kc, D, plan.key_split, plan.design), name,
                 f"design {plan.design} at D={D}")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    part_acc = part_ml = k_ptr = v_ptr = None
+    part_acc = part_ml = k_ptr = v_ptr = lse = None
+    if stats:
+        if plan.scratch is None:
+            raise ValueError(f"{name}: row stats come from design 2 only")
+        lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if quant:
         k_ptr, v_ptr = k_scale.data_ptr(), v_scale.data_ptr()
     if plan.scratch is not None:        # acc, then m and l, in one buffer
@@ -270,14 +276,16 @@ def _launch_tiles(name: str, q, k, v, table, kv_len,
     code = lib.paged_tiles(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_ptr, v_ptr,
         None if table is None else table.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), part_acc, part_ml, qc, kc, sc, int(table is None),
+        out.data_ptr(), part_acc, part_ml,
+        None if lse is None else lse.data_ptr(), qc, kc, sc,
+        int(table is None),
         B, T, H, h_kv, D, bs, nb, _window(window), 1.0 / math.sqrt(D),
         plan.key_split, plan.n_split, plan.split_pages, *q.stride()[:3],
         *k.stride()[:3], *sc_strides,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, name, "paged_tiles")
     _build.LAUNCHES[name] += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 def paged_verify_quant(q: torch.Tensor, k_pages: torch.Tensor,

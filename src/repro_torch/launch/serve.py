@@ -7,15 +7,19 @@ from ``--seed`` (``run`` also takes weights handed in), then in order:
 
 decode: ``--batch`` prompts of ``--prompt-len`` tokens (``RequestGenerator``
   seed 1) prefill on the one-device path, then ``--new-tokens`` greedy steps
-  decode through the piped ring of ``--stages`` stages (default 4, on the
-  one device: ``launch.mesh``; ``--ring-k`` rounds) beside the one-device
-  decode of the same cache (a token mismatch exits nonzero; bf16 on the
-  card allows near-tie splits only); ``--verify-tokens T`` also times a
-  T-token verify pass through the ring. Where ``ring_supported`` says no
-  (or ``--stages 1``) the steps decode on one device. ``--tp`` (default 2)
-  is layout only on the one card: it picks the q4 groups of the store
-  (``quantize_ring_params``) and pads the vocab, and every stage runs
-  unsharded (``launch.mesh.make_ring_layout``).
+  decode through the piped ring of ``--stages`` stages (default 4;
+  ``--ring-k`` rounds) across ``--stages x --tp`` rank processes (default 4
+  x 2, the JAX driver's (4, 2) mesh: ``launch.mesh.RankWorld``, gloo, all on
+  ``--device``), each holding its stage's rows, its tensor-parallel slice
+  (sequence-split KV, split FFN, vocab-sharded head) and reading only its
+  part of a layer store written to a temporary directory; beside it the
+  one-device decode of the same cache (a token mismatch exits nonzero;
+  bf16 on the card allows near-tie splits only; a rank that fails, dies or
+  outlasts ``launch.mesh.RANK_TIMEOUT_S`` exits nonzero). ``--verify-tokens T`` also
+  times a T-token verify pass on the ranks. Where ``ring_supported`` says
+  no (or ``--stages 1``) the steps decode on one device. ``--tp`` also
+  picks the q4 groups of the store (``quantize_ring_params``) and pads the
+  vocab.
 
 stream (``--stream-window W``): the weights go to a layer store in a
   temporary directory (packed q4 with ``--store-quant q4``); the batch
@@ -56,7 +60,9 @@ chaos: ``--chaos transient`` decodes the batch again from the store (the
   tokens equal the clean run's; ``--chaos failover`` kills ring stage 1
   mid-decode through ``runtime.failover.ElasticRingServer`` and exits
   nonzero unless recovery loses no token and the tokens after it equal a
-  clean survivor-ring run fed the same history. ``--io-retries``,
+  clean survivor-ring run fed the same history; ``--chaos rank`` makes
+  the last rank of the decode section's ring across ranks raise at its
+  second step, and the driver exits nonzero. ``--io-retries``,
   ``--io-backoff-ms`` and ``--io-deadline-s`` set the ``IOPolicy`` of every
   store read and tier copy.
 
@@ -83,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import shutil
 import sys
 import tempfile
@@ -161,8 +168,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "requests with the same weights resident; exit "
                          "nonzero on any token mismatch")
     ap.add_argument("--stages", type=int, default=4,
-                    help="M>1: decode through the piped ring of M stages "
-                         "on the one device (1: on one device)")
+                    help="M>1: decode through the piped ring of M stages, "
+                         "one rank process a stage and tensor-parallel "
+                         "member (1: on one device)")
     ap.add_argument("--ring-k", type=int, default=1,
                     help="with --stages: rounds per token (windows a "
                          "stage holds)")
@@ -171,14 +179,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "speculative verify pass through the ring against "
                          "T single steps")
     ap.add_argument("--tp", type=int, default=2,
-                    help="the ring's tensor-parallel width: on the one card "
-                         "it picks the q4 groups and the vocab padding, and "
-                         "each stage runs unsharded (ROADMAP Queue A item "
-                         "6)")
+                    help="the ring's tensor-parallel width: the decode "
+                         "section's stages each run as this many ranks "
+                         "(sequence-split KV, split FFN, vocab-sharded "
+                         "head); it also picks the store's q4 groups and "
+                         "the vocab padding")
     ap.add_argument("--mesh", choices=("debug",), default="debug",
-                    help="the JAX driver's mesh: the port lays every stage "
-                         "on the one device")
-    ap.add_argument("--chaos", choices=("none", "transient", "failover"),
+                    help="the JAX driver's mesh: (--stages, --tp) ranks")
+    ap.add_argument("--chaos", choices=("none", "transient", "failover",
+                                        "rank"),
                     default="none",
                     help="fault-injection smoke: 'transient' injects "
                          "retryable disk faults into the streamed "
@@ -186,7 +195,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "recovery; 'failover' kills a ring stage "
                          "mid-decode and requires the elastic re-plan to "
                          "resume with zero tokens lost (both exit nonzero "
-                         "on a failed recovery)")
+                         "on a failed recovery); 'rank' makes the last "
+                         "rank of the decode section's ring across ranks "
+                         "raise at its second step (the driver must exit "
+                         "nonzero, not hang)")
     ap.add_argument("--chaos-faults", type=int, default=3,
                     help="consecutive transient faults to inject "
                          "(capped at --io-retries: retries re-hit the "
@@ -245,8 +257,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                  "--kv-quant-kernel")
     if not args.stream_window and args.check_resident:
         ap.error("--check-resident needs --stream-window")
-    if args.store_quant != "none" and not (args.stream_window
-                                           or args.chaos != "none"):
+    if args.store_quant != "none" and not (
+            args.stream_window or args.chaos in ("transient", "failover")):
         ap.error("--store-quant needs a store: --stream-window or --chaos")
     tiered = args.device_budget > 0 or args.host_budget > 0 \
         or args.park_idle_s is not None
@@ -270,6 +282,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          or tiered)
     if args.stages < 1 or args.ring_k < 1 or args.tp < 1:
         ap.error("--stages, --ring-k and --tp must be >= 1")
+    if args.chaos == "rank" and args.stages < 2:
+        ap.error("--chaos rank fails a rank of the ring across ranks: it "
+                 "needs --stages > 1")
     if args.device_budget < 0 or args.host_budget < 0:
         ap.error("budgets must be >= 0 MB")
     return args
@@ -903,16 +918,69 @@ def vocab_cut(step: Callable, cfg) -> Callable:
     return fn
 
 
+def ring_ranks(weights, cfg, args: argparse.Namespace, cache: Dict,
+               nxt: torch.Tensor, *, keep: bool) -> List[Dict]:
+    """Run the decode section's ring across ranks: ``weights`` written to
+    a layer store and the prefilled ``cache`` to a file, both in a
+    temporary directory, then ``runtime.serve.rank_ring_job`` on ``pods x
+    --stages x --tp`` rank processes (``launch.mesh.RankWorld``; the
+    kernels built here first, so the ranks do not race their builds),
+    each reading only its part. Returns every rank's result; a rank that
+    fails, dies or times out exits nonzero."""
+    from ..kernels import _build
+    from ..launch.mesh import RankFailure, RankWorld
+
+    card = args.device == "cuda"
+    T = args.verify_tokens
+    work = tempfile.mkdtemp(prefix="rank_ring_")
+    try:
+        tree = weights if isinstance(weights, dict) \
+            else tree_from_params(weights)
+        store = save_param_store(tree, cfg, os.path.join(work, "store"))
+        path = os.path.join(work, "cache.pt")
+        torch.save({"len": cache["len"].cpu(),
+                    "layers": {n: a.cpu() for n, a in
+                               cache["layers"].items()}}, path)
+        if card:
+            _build.build()
+        t0 = clock()
+        # one torch thread a rank: the card does the work, and a thread
+        # pool a rank would have the ranks' host threads spin against
+        # each other on the machine's cores
+        with RankWorld(args.stages * args.tp, device=args.device,
+                       threads=1) as world:
+            ranks = world.run(
+                "repro_torch.runtime.serve:rank_ring_job", cfg=cfg,
+                n_stages=args.stages, tp=args.tp, k=args.ring_k,
+                store=store, cache=path, first=nxt.cpu().numpy(),
+                steps=args.new_tokens,
+                verify_tokens=T if T > 1 and cfg.family != "ssm" else 1,
+                verify_reps=4, keep_logits=keep,
+                fail_rank=args.stages * args.tp - 1
+                if args.chaos == "rank" else None)
+        print(f"ring across ranks: {len(ranks)} processes up in "
+              f"{max(r['t_start'] for r in ranks) - t0:.2f} s, their groups"
+              f" and parts loaded in {max(r['load_s'] for r in ranks):.2f}"
+              f" s, all done and ended in {clock() - t0:.2f} s")
+        return ranks
+    except RankFailure as e:
+        raise SystemExit(f"ring across ranks FAILED: {e}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
                metrics=None) -> Dict:
     """``--stages M``: prefill on the one-device path, decode
-    ``--new-tokens`` steps through the resident ring and through the
-    one-device step from the same cache, and exit nonzero unless their
-    tokens are equal (bf16 on the card: unless each row splits only where
-    the top-2 gap is under twice the logit difference); with
-    ``--verify-tokens T`` time a T-token verify pass against T single
-    steps. ``weights``: the ``DenseModel``, or a stacked tree (the
-    store's, q4 included). Returns what was measured."""
+    ``--new-tokens`` steps through the ring across ``M x --tp`` rank
+    processes (``ring_ranks``: one a stage and tensor-parallel member,
+    over gloo) and through the one-device step from the same cache, and
+    exit nonzero unless their tokens are equal (bf16 on the card: unless
+    each row splits only where the top-2 gap is under twice the logit
+    difference) and every rank took the same tokens; with
+    ``--verify-tokens T`` time a T-token verify pass on the ranks against
+    T single steps. ``weights``: the ``DenseModel``, or a stacked tree
+    (the store's, q4 included). Returns what rank 0 measured."""
     device = torch.device(args.device)
     card = device.type == "cuda"
     B, Mst = args.batch, args.stages
@@ -921,21 +989,29 @@ def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
     if metrics is not None:
         metrics.observe("request/ttft_s", ttft)
     plan = RingPlan.make(cfg, Mst, k=args.ring_k)
-    rparams = ring_params(weights, cfg, plan, tp=args.tp)
-    step = vocab_cut(RingServeStep(cfg, plan, rparams, graphs=card,
-                                   device=device), cfg)
-    rcache = to_ring_cache(cache, cfg, plan)
     # bf16 on the card: the ring multiplies microbatches of B/M rows where
-    # the one-device step multiplies B, so the sums may run in another
-    # order and the streams may split, but only at a near tie
+    # the one-device step multiplies B, and sums its shards' attention and
+    # FFN halves apart, so the streams may split, but only at a near tie
     near_ties = card and args.dtype != "f32"
-    ring = greedy_steps(step, rcache, nxt, args.new_tokens, device,
-                        tracer=tracer, metrics=metrics, keep=near_ties)
+    ranks = ring_ranks(weights, cfg, args, cache, nxt, keep=near_ties)
+    r0 = ranks[0]
+    if any(not np.array_equal(r["tokens"], r0["tokens"]) for r in ranks):
+        raise SystemExit("ring across ranks FAILED: the ranks took "
+                         "different greedy tokens")
+    ring = {"tokens": r0["tokens"].transpose(1, 0, 2),
+            "step_s": r0["step_s"],
+            "logits": [torch.from_numpy(lg).to(device)
+                       for lg in r0["logits"]]}
+    for s in ring["step_s"]:
+        if metrics is not None:
+            metrics.observe("decode/step_s", s)
+            metrics.inc("tokens/generated", B)
     per_tok = float(np.median(ring["step_s"]))
     print(f"ring decode (k={plan.k}, w={plan.w}, M={Mst}, TP={args.tp}): "
           f"{args.new_tokens} tokens x {B} seqs in "
           f"{sum(ring['step_s']):.2f}s -> {per_tok * 1e3:.1f} ms/token/batch"
-          f" (median step{', replayed from CUDA graphs' if card else ''})")
+          f" (median step on rank 0 of {len(ranks)} rank processes over "
+          f"gloo, eager)")
     one = greedy_steps(one_device_decode(weights, cfg, device), cache, nxt,
                        args.new_tokens, device, keep=near_ties)
     equal = bool(np.array_equal(ring["tokens"], one["tokens"]))
@@ -949,31 +1025,21 @@ def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
                              f"difference): {splits or 'f32: none allowed'})")
         print(f"  near-tie splits (row, step, top-2 gap, logit difference,"
               f" over max|logit|): {splits}")
+    summed = {k: sum(r["launches"][k] for r in ranks)
+              for k in r0["launches"]}
+    print(f"  rank launches over the decode steps (rank 0): "
+          f"{r0['launches']}; summed over the {len(ranks)} ranks: {summed}")
     out = {"plan": plan, "first": nxt.cpu().numpy(),
            "tokens": ring["tokens"], "step_s": ring["step_s"],
            "one_device_tokens": one["tokens"], "tokens_equal": equal,
            "one_device_step_s": one["step_s"], "prefill_s": ttft,
-           "verify_ms": None}
+           "verify_ms": None, "ranks": len(ranks),
+           "launches": r0["launches"]}
     T = args.verify_tokens
     if T > 1 and cfg.family == "ssm":
         print("verify pass skipped: the ssm state cannot roll back")
     elif T > 1:
-        vstep = RingServeStep(cfg, plan, rparams, n_tokens=T, graphs=card,
-                              device=device)
-        vc = ring["cache"]
-        ln0 = vc["len"].clone()
-        vt = torch.tensor(ring["tokens"][:, -1], device=device).expand(
-            -1, T).contiguous()
-        times = []
-        for _ in range(4):                  # the first captures / warms
-            vc["len"].copy_(ln0)
-            _sync(device)
-            t0 = clock()
-            _, vc = vstep(vc, vt)
-            _sync(device)
-            times.append(clock() - t0)
-        vc["len"].copy_(ln0)
-        dtv = float(np.median(times[1:]))
+        dtv = float(np.median(r0["verify_s"][1:]))
         print(f"verify pass (T={T}): {dtv * 1e3:.1f} ms vs {T}x"
               f"{per_tok * 1e3:.1f} ms single steps -> amortization "
               f"{T * per_tok / dtv:.2f}x")
@@ -1181,10 +1247,12 @@ def run(args: argparse.Namespace, params=None) -> Dict:
     under its name (``decode``, ``stream``, ``paged``, ``chaos``) and the
     ring's under ``ring`` (with the stream section's streamed ring merged
     in)."""
-    if args.tp != 1:
-        print(f"tp={args.tp}: layout only on the one card (the store's q4 "
-              f"groups and the vocab padding follow it); every stage runs "
-              f"unsharded")
+    if args.stages > 1:
+        print(f"ring: the decode section runs across {args.stages} x "
+              f"{args.tp} rank processes (stage x tensor-parallel member, "
+              f"over gloo); the stream section's ring and --chaos failover "
+              f"run in one process, every stage unsharded (their q4 groups "
+              f"and vocab padding follow --tp={args.tp})")
     cfg, params = build_model(args, params)
     # --kv-quant-kernel asks for int8 pages: the other sections keep the
     # config's own cache, as the JAX driver's do
@@ -1211,6 +1279,10 @@ def run(args: argparse.Namespace, params=None) -> Dict:
                                            metrics=metrics)
     if args.chaos != "none" and not stacked:
         print(f"chaos: unsupported family {cfg.family} -- skipped")
+    elif args.chaos == "rank":
+        # reached only when the decode section ran on one device: a
+        # failed rank ends the run with the ring across ranks
+        print("chaos rank: no ring across ranks -- skipped")
     elif args.chaos == "transient":
         res["chaos"] = serve_chaos(params, base, args)
     elif args.chaos == "failover":

@@ -280,6 +280,43 @@ def decode_attention_stats(q: torch.Tensor, k_cache: torch.Tensor,
     return acc[:, :, 0], m[:, :, 0], l[:, :, 0]
 
 
+def stats_to_lse(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                 dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``verify_attention_stats``' (acc, m, l) as (o (B, T, H, D) in
+    ``dtype``, lse (B, H, T) f32): the normalized output and each row's
+    natural-log log-sum-exp; a row that saw no key: o = 0, lse = -inf."""
+    o = (acc / torch.clamp(l[..., None], min=1e-30)).transpose(1, 2)
+    lse = torch.where(torch.isfinite(m), m + torch.log(l), -math.inf)
+    return o.to(dtype), lse.float()
+
+
+def merge_attention_lse(o: torch.Tensor, lse: torch.Tensor, ax
+                        ) -> torch.Tensor:
+    """Combine per-shard attention over the axis ``ax``
+    (``runtime.collectives.Axis``; the JAX package's
+    ``merge_attention_stats`` in its log-sum-exp form): each member's
+    normalized o (B, T, H, D) and lse (B, H, T) (``flash_verify_stats``,
+    or ``stats_to_lse`` of (acc, m, l)) -> the attention over every
+    member's keys, (B, T, H, D) f32. One gather carries both; every
+    member sums the shards in rank order, so the result is equal to the
+    bit on each. A shard with lse = -inf adds nothing; a row no shard saw
+    returns 0."""
+    from ..runtime.collectives import all_gather
+
+    both = torch.cat([o.float(), lse.transpose(1, 2)[..., None]], -1)
+    parts = all_gather(both, ax)                      # (n, B, T, H, D + 1)
+    lses = parts[..., -1]
+    top = lses.amax(0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    w = torch.where(torch.isfinite(lses), torch.exp(lses - top), 0.0)
+    num = parts[0, ..., :-1] * w[0, ..., None]
+    den = w[0]
+    for i in range(1, parts.shape[0]):
+        num = num + parts[i, ..., :-1] * w[i, ..., None]
+        den = den + w[i]
+    return num / torch.clamp(den[..., None], min=1e-30)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len: torch.Tensor,
                      *, window: Optional[int] = None) -> torch.Tensor:
@@ -310,6 +347,31 @@ def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = dequantize_kv(k, k_scale, q.dtype)
         v = dequantize_kv(v, v_scale, q.dtype)
     return verify_attention(q, k, v, kv_len, window=window)
+
+
+def shard_attention_stats(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, kv_len: torch.Tensor, *,
+                          window: Optional[int],
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention over one sequence shard of a contiguous cache, with the
+    stats a merge over the shards needs: (o (B, T, H, D) in q.dtype, lse
+    (B, H, T) f32). ``kv_len`` is counted from the shard's first line (the
+    global length less the shard's offset: 0 or less masks every row).
+    The CUDA kernel B5 with its stats for tensors on the card (unless
+    ``ops.use_kernels(False)``), else ``verify_attention_stats`` (an int8
+    shard dequantized to q's dtype first)."""
+    from ..kernels import ops
+    if ops.kernels_active(q):
+        return ops.flash_verify_stats(q, k, v, kv_len.int().contiguous(),
+                                      window=window, k_scale=k_scale,
+                                      v_scale=v_scale)
+    if k_scale is not None:
+        k = dequantize_kv(k, k_scale, q.dtype)
+        v = dequantize_kv(v, v_scale, q.dtype)
+    acc, m, l = verify_attention_stats(q, k, v, kv_len, window=window)
+    return stats_to_lse(acc, m, l, q.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -705,8 +767,20 @@ def mla_block_paged(p, cfg: ModelConfig, x: torch.Tensor, positions,
 #  FFN
 # --------------------------------------------------------------------------- #
 
-def glu_ffn(p, x: torch.Tensor) -> torch.Tensor:
-    return qmm(swish(qmm(x, p.w_gate)) * qmm(x, p.w_up), p.w_down)
+def _tp_sum(y: torch.Tensor, tp) -> torch.Tensor:
+    """The sum over a tensor-parallel axis after a split down projection
+    (``tp`` None: no split)."""
+    if tp is None:
+        return y
+    from ..runtime.collectives import psum
+    return psum(y, tp)
+
+
+def glu_ffn(p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The GLU FFN; ``tp`` (a ``runtime.collectives.Axis``): ``p`` holds
+    this member's slice of d_ff, and the down projections sum over it."""
+    return _tp_sum(qmm(swish(qmm(x, p.w_gate)) * qmm(x, p.w_up), p.w_down),
+                   tp)
 
 
 #: tokens a dispatch takes at once; a longer step splits into chunks, each
@@ -768,20 +842,23 @@ def moe_route(router, cfg: ModelConfig, xt: torch.Tensor, *,
 
 
 def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
-            lossless: bool = False) -> torch.Tensor:
+            lossless: bool = False, tp=None) -> torch.Tensor:
     """Top-k MoE with capacity-bounded dispatch (``repro.models.layers.
     moe_ffn``): routed rows scatter into one (E*C + 1, d) buffer (rows
     over capacity to the pad row E*C, which nothing reads), the experts
     run over (E, C, d) (``expert_mm``), and the outputs gather back
     weighted by the gates. ``lossless`` (or ``cfg.moe_capacity_factor``
     None) sets C = T, so no row is dropped. Every shape is fixed by x's, and
-    nothing reads a value back to the host, so a step stays graphable."""
+    nothing reads a value back to the host, so a step stays graphable.
+    ``tp`` (a ``runtime.collectives.Axis``): every expert's d_ff is split
+    over it (TP inside each expert, as the JAX ring runs it) and the
+    combined output sums over it."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     n_chunks = max(-(-(B * S) // MOE_MAX_CHUNK), 1)
     if S % n_chunks == 0 and n_chunks > 1:
         xs = x.reshape(B, n_chunks, S // n_chunks, d).transpose(0, 1)
-        out = torch.stack([moe_ffn(p, cfg, xc, lossless=lossless)
+        out = torch.stack([moe_ffn(p, cfg, xc, lossless=lossless, tp=tp)
                            for xc in xs])
         return out.transpose(0, 1).reshape(B, S, d)
     xt = x.reshape(B * S, d)
@@ -794,16 +871,16 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
     ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
     y = (ye_flat[slot].reshape(B * S, K, d)
          * gates.to(ye.dtype)[..., None]).sum(1)
-    return y.reshape(B, S, d)
+    return _tp_sum(y.reshape(B, S, d), tp)
 
 
 def block_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
-              lossless: bool) -> torch.Tensor:
+              lossless: bool, tp=None) -> torch.Tensor:
     """A dense block's FFN: ``moe_ffn`` over ``p.moe`` for the moe family,
-    else ``glu_ffn`` over ``p.ffn``."""
+    else ``glu_ffn`` over ``p.ffn`` (``tp``: split over that axis)."""
     if cfg.n_experts:
-        return moe_ffn(p.moe, cfg, x, lossless=lossless)
-    return glu_ffn(p.ffn, x)
+        return moe_ffn(p.moe, cfg, x, lossless=lossless, tp=tp)
+    return glu_ffn(p.ffn, x, tp)
 
 
 # --------------------------------------------------------------------------- #

@@ -434,6 +434,20 @@ class ParamStore(ParamSource):
             else torch.empty(0, dtype=torch.uint8)
         return _read_leaves(self._head_leaves, buf, copy=True)
 
+    def head_view(self) -> Params:
+        """The head's leaves as views of a read-only mapping of its file:
+        pages fault in as they are read, so a rank that copies out its
+        vocab shard reads that and no more (``head()`` copies the file)."""
+        mm = self._maps.get(-1)
+        if mm is None:
+            path = os.path.join(self.directory, HEAD_FILE)
+            if os.path.getsize(path) == 0:
+                return self.head()
+            f = open(path, "rb")
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            self._files[-1], self._maps[-1] = f, mm
+        return _read_leaves(self._head_leaves, _mmap_tensor(mm, len(mm)))
+
     def release(self, i: int) -> None:
         """Drop layer i's page-cache mapping behind the compute front;
         every drop adds ``layer_nbytes`` to ``released_bytes``."""

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,7 +51,7 @@ from ..configs.base import ModelConfig
 from ..models import layers as ll
 from ..quant.grouped import (QuantizedTensor, dequantize_leaf, map_tree,
                              quantize_q4, tree_tensors)
-from .telemetry import resolve_tracer
+from .telemetry import clock, resolve_tracer
 
 Params = Dict[str, Any]
 
@@ -527,3 +528,618 @@ def init_ring_cache(cfg: ModelConfig, plan: RingPlan, batch: int,
     cache["layers"] = pad_and_permute(cache["layers"], cfg, plan.n_stages,
                                       plan.k)
     return cache
+
+
+# --------------------------------------------------------------------------- #
+#  the ring across ranks: specs, a rank's part, its pass
+# --------------------------------------------------------------------------- #
+#
+# One rank a (pod, stage, member) of a ("pod", "data", "model") mesh
+# (``launch.mesh.RankLayout``): the JAX package's ``build_ring_serve_step``
+# with its ``shard_map`` taken apart into processes. A rank holds its
+# stage's k*w ring rows, its "model" slice of the FFN and expert weights,
+# its vocab shard of the embed and unembed, its Smax/tp lines of every
+# cache row and its pod's batch (``ring_param_specs``/``ring_cache_specs``
+# cut by ``sharding.local_shard``), and talks to the others only through
+# ``runtime.collectives``.
+
+def _stacked_leaf_spec(key: str, nd: int, *, ep: bool = False):
+    """Spec of one stacked ring leaf: axis 0 (ring layer order) over
+    "data"; the FFN and expert inner dims over "model"; the rest
+    replicated."""
+    if key in ("w_gate", "w_up") and nd == 4:          # MoE (L, E, d, f)
+        return ("data", "model", None, None) if ep \
+            else ("data", None, None, "model")
+    if key == "w_down" and nd == 4:
+        return ("data", "model", None, None) if ep \
+            else ("data", None, "model", None)
+    if key in ("w_gate", "w_up") and nd == 3:          # GLU (L, d, f)
+        return ("data", None, "model")
+    if key == "w_down" and nd == 3:
+        return ("data", "model", None)
+    return ("data",) + (None,) * (nd - 1)
+
+
+def ring_leaf_spec(path: str, shape, mesh) -> tuple:
+    """The sanitized ring spec of the leaf at ``path`` (the stacked shape
+    for a block leaf). The ring keeps TP inside each expert (``ep`` off),
+    as the JAX ring does."""
+    from . import sharding as S
+
+    key = S.leaf_key(path)
+    if key == "embed":
+        spec = ("model", None)
+    elif key == "unembed":
+        spec = (None, "model")
+    elif key == "final_norm":
+        spec = ()
+    else:
+        spec = _stacked_leaf_spec(key, len(shape))
+    return S.sanitize(spec, tuple(shape), mesh)
+
+
+def ring_param_specs(cfg: ModelConfig, mesh, params: Params) -> Dict:
+    """{path: spec} of ring-mode params (``pad_and_permute``d blocks,
+    ``pad_vocab``ed head): the layer axis over "data", the FFN and expert
+    inner dims over "model", attention and SSM weights replicated over
+    "model", the embeddings vocab-sharded."""
+    from . import sharding as S
+
+    return {path: ring_leaf_spec(path, tuple(leaf.shape), mesh)
+            for path, leaf in S.flatten_with_path(params)}
+
+
+def ring_cache_spec(path: str, nd: int, mesh) -> tuple:
+    """Spec of one ring cache leaf: the layer axis over "data", the KV
+    (or latent) sequence over "model", pods over the batch."""
+    from . import sharding as S
+
+    pod = ("pod",) if "pod" in mesh else ()
+    key = S.leaf_key(path)
+    if key == "len":
+        return pod
+    if key in ("k", "v"):                     # (L, B, S, hk, hd)
+        return ("data", pod or None, "model", None, None)
+    if key in ("k_scale", "v_scale", "latent"):   # (L, B, S, hk | r)
+        return ("data", pod or None, "model", None)
+    return ("data",) + ((pod or None),) + (None,) * (nd - 2)
+
+
+def ring_cache_specs(cfg: ModelConfig, mesh, cache: Dict) -> Dict:
+    """{path: spec} of a ring-ordered cache (not sanitized: the sequence
+    must split over "model", as ``shard_map`` requires)."""
+    from . import sharding as S
+
+    return {path: ring_cache_spec(path, leaf.dim(), mesh)
+            for path, leaf in S.flatten_with_path(cache)}
+
+
+def masked_slot_update(arr: torch.Tensor, new: torch.Tensor,
+                       slot: torch.Tensor, s_start: int, s_len: int) -> None:
+    """Write ``new`` (B, ...) at absolute line ``slot`` (B,) into the local
+    sequence shard ``arr`` (B, s_len, ...) in place, only where the slot
+    lands in [s_start, s_start + s_len)."""
+    slot = slot.long()
+    local = (slot - s_start).clamp(0, s_len - 1)
+    ok = (slot >= s_start) & (slot < s_start + s_len)
+    bidx = torch.arange(arr.shape[0], device=arr.device)
+    cur = arr[bidx, local]
+    ok = ok.view((-1,) + (1,) * (cur.dim() - 1))
+    arr[bidx, local] = torch.where(ok, new.to(arr.dtype), cur)
+
+
+def _rank_rows(plan: RingPlan, stage: int) -> np.ndarray:
+    """The global layer of each of ``stage``'s k*w ring rows (>= L: a
+    zero padding layer)."""
+    kw = plan.k * plan.w
+    return ring_permutation(plan.L_pad, plan.n_stages, plan.k)[
+        stage * kw:(stage + 1) * kw]
+
+
+def _shard_tree(tree, prefix: str, lead: tuple, mesh, coords, device):
+    """Every leaf of a per-layer (``lead`` ()) or head tree cut to the
+    rank's part by its ring spec (a block leaf's spec is its stacked
+    shape's, axis 0 dropped) and copied to ``device``."""
+    from . import sharding as S
+
+    def cut(path, t):
+        spec = ring_leaf_spec(path, lead + tuple(t.shape), mesh)[len(lead):]
+        return S.local_shard(t, spec, mesh, coords).to(device).contiguous()
+
+    if isinstance(tree, dict):
+        return {k: _shard_tree(v, f"{prefix}['{k}']", lead, mesh, coords,
+                               device) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        packed = cut(prefix + ".packed", tree.packed)
+        scale = cut(prefix + ".scale", tree.scale)
+        per = 8 // tree.bits
+        if tree.packed.shape[-2] // packed.shape[-2] \
+                != tree.scale.shape[-2] // scale.shape[-2]:
+            raise ValueError(f"{prefix}: packed rows and scale rows split "
+                             f"differently (quantize_ring_params at the "
+                             f"real tp keeps them together)")
+        shape = tuple(packed.shape[:-2]) + (packed.shape[-2] * per,
+                                            packed.shape[-1])
+        return QuantizedTensor(packed, scale, tree.bits, tree.group, shape)
+    return cut(prefix, tree)
+
+
+def _tree_nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_tensors(tree))
+
+
+def rank_params(source, cfg: ModelConfig, plan: RingPlan, layout, *,
+                device=None) -> Params:
+    """Rank ``layout``'s part of the ring's parameters, read from
+    ``source`` (a ``runtime.paramstore.ParamSource``: a ``ParamStore``, of
+    which the rank maps only its stage's layer files and the head, or a
+    ``ResidentSource``): ``blocks``, the stage's k*w ring rows in order
+    (zero layers past L) with this member's slice of every FFN and expert
+    stack (q4 leaves cut as packed bytes and scale rows,
+    ``quantize_ring_params`` at the real tp keeping them together), each
+    prepared as ``ring_params`` prepares a row; the vocab shard of
+    ``embed`` (and ``unembed``) padded to a multiple of tp; ``final_norm``;
+    and ``nbytes``, the bytes cut out before any q4 leaf was dequantized
+    (the rank's share of the model)."""
+    from ..bridge import block_from_tree
+
+    device = torch.device(device or layout.device)
+    mesh, coords = layout.mesh, layout.coords
+    blocks, nbytes, zero = [], 0, None
+    for gid in _rank_rows(plan, layout.stage):
+        if gid < cfg.n_layers:
+            tree = _shard_tree(source.layer(int(gid)), "['blocks']",
+                               (plan.L_pad,), mesh, coords, device)
+        else:
+            if zero is None:
+                zero = _shard_tree(source.layer(0), "['blocks']",
+                                   (plan.L_pad,), mesh, coords, "meta")
+            tree = map_tree(lambda a: torch.zeros(a.shape, dtype=a.dtype,
+                                                  device=device), zero)
+        nbytes += _tree_nbytes(tree)
+        blocks.append(block_from_tree(_prep_ring_layer(tree)))
+    head = getattr(source, "head_view", source.head)()
+    head = pad_vocab(head, cfg, layout.tp)
+    head = _shard_tree(head, "", (), mesh, coords, device)
+    nbytes += _tree_nbytes(head)
+    return dict(head, blocks=blocks, nbytes=nbytes)
+
+
+def rank_cache(cache: Dict, cfg: ModelConfig, plan: RingPlan, layout, *,
+               device=None) -> Dict:
+    """Rank ``layout``'s part of a one-device cache (``init_cache``'s
+    layout, layers in model order, e.g. a prefill's): its stage's k*w ring
+    rows (zero rows past L), its pod's batch, its Smax/tp lines of every
+    k/v/scale/latent row (an ssm state whole), copied to ``device``."""
+    from . import sharding as S
+
+    device = torch.device(device or layout.device)
+    mesh, coords = layout.mesh, layout.coords
+    rows = _rank_rows(plan, layout.stage)
+    layers = {}
+    for name, a in cache["layers"].items():
+        spec = ring_cache_spec(f"['layers']['{name}']", a.dim(), mesh)[1:]
+        parts = []
+        for gid in rows:
+            row = a[int(gid)] if gid < cfg.n_layers else \
+                torch.zeros_like(a[0])
+            parts.append(S.local_shard(row, spec, mesh, coords))
+        layers[name] = torch.stack(parts).to(device)
+    ln = S.local_shard(cache["len"], ring_cache_spec("['len']", 1, mesh),
+                       mesh, coords)
+    return {"len": ln.to(device).contiguous(), "layers": layers}
+
+
+@dataclasses.dataclass
+class _Shard:
+    """A rank's place in its stage's tensor-parallel group, for the ring
+    layers: the "model" axis, the first global line of its cache shard
+    and the shard's lines (0 for an ssm state); ``offsets`` False is the
+    negative control that masks every shard as if it began at line 0;
+    ``probe(name, tensor)`` sees the replicated activations."""
+    model: Any
+    s_start: int
+    s_len: int
+    offsets: bool = True
+    probe: Optional[Callable] = None
+
+    def seen(self, name: str, t: torch.Tensor) -> None:
+        if self.probe is not None:
+            self.probe(name, t)
+
+
+def _rank_gqa(cfg: ModelConfig, p, h, c, ln, pos, sh: _Shard):
+    """A GQA layer's attention on one rank: the new lines written where
+    they fall in its sequence shard, B5 with its stats over the shard
+    (``layers.shard_attention_stats``; the plain stats on the CPU), the
+    shards merged over the "model" group."""
+    mb, T = h.shape[0], h.shape[1]
+    q, k, v = ll.attn_qkv(p, cfg, h, pos)
+    window = cfg.attn_window
+    Smax = sh.s_len * sh.model.size
+    rolling = window is not None and Smax == window
+    if T > 1 and rolling:
+        raise ValueError("multi-token ring needs Smax > window")
+    quantized = "k_scale" in c
+    if quantized:
+        k_wr, ksc = ll.quantize_kv(k)
+        v_wr, vsc = ll.quantize_kv(v)
+    else:
+        k_wr, v_wr = k, v
+    for t in range(T):                       # small (draft block)
+        slot = (ln + t) % window if rolling \
+            else torch.clamp(ln + t, max=Smax - 1)
+        masked_slot_update(c["k"], k_wr[:, t], slot, sh.s_start, sh.s_len)
+        masked_slot_update(c["v"], v_wr[:, t], slot, sh.s_start, sh.s_len)
+        if quantized:
+            masked_slot_update(c["k_scale"], ksc[:, t], slot, sh.s_start,
+                               sh.s_len)
+            masked_slot_update(c["v_scale"], vsc[:, t], slot, sh.s_start,
+                               sh.s_len)
+    kv_len = torch.clamp(ln + T, max=Smax) if window is not None else ln + T
+    # a rolling buffer holds only in-window lines, at permuted slots
+    eff_window = None if rolling else window
+    local = kv_len - sh.s_start if sh.offsets else kv_len
+    if quantized:
+        o, lse = ll.shard_attention_stats(q, c["k"], c["v"], local,
+                                          window=eff_window,
+                                          k_scale=c["k_scale"],
+                                          v_scale=c["v_scale"])
+    else:
+        o, lse = ll.shard_attention_stats(q, c["k"].to(q.dtype),
+                                          c["v"].to(q.dtype), local,
+                                          window=eff_window)
+    out = ll.merge_attention_lse(o, lse, sh.model)      # (mb, T, H, hd)
+    sh.seen("attention", out)
+    return ll.qmm(out.reshape(mb, T, -1).to(h.dtype), p.wo)
+
+
+def _rank_mla(cfg: ModelConfig, p, h, c, ln, pos, sh: _Shard):
+    """MLA's absorbed attention on one rank (the JAX ring's
+    ``_ring_mla_layer``, plain torch): the latent lines written where they
+    fall in its shard, the scores over its lines, the latent stats merged
+    over the "model" group."""
+    mb, T = h.shape[0], h.shape[1]
+    H, r_kv = cfg.n_heads, cfg.kv_lora_rank
+    q_nope, q_rope, _, lat_cat = ll.mla_project(p, cfg, h, pos)
+    lc = c["latent"]
+    for t in range(T):
+        masked_slot_update(lc, lat_cat[:, t], ln + t, sh.s_start, sh.s_len)
+    s_all, lat_all = ll._mla_scores(p, cfg, q_nope, q_rope, lc, h.dtype)
+    dev = h.device
+    spos = torch.arange(sh.s_len, device=dev) + (
+        sh.s_start if sh.offsets else 0)
+    qpos = ln.long()[:, None] + torch.arange(T, device=dev)[None]
+    mask = (spos[None, None] <= qpos[..., None])[:, None]   # (mb,1,T,sl)
+    s_all = torch.where(mask, s_all, -math.inf)
+    m = s_all.amax(-1)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    pr = torch.where(mask, torch.exp(s_all - m_safe[..., None]), 0.0)
+    acc = torch.einsum("bhts,bsr->bhtr", pr, lat_all.float())
+    o, lse = ll.stats_to_lse(acc, m, pr.sum(-1), torch.float32)
+    o_lat = ll.merge_attention_lse(o, lse, sh.model)     # (mb, T, H, r)
+    sh.seen("attention", o_lat)
+    wv = p.wv_b.reshape(r_kv, H, cfg.v_head_dim)
+    out = ll._einsum("bthr,rhv->bthv", o_lat.to(h.dtype), wv)
+    return ll.qmm(out.reshape(mb, T, -1), p.wo)
+
+
+def _rank_attn_layer(cfg: ModelConfig, blk, x, c, ln, sh: _Shard):
+    """One dense, moe or vlm layer (GQA or MLA) on one rank: the
+    sequence-split attention, then the FFN split over the "model" group
+    and summed."""
+    from ..models.model import default_positions
+
+    pos = default_positions(cfg, x.shape[0], x.shape[1], ln)
+    h = ll.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+    attn = _rank_mla if cfg.mla else _rank_gqa
+    x = x + attn(cfg, blk.attn, h, c, ln, pos, sh)
+    g = ll.rms_norm(x, blk.ffn_norm, cfg.norm_eps)
+    return x + ll.block_ffn(blk, cfg, g, lossless=True, tp=sh.model)
+
+
+def _rank_embed(embed: torch.Tensor, tokens: torch.Tensor, ax
+                ) -> torch.Tensor:
+    """The vocab-sharded embed: this member's rows for the tokens in its
+    shard, zeros elsewhere, summed over the "model" group."""
+    from .collectives import psum
+
+    v_loc = embed.shape[0]
+    off = ax.index * v_loc
+    tok = tokens.long()
+    ok = (tok >= off) & (tok < off + v_loc)
+    emb = embed[(tok - off).clamp(0, v_loc - 1)]
+    return psum(torch.where(ok[..., None], emb, torch.zeros_like(emb)), ax)
+
+
+def rank_greedy(logits: torch.Tensor, ax, vocab: int) -> torch.Tensor:
+    """Greedy tokens from vocab-sharded logits (B, T, V_pad/tp): the
+    argmax of the whole vocabulary (padded columns excluded), equal on
+    every member; ties go to the lowest index, as ``torch.argmax`` of
+    the full row gives them. (B, T) int32."""
+    from .collectives import all_gather
+
+    v_loc = logits.shape[-1]
+    off = ax.index * v_loc
+    cols = torch.arange(off, off + v_loc, device=logits.device)
+    lg = torch.where(cols < vocab, logits.float(), -math.inf)
+    idx = lg.argmax(-1)
+    best = torch.stack([lg.gather(-1, idx[..., None])[..., 0].double(),
+                        (idx + off).double()])
+    parts = all_gather(best, ax)                    # (tp, 2, B, T)
+    val, pick = parts[0, 0], parts[0, 1]
+    for i in range(1, parts.shape[0]):           # a later shard: only if >
+        more = parts[i, 0] > val
+        val = torch.where(more, parts[i, 0], val)
+        pick = torch.where(more, parts[i, 1], pick)
+    return pick.to(torch.int32)
+
+
+def gather_logits(logits: torch.Tensor, ax, vocab: int) -> torch.Tensor:
+    """The full vocabulary's logits (B, T, vocab) from every member's
+    shard."""
+    from .collectives import all_gather
+
+    parts = all_gather(logits, ax)
+    return torch.cat(list(parts), -1)[..., :vocab]
+
+
+class RankRingStep:
+    """The ring across ranks' serve step on one rank: ``step(cache, tokens
+    (B, T)) -> (logits (B, T, V_pad/tp), cache)`` over the rank's pod
+    batch, T = ``n_tokens`` (> 1: the verify pass, causal among its
+    tokens). Every rank of the world calls it together: the counterpart of
+    the JAX package's ``build_ring_serve_step`` ``local_fn`` over a
+    ``("pod", "data", "model")`` mesh.
+
+    ``params`` is ``rank_params``' and ``cache`` ``rank_cache``'s (its
+    ``len``: the tokens so far). A pass: the vocab-sharded embed summed
+    over "model"; at microstep t, stage m takes microbatch e = (t - m) mod
+    M through window r = (t - e) // M of its rows where it is in the
+    schedule (the JAX step computes and masks the others; here they are
+    skipped and send nothing), then hands its output to stage m + 1 (only
+    where that stage will read it); every layer's attention runs B5 with
+    its stats over the rank's sequence shard and merges the shards over
+    "model", its FFN is split over "model" and summed; the final hiddens,
+    normed on the stage of the last window, summed over the ring; the
+    local logits from this member's vocab shard. Cache lines and ``len``
+    are written in place. The step runs eagerly: gloo ops cannot sit in a
+    CUDA graph.
+
+    ``tracer``: each microstep, the embed and the head are ``compute``
+    phases on the ``ring`` track and each collective a ``comms`` phase on
+    the ``comm`` track (``RankLayout.set_tracer``). ``probe(name, t)``
+    sees x after every layer, every merged attention output and the final
+    hiddens (the tests gather them to hold the members equal). ``offsets``
+    False is the negative control: members merge without their shard's
+    offset.
+    """
+
+    def __init__(self, cfg: ModelConfig, plan: RingPlan, layout,
+                 params: Params, *, n_tokens: int = 1, tracer=None,
+                 probe: Optional[Callable] = None, offsets: bool = True):
+        if n_tokens < 1:
+            raise ValueError("n_tokens must be >= 1")
+        if n_tokens > 1 and cfg.family == "ssm":
+            raise ValueError("speculative verify needs a rollbackable KV "
+                             "cache; ssm state is irreversible")
+        if layout.n_stages != plan.n_stages:
+            raise ValueError(f"a {plan.n_stages}-stage plan on a "
+                             f"{layout.n_stages}-stage layout")
+        if len(params["blocks"]) != plan.k * plan.w:
+            raise ValueError(f"{len(params['blocks'])} blocks on a rank, the "
+                             f"plan's stage holds {plan.k * plan.w}")
+        self.cfg, self.plan, self.layout = cfg, plan, layout
+        self.n_tokens, self.params = n_tokens, params
+        self.tracer = resolve_tracer(tracer)
+        self.probe, self.offsets = probe, offsets
+        layout.set_tracer(tracer)
+
+    def _shard(self, layers: Dict) -> _Shard:
+        name = "latent" if self.cfg.mla else "k"
+        s_len = layers[name].shape[2] if name in layers else 0
+        return _Shard(self.layout.model, self.layout.member * s_len, s_len,
+                      self.offsets, self.probe)
+
+    def __call__(self, cache: Dict, tokens: torch.Tensor):
+        from .collectives import ppermute, psum
+
+        cfg, plan, lay = self.cfg, self.plan, self.layout
+        T = self.n_tokens
+        if tokens.shape[1] != T:
+            raise ValueError(f"a {T}-token ring step got {tokens.shape[1]} "
+                             f"tokens a sequence")
+        M, k, w = plan.n_stages, plan.k, plan.w
+        kM, m = k * M, lay.stage
+        B = tokens.shape[0]
+        if B % M:
+            raise ValueError(f"batch {B} is not a multiple of {M} stages")
+        mb = B // M
+        ln, layers = cache["len"], cache["layers"]
+        p = self.params
+        sh = self._shard(layers)
+        layer = _ring_ssd_layer if cfg.family == "ssm" else _rank_attn_layer
+        tr = self.tracer
+
+        def phase(label):
+            return tr.phase("compute", cat="ring", track="ring", label=label)
+
+        with phase("embed"):
+            emb = _rank_embed(p["embed"], tokens, lay.model)
+        like = emb[:mb]
+        hidden = torch.zeros_like(emb)
+        x = None
+
+        def in_schedule(stage, t):
+            j = t - (t - stage) % M
+            return j, 0 <= j < kM
+
+        for t in range(plan.n_steps):
+            j, valid = in_schedule(m, t)
+            out = None
+            if valid:
+                with phase(f"microstep[{t}]"):
+                    e = (t - m) % M
+                    batch = slice(e * mb, (e + 1) * mb)
+                    h = emb[batch] if j == 0 else x
+                    base = (j // M) * w
+                    for i in range(base, base + w):
+                        c = {n: a[i, batch] for n, a in layers.items()}
+                        if layer is _ring_ssd_layer:
+                            h = layer(cfg, p["blocks"][i], h, c, ln[batch])
+                        else:
+                            h = layer(cfg, p["blocks"][i], h, c, ln[batch],
+                                      sh)
+                        sh.seen("x", h)
+                    if j == kM - 1:
+                        hidden[batch] = ll.rms_norm(h, p["final_norm"],
+                                                    cfg.norm_eps)
+                    out = h.to(like.dtype)      # the carry's dtype, as JAX's
+            # the hop: stage m + 1 reads at t + 1 what stage m made at t
+            # unless it is the last window's or stage m + 1 starts there
+            j_next, _ = in_schedule(m, t + 1)
+            x = ppermute(out, lay.ring, like=like,
+                         send=valid and j < kM - 1,
+                         recv=1 <= j_next < kM)
+        with phase("head"):
+            hidden = psum(hidden, lay.ring)
+            sh.seen("hidden", hidden)
+            logits = _ring_unembed(p, hidden)
+        if isinstance(ln, torch.Tensor):
+            ln.add_(T)
+        return logits, cache
+
+
+def _replicated_probe(ax, seen: Dict[str, int], unequal: List[str]):
+    """A ``RankRingStep`` probe that gathers each replicated activation
+    over ``ax`` and records any member whose bytes differ."""
+    from .collectives import all_gather
+
+    def probe(name: str, t: torch.Tensor) -> None:
+        parts = all_gather(t.contiguous(), ax)
+        seen[name] = seen.get(name, 0) + 1
+        if any(not torch.equal(parts[0], parts[i])
+               for i in range(1, parts.shape[0])):
+            unequal.append(name)
+    return probe
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def rank_ring_job(ctx, *, cfg: ModelConfig, n_stages: int, tp: int,
+                  pods: int = 1, k: int = 1, store: str, cache,
+                  first: np.ndarray, steps: int,
+                  verify_tokens: int = 1, verify_reps: int = 1,
+                  keep_logits: bool = False, check_replicated: bool = False,
+                  offsets: bool = True, return_cache: bool = False,
+                  trace: bool = False, fail_rank: Optional[int] = None
+                  ) -> Dict:
+    """One rank's run of the ring across ranks (a ``launch.mesh.RankWorld``
+    job; every rank of a ``pods x n_stages x tp`` world runs it): its part
+    of the layer store at ``store`` (``rank_params``) and of the
+    one-device cache ``cache`` (a dict, or a ``torch.save`` file, read
+    mapped; ``rank_cache``), then ``steps`` greedy steps from ``first``
+    (B, 1), then, with ``verify_tokens`` T > 1, ``verify_reps`` T-token
+    verify passes over the last token repeated, each from the same
+    length. Returns this rank's coordinates, the clock at the job's start
+    (``telemetry.clock``, one monotonic clock for every process), the
+    seconds its groups and its part of the weights and cache took to
+    set up (``load_s``), its pod's greedy tokens
+    (steps, B/pods), each step's seconds between syncs, the full
+    vocabulary's logits of every step (``keep_logits``: on each pod's
+    member 0 of stage 0 only) and of the first verify pass, the verify
+    passes' seconds, its kernel launches (``ops.launch_counts()`` over
+    the greedy steps), the bytes of its part of the model, the replicated
+    activations it held equal to the bit across its stage's members
+    (``check_replicated``), its cache part after each step
+    (``return_cache``) and, with ``trace``, the steps' share spent in
+    collectives and their staging. ``fail_rank``: that rank raises at its
+    second step (the driver's failure path)."""
+    from ..kernels import ops
+    from .paramstore import ParamStore
+    from .telemetry import Tracer
+
+    t0 = clock()
+    lay = ctx.layout(n_stages, tp, pods)
+    dev = lay.device
+    plan = RingPlan.make(cfg, n_stages, k)
+    src = ParamStore(store)
+    try:
+        params = rank_params(src, cfg, plan, lay)
+    finally:
+        src.close()
+    if isinstance(cache, str):
+        cache = torch.load(cache, map_location="cpu", mmap=True)
+    c = rank_cache(cache, cfg, plan, lay)
+    del cache
+    _sync(dev)
+    load_s = clock() - t0
+    B = first.shape[0]
+    rows = slice(lay.pod * (B // pods), (lay.pod + 1) * (B // pods))
+    seen: Dict[str, int] = {}
+    unequal: List[str] = []
+    probe = _replicated_probe(lay.model, seen, unequal) \
+        if check_replicated else None
+    tracer = Tracer() if trace else None
+    step = RankRingStep(cfg, plan, lay, params, tracer=tracer, probe=probe,
+                        offsets=offsets)
+    tok = torch.as_tensor(np.asarray(first)[rows], device=dev).int()
+    toks, secs, kept, caches = [], [], [], []
+    ops.reset_launch_counts()
+    tr = resolve_tracer(tracer)
+    for t in range(steps):
+        if fail_rank == ctx.rank and t == 1:
+            raise RuntimeError(f"rank {ctx.rank}: injected failure at step "
+                               f"{t}")
+        _sync(dev)
+        ts = clock()
+        with tr.token_step(t, track="decode"):
+            logits, c = step(c, tok)
+            nxt = rank_greedy(logits, lay.model, cfg.vocab)
+            _sync(dev)
+        secs.append(clock() - ts)
+        toks.append(nxt.cpu().numpy())
+        if return_cache:
+            caches.append({n: (a.float() if a.dtype == torch.bfloat16
+                               else a).cpu().numpy().copy()
+                           for n, a in c["layers"].items()})
+        if keep_logits and lay.stage == 0:
+            full = gather_logits(logits, lay.model, cfg.vocab)
+            if lay.member == 0:
+                kept.append(full.float().cpu().numpy())
+        tok = nxt
+    counts = ops.launch_counts()
+    out = {"rank": ctx.rank, "pod": lay.pod, "stage": lay.stage,
+           "member": lay.member, "t_start": t0, "load_s": load_s,
+           "tokens": np.stack(toks) if toks else np.zeros((0, 0)),
+           "step_s": secs, "logits": kept, "launches": counts,
+           "nbytes": params["nbytes"], "replicated": seen,
+           "unequal": unequal, "verify_s": [], "verify_logits": None,
+           "comm_share": None}
+    if trace:
+        stalls = tracer.stalls()
+        wall = sum(s.wall_s for s in stalls)
+        out["comm_share"] = sum(s.comms_s for s in stalls) / max(wall, 1e-12)
+        out["comm_s"] = [s.comms_s for s in stalls]
+    T = verify_tokens
+    if T > 1:
+        vstep = RankRingStep(cfg, plan, lay, params, n_tokens=T,
+                             probe=probe, offsets=offsets)
+        ln0 = c["len"].clone()
+        vt = tok[:, -1:].expand(-1, T).contiguous()
+        for i in range(verify_reps):
+            c["len"].copy_(ln0)
+            _sync(dev)
+            ts = clock()
+            vl, c = vstep(c, vt)
+            _sync(dev)
+            out["verify_s"].append(clock() - ts)
+            if i == 0:
+                out["verify_logits"] = gather_logits(
+                    vl, lay.model, cfg.vocab).float().cpu().numpy()
+        c["len"].copy_(ln0)
+    out["caches"] = caches
+    return out

@@ -58,6 +58,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CI = os.path.join(ROOT, ".github", "workflows", "ci.yml")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def ci_serve_lines():
     """Each ``repro.launch.serve`` command of the CI file: (its first line
     number, its arguments), continuation lines joined."""

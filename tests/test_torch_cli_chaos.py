@@ -10,8 +10,21 @@ third token, counted its own way).
 """
 import numpy as np
 import pytest
+import torch
 
 from test_torch_cli import check_decode, lines_with, run_both
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("argv", lines_with("--chaos"))

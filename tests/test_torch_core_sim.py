@@ -7,6 +7,7 @@ import dataclasses
 import math
 
 import pytest
+import torch
 
 from repro.configs import get_config
 from repro.core import baselines as JB
@@ -20,6 +21,18 @@ from repro_torch.core import profiles as TP
 from repro_torch.core import simulator as TS
 
 ARCHS = ["llama3-70b", "mixtral-8x7b", "qwen2.5-14b"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _both(arch):

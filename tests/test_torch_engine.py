@@ -30,6 +30,18 @@ CPU = torch.device("cpu")
 B, CTX, PAGE, N_PAGES = 2, 64, 8, 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(getter, kv_dtype="bfloat16"):
     return dataclasses.replace(getter("qwen2.5-14b").reduced(), n_layers=2,
                                kv_dtype=kv_dtype)

@@ -14,6 +14,7 @@ import tempfile
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config
 from repro.core.profiles import paper_table2_cluster as j_cluster
@@ -43,6 +44,18 @@ FAST = IOPolicy(max_retries=2, backoff_base_s=0.002, backoff_max_s=0.01,
                 op_deadline_s=10.0, get_timeout_s=30.0)
 J_FAST = JPolicy(max_retries=2, backoff_base_s=0.002, backoff_max_s=0.01,
                  op_deadline_s=10.0, get_timeout_s=30.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfgs():

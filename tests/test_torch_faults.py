@@ -39,6 +39,18 @@ FAST = TIO.IOPolicy(max_retries=3, backoff_base_s=0.002, backoff_max_s=0.01,
                     op_deadline_s=5.0, get_timeout_s=10.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fire_pattern(mod, schedule, calls, seed=0):
     """Which of ``calls`` ((op, key) pairs) raise, and what, under a
     schedule of ``(op, kwargs)`` specs."""

@@ -41,6 +41,18 @@ CPU = torch.device("cpu")
 B, CTX, PAGE, N_PAGES, CHUNK, GAMMA = 2, 64, 8, 40, 8, 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _model(arch, seed, **kw):
     """(jcfg, tcfg, JAX params, the port's copy), reduced, 2 layers."""
     jcfg = dataclasses.replace(get_config(arch).reduced(), n_layers=2, **kw)

@@ -9,6 +9,7 @@ decisions and objective to the bit.
 """
 import numpy as np
 import pytest
+import torch
 
 import repro.core.cluster as j_cluster
 import repro.core.halda as j_halda
@@ -26,6 +27,18 @@ from repro_torch.core import ring as t_ring
 from repro_torch.runtime import elastic as t_elastic
 
 GiB = 1 << 30
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def model_70b(P=j_profiles):

@@ -7,10 +7,23 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _forbidden(name: str) -> bool:
@@ -64,7 +77,8 @@ def test_walk_covers_every_port_module():
     profiler), the last families' (the minicpm3, qwen2-vl,
     recurrentgemma and whisper configs) and the trainer's (optimizer,
     checkpoints, train step, train driver, shape stand-ins, the plain
-    kernels under their JAX names) included."""
+    kernels under their JAX names) and the ring across ranks' (the
+    partition specs, the named-axis collectives) included."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in FILES if p.name != "chip_smoke.py"}
     for want in ("quant/__init__.py", "quant/grouped.py",
@@ -84,5 +98,6 @@ def test_walk_covers_every_port_module():
                  "configs/recurrentgemma_9b.py", "configs/whisper_tiny.py",
                  "runtime/optim.py", "runtime/checkpoint.py",
                  "runtime/train.py", "launch/train.py", "launch/specs.py",
-                 "kernels/ref.py"):
+                 "kernels/ref.py", "runtime/sharding.py",
+                 "runtime/collectives.py"):
         assert want in names

@@ -28,6 +28,18 @@ from repro_torch.kernels import ops
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(seed, *, B, T, H, h_kv, D, P, bs, nb, kv_len, sink_rows=()):
     """q, pages and a table whose entries past ceil(kv_len/bs) are stale
     page ids; rows in ``sink_rows`` get kv_len = T on an all-sink table

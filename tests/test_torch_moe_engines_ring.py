@@ -23,6 +23,18 @@ from repro_torch.runtime.paramstore import ParamStore, save_param_store
 from test_torch_moe_engines import CPU, _cfgs, _spec_setup, _world
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_dense_spec_engine_matches_jax():
     """The dense-cache spec engine, phi3.5-moe (mixtral's dense cache at
     ctx 64 is its rolling window buffer, where a verify pass raises in

@@ -25,6 +25,18 @@ from repro_torch.quant import grouped as T
 from repro_torch.runtime import serve as t_serve
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bits16(a) -> np.ndarray:
     """bf16 bits of a JAX array or a torch tensor, as uint16."""
     if isinstance(a, torch.Tensor):

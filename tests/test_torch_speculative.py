@@ -48,6 +48,18 @@ REL = 2e-4
 B, CTX = 2, 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(arch, n_layers=2, **kw):
     j = dataclasses.replace(get_config(arch).reduced(), n_layers=n_layers,
                             **kw)

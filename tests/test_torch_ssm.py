@@ -65,6 +65,18 @@ REL = 2e-4
 B, CTX = 2, 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(n_layers=None):
     j, t = get_config(ARCH).reduced(), t_get_config(ARCH).reduced()
     if n_layers:

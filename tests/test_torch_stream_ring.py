@@ -50,6 +50,18 @@ FAST = IOPolicy(max_retries=3, backoff_base_s=0.002, backoff_max_s=0.01,
                 op_deadline_s=10.0, get_timeout_s=30.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tests run torch on one thread: under the test runner's
+    parallel workers, torch's default of a thread a core has every
+    worker's threads spin against the others', and these shapes gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture()
 def tmp():
     dirs = []
@@ -265,9 +277,9 @@ def test_driver_ring_path(argv, capsys):
 
 
 def test_driver_refuses_tp():
-    """``--tp`` is layout only on the one card (the JAX driver's default 2
-    runs); a tensor-parallel layout of a stage is refused, and so is a
-    width under 1."""
+    """The one-process ring (the stream section's and failover's) refuses
+    a tensor-parallel layout of a stage (that runs across ranks), and the
+    driver a width under 1."""
     from repro_torch.launch.mesh import make_ring_layout
 
     with pytest.raises(ValueError, match="item 6"):
