@@ -3,7 +3,8 @@
 
 Phase 0  the card (name, power limit), TF32 off.
 Phase 1  build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-         nvcc (sm_90a), one process per source started together, and print
+         nvcc (sm_90a), one process per source (``paged_tiles.cu`` in
+         nine parts, linked into one library) started together, and print
          the build time and ptxas summary.
 Phase 2  hold each kernel against its plain torch version on the card and
          time the kernel, the plain version and one library call that the
@@ -28,6 +29,8 @@ Phase 2  hold each kernel against its plain torch version on the card and
            sums in another order over K <= 13824); the check must reject
            a weight with one group's scale doubled; the library call is
            cuBLAS ``x @ w`` on the weight dequantized beforehand; also at
+           a rank's FFN shard of qwen2.5-14b at tp 2 ((5120, 6912) and
+           (6912, 5120)) at M = 2, the rows phase 18's ring gives it;
            qwen1.5-32b's projection shapes at M = 2 and 10 (its verify),
            mamba2-780m's in_proj and out_proj at M = 1 and 1024, and one
            expert's slice of mixtral-8x7b's and phi3.5-moe's stacks
@@ -73,10 +76,11 @@ Phase 2  hold each kernel against its plain torch version on the card and
            ``library_ms`` is null.
 Phase 3  serve 16 requests (prompts 256-1024, up to 32 new tokens) through
          the paged engine with chunked admission at qwen2.5-14b's full
-         width, 48 layers, bf16, random weights from a seed — then the same
+         width, 24 of its 48 layers, cut for time (``PAGED_LAYERS``; phase
+         13 serves all 48), bf16, random weights from a seed — then the same
          with int8 pages — and show that every chunk and decode step of
          every layer launched its kernel; then the dense-cache engine on
-         the same requests (the ``--check-dense`` path), 48 B5 launches a
+         the same requests (the ``--check-dense`` path), 24 B5 launches a
          decode step. Every engine of phases 3, 5, 7 and 9 replays its
          fixed-shape decode step (and the paged engine its full chunks)
          from CUDA graphs, the port's counterpart of the JAX package's
@@ -98,8 +102,9 @@ Phase 5  the streamed q4 path at full width, all 48 layers, bf16: build
          qwen2.5-14b on the card one layer at a time from a seed, quantize
          each layer there as the serve driver does (and hold layer 0's
          packed bytes against the CPU's), write the ~10 GB q4 layer store
-         to a temporary directory (free space checked first, deleted at
-         the end), then serve 8 requests (prompts 128-512, 8-16 new tokens:
+         to a temporary directory (free space checked first; kept for
+         phases 14 and 18, which serve it, and deleted after phase 18),
+         then serve 8 requests (prompts 128-512, 8-16 new tokens:
          sized to keep the phase near a minute) through the layer-wise
          engine twice — q4 weights resident on the card, then streamed
          from the store with a window of 4 layers — and show 336 B3
@@ -114,10 +119,11 @@ Phase 6  the same path at 3 layers (one past the window of 2), full width,
          every B5 launch too (atol 2e-5), streamed and resident tokens are
          equal, and kernel and plain-version logits agree to 2e-4 of
          max|ref|.
-Phase 7  speculative serve of qwen1.5-32b at full width, 16 of its 64
-         layers (``SPEC_LAYERS``; 40 heads MHA, d_ff 27392, int8 dense
+Phase 7  speculative serve of qwen1.5-32b at full width, 8 of its 64
+         layers, cut for time (``SPEC_LAYERS``; 40 heads MHA,
+         d_ff 27392, int8 dense
          cache): built and quantized on the card one layer at a time into
-         a ~4.5 GB q4 layer store (phase 5's store is gone; free space
+         a ~2.2 GB q4 layer store (beside phase 5's; free space
          checked first; deleted at the end), with a resident bf16 qwen1.5-0.5b draft (24 layers,
          tied embeddings), gamma 4, 2 slots (the verify runs B3 at M = 10,
          its decode kernel), ctx 1024; 4 requests (seed 7), prompts
@@ -129,15 +135,17 @@ Phase 7  speculative serve of qwen1.5-32b at full width, 16 of its 64
          difference there (no flip is possible otherwise), and before any
          split the logits agree to 5e-2 of max|ref| (bf16; the bound was
          set at 64 layers).
-         Asserts per cycle 16 B5 launches at T = 5, 120 at T = 1 (5
-         draft steps x 24 layers) and 112 B3 launches. The resident runs
+         Asserts per cycle 8 B5 launches at T = 5 (a target layer
+         each), 120 at T = 1 (5 draft steps x 24 layers) and 56 B3
+         launches (7 a target layer). The resident runs
          replay the target's step and the draft's from CUDA graphs and run
          again eagerly for phase 12 (equal streams); the vanilla streamed
          run (its layers come in rotating buffers: eager) carries a
          ``Tracer`` and CUDA events around each layer's H2D copy.
          With random weights the draft and target rarely agree: the phase
          shows cost and correctness, not acceptance.
-Phase 8  spec parity at 4 layers, full width, f32 and an f32 cache: (a)
+Phase 8  spec parity at 4 layers, full width, f32 and an f32 cache, 4
+         requests through 4 slots (cut from 8 for time): (a)
          qwen1.5-32b's dense engine with a distinct draft and with a
          perturbed self-draft (the target plus seeded noise, its size
          raised until the acceptance lands in 0.2-0.9); (b) qwen2.5-14b's
@@ -190,7 +198,9 @@ Phase 11 the CI smokes' shapes on the card: the reduced configs (head_dim
          ``--stream-window`` or ``--chaos`` section), each exiting 0 with
          its kernels launched (the ranks' B5-stats launches, which the
          driver prints summed over its ranks, above 0 on every line whose
-         decode ran across ranks),
+         decode ran across ranks; a ``--stream-window`` line's
+         streamed ring and the ``--chaos failover`` line's failover run
+         across those ranks too, and their lines say so),
          and the metrics and trace files the CI validates passing the
          port's validators with the names the CI requires.
 Phase 12 steps replayed from CUDA graphs against eager, recorded in phases
@@ -237,19 +247,20 @@ Phase 13 tiered KV memory at qwen2.5-14b's full width and depth (48
          a pinned buffer and the card), the modeled against measured recall
          seconds (``core.latency.tier_recall_crosscheck``), park, demote
          and restore ms, beside the card's name and power limit.
-Phase 14 the piped ring (PRP) in one process at qwen2.5-14b's full width
-         and depth (48 layers), all 4 stages on the card (seed 0; 8
-         prompts of 512 tokens, drawn as
-         the JAX driver draws its batch (seed 1), prefilled on one
-         device, ctx 1024): (a) bf16, the resident ring
-         at k 1 (w 12) and k 2 (w 6), 32 greedy steps replayed from CUDA
+Phase 14 the piped ring (PRP) in one process at qwen2.5-14b's full width,
+         all 4 stages on the card (seed 0; 8 prompts of 512 tokens, drawn
+         as the JAX driver draws its batch (seed 1), prefilled on one
+         device, ctx 1024): (a) bf16, 16 of the 48 layers, cut for time
+         (``RING_A_LAYERS``), the resident ring
+         at k 1 (w 4) and k 2 (w 2), 32 greedy steps replayed from CUDA
          graphs against the one-device decode of the same cache (streams
          equal but at near ties, phase 7's rule; splits counted), 8 steps
          eager (logits equal to the graphed steps', max|d| 0), a T = 5
-         verify pass against 5 single steps, exactly 192 B5 launches a
-         pass (48 layers x 4 microbatches); (b) phase 5's q4 store (built
-         again from the same seed) at k 2: the resident q4 ring, 32
-         graphed steps (kept, with the store and the prefilled cache, as
+         verify pass against 5 single steps, exactly 64 B5 launches a
+         pass (16 layers x 4 microbatches); (b) phase 5's q4 store (all
+         48 layers, read back from the store phase 5 kept) at k 2: the
+         resident q4 ring, 8 graphed steps (``RANK_STEPS``, cut for
+         time; kept, with the prefilled cache, as
          phase 18 (a)'s reference), and the streamed ring (banks 2 steps
          ahead), 8 steps, equal tokens, exactly 1344 B3 (7 x 192) and 192
          B5 launches a pass; one
@@ -259,7 +270,8 @@ Phase 14 the piped ring (PRP) in one process at qwen2.5-14b's full width
          the worker's staging of each bank (its trace span and the CUDA
          events around its layers' H2D copies), the trace checked; (c)
          stage 2 of that ring killed at the first layer read of the third
-         token's pass (prompts of 4 tokens): ``ElasticRingServer``
+         token's pass (prompts of 4 tokens), in one process (the one-card
+         layout, tp 1): ``ElasticRingServer``
          re-plans the survivors (Halda over the paper cluster's profiles),
          rebuilds, replays; zero tokens lost and the tokens after recovery
          equal a clean survivor-ring run's; the detect, re-solve, rebuild
@@ -271,17 +283,19 @@ Phase 14 the piped ring (PRP) in one process at qwen2.5-14b's full width
 Phase 15 the moe family (mixtral-8x7b: 32 layers, d 4096, 8 experts of
          d_ff 14336, top 2, sliding window 4096; phi3.5-moe: 16 experts of
          d_ff 6400), random weights from a seed: (a) mixtral at published
-         width, 16 of its 32 layers (``MOE_LAYERS``), as a ~12 GB q4 store
+         width, 8 of its 32 layers, cut for time (``MOE_LAYERS``), as a
+         ~6 GB q4 store
          built and quantized on the
          card one layer at a time (every expert stack and the router q4),
          written to a temporary directory; 8 requests (prompts 128-512,
          seed 7, 16 new tokens) through 8 slots, ctx 640, the layer-wise
          engine with the q4 weights resident, then streamed (window 4):
-         exactly (4 + 3 x 8) x 16 = 448 B3 launches a pass (each expert's
-         slice at M = C) and 16 B5 a decode step, peak under 5 layers,
-         equal streams; (c) the resident q4 bank over 4 stages at k 1, 8
-         rows, 8 graphed steps against the one-device decode (phase 7's
-         near-tie rule), 3584 B3 and 128 B5 a pass exactly, one eager
+         exactly (4 + 3 x 8) x 8 = 224 B3 launches a pass (each expert's
+         slice at M = C) and 8 B5 a decode step, peak under 5 layers,
+         equal streams; (c) the resident q4 bank over 4 stages at k 1, 2
+         rows a stage, 8 graphed steps against the one-device decode
+         (phase 7's near-tie rule), 28 x 8 x 4 = 896 B3 and 32 B5 a pass
+         exactly, one eager
          step with every B3 launch held against its plain version; (b)
          mixtral at full width, 8 of 32 layers, bf16 (23 GB), through
          the paged engine (8 slots, ctx 2048, 16-token pages, 256-token
@@ -298,8 +312,9 @@ Phase 15 the moe family (mixtral-8x7b: 32 layers, d 4096, 8 experts of
          mixtral in q4 over it. Its numbers again beside the card's name
          and power limit.
 Phase 16 the four families left, random weights from a seed: (a)
-         minicpm3-4b (MLA) at published width, 31 of its 62 layers
-         (``MLA_LAYERS``; d 2560, bf16) through phase 3's paged mix on
+         minicpm3-4b (MLA) at published width, 8 of its 62 layers, cut
+         for time (``MLA_LAYERS``; d 2560, bf16) through phase
+         3's paged mix on
          latent pages,
          graphed and eager (no B-kernel launch: MLA attention is plain
          torch, as in the reference), the dense-cache engine on the same
@@ -335,15 +350,16 @@ Phase 16 the four families left, random weights from a seed: (a)
 
 Phase 17 training on the card, f32, TF32 off, random weights from a seed,
          through ``repro_torch.launch.train.run`` (the train loop):
-         (a) qwen2.5-14b at full width, 2 of its 48 layers
-         (``QWEN_TRAIN_LAYERS``; 2.108 B params; params, grads and two
-         moments 33.7 GB), batch 8 x 128: 20 steps with one checkpoint,
-         at step 20 (the JAX layout, 25.3 GB, in the temp dir), then
-         ``--resume`` to 30, beside an uninterrupted 30-step run:
-         finite losses, the mean of steps 16-20 below the first, steps
-         21-30 within 1e-3 relative of the uninterrupted run's; (b)
-         mamba2-780m at full width and depth, batch 4 x 1024, 10 steps:
-         exactly 480 B6 launches (48 a step: its backward recomputes the
+         (a) qwen2.5-14b at full width, 1 of its 48 layers, cut for time
+         (``QWEN_TRAIN_LAYERS``; 1.832 B params; params,
+         grads and two moments 29.3 GB), batch 8 x 128: 6 steps with one
+         checkpoint, at step 6 (the JAX layout, ~22 GB, in the temp
+         dir), then
+         ``--resume`` to 10, beside an uninterrupted 10-step run:
+         finite losses, the mean of steps 4-6 below the first, steps
+         7-10 within 1e-3 relative of the uninterrupted run's; (b)
+         mamba2-780m at full width and depth, batch 4 x 1024, 5 steps:
+         exactly 240 B6 launches (48 a step: its backward recomputes the
          plain scan) and nothing else; each run's step ms between syncs,
          tokens/s and ``max_memory_allocated`` against 16 B a param; (c)
          one train step of mamba2-780m at 4 layers with B6 against
@@ -357,18 +373,31 @@ Phase 17 training on the card, f32, TF32 off, random weights from a seed,
          fail the gradient check; and a qwen2.5-14b-width step's
          gradients with remat against without, within 1e-5.
 
-Phase 18 the ring across ranks (PR 24): 4 stages x tp 2 = 8 rank
+Phase 18 the ring across ranks, resident, streamed and through a
+         failover: 4 stages x tp 2 = 8 rank
          processes on the card (``launch.mesh.RankWorld``, gloo, one torch
          thread a rank), each reading only its part of a layer store: (a)
-         qwen2.5-14b at full width and depth from phase 14 (b)'s q4 store
-         and prefilled cache (batch 8, prompts of 512, ctx 1024), 32
-         greedy steps at k 2 then 4 T = 5 verify passes, against phase 14
+         qwen2.5-14b at full width and depth from phase 5's q4 store and
+         phase 14 (b)'s prefilled cache (batch 8, prompts of 512, ctx
+         1024), 8 greedy steps at k 2 (``RANK_STEPS``, cut for time)
+         then 4 T = 5 verify passes, against phase 14
          (b)'s one-process resident ring on the same store (streams equal
          but at near ties, phase 7's rule; every rank the same tokens); (c)
-         exactly 1536 B5-stats and 10752 B3 launches a rank (48 layer
-         rows x 32 steps, x 7 projections), nothing else; (d) rank 0's
+         exactly 384 B5-stats and 2688 B3 launches a rank (48 layer
+         rows x 8 steps, x 7 projections), nothing else; (d) rank 0's
          step and verify ms and the step's share in the collectives and
-         their host staging (``comms`` phases on the ``comm`` track); (b)
+         their host staging (``comms`` phases on the ``comm`` track); (e)
+         the streamed ring across the same 8 ranks over the same store at
+         full width and depth, k 2, one window staged at a time (depth 1),
+         8 greedy steps from (a)'s cache (``serve.rank_stream_job``: each
+         rank stages only its stage's 12 rows, a window of 6 at a time, and
+         of each only its part of every leaf): tokens
+         and logits equal to (a)'s eager resident steps (max|d| 0) on every
+         rank, exactly 384 B5-stats and 2688 B3 launches a rank, each
+         rank's bytes read a pass equal to its rows' local shards, its peak
+         staged bytes at most one window's (half its resident rows), its
+         stall, rank 0's
+         streamed step against (a)'s resident one; (b)
          4 layers at full width, f32, an f32 and an int8 cache: the
          ranks' logits (kernels) against the one-process ring on
          ``use_kernels(False)`` within 2e-4 of max|ref| with equal tokens
@@ -377,7 +406,21 @@ Phase 18 the ring across ranks (PR 24): 4 stages x tp 2 = 8 rank
          (x after each layer, the
          merged attention, the final hiddens) equal to the bit across a
          stage's members on every rank, and the negative control (members
-         merging without their shard's offset) failing. Its numbers again
+         merging without their shard's offset) failing; (g) the streamed
+         ring across the ranks on (b)'s f32 store and cache, within 2e-4 of
+         max|ref| of the one-process ring on ``use_kernels(False)`` with
+         equal tokens at every step and equal to (b)'s resident ranks
+         (max|d| 0); (f) failover across ranks: qwen2.5-14b at full width
+         from the first 8 of the store's 48 layers (``FAILOVER_LAYERS``,
+         cut for time: the phase is world starts and replays), the same 8
+         ranks, prompts of 4 tokens, 6 new tokens, through the driver's
+         ``--chaos failover`` (``serve_failover``): stage 1's first rank
+         ``SIGKILL``ed as the third token's pass starts, the death
+         attributed to stage 1, the survivors re-planned and re-spawned as
+         2 stages x tp 2 = 4 ranks that replay the history, zero tokens
+         lost and the tokens after recovery equal to a clean 4-rank run's
+         fed the same history (on the survivors' world); the detect,
+         re-solve, rebuild and replay split printed. Its numbers again
          beside the card's name and power limit.
 
 Prints the card's name and power limit again, the kernels' JSON line, then
@@ -440,7 +483,7 @@ class Timer:
     """Median device time of one call, each launch after an L2 flush (the
     main path meets each layer's pages cold: a layer pool outgrows L2)."""
 
-    def __init__(self, torch, reps: int = 25):
+    def __init__(self, torch, reps: int = 10):
         self.torch = torch
         self.reps = reps
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -763,6 +806,11 @@ Q4_MS_MOE = (8, 160, 256)
 #: prefill, as phase 9's q4 runs launch them
 Q4_SHAPES_SSM = ((1536, 6448), (3072, 1536))
 Q4_MS_SSM = (1, 1024)
+#: B3 at a rank's FFN shard of qwen2.5-14b at tp 2 (w_gate/w_up and
+#: w_down, d_ff split over the two members) and M = B/M = 2, the rows a
+#: microbatch of phase 18's ring across ranks gives it
+Q4_SHAPES_RANK = ((5120, 6912), (6912, 5120))
+Q4_MS_RANK = (2,)
 Q4_GROUP = 64
 #: the JSON row: a decode step of 8 slots at w_gate / w_up, bf16 x
 Q4_ROW = (8, 5120, 13824)
@@ -808,7 +856,8 @@ def check_q4(torch, timer, rng):
     cases = [(K, N, Q4_MS) for K, N in Q4_SHAPES] + \
         [(K, N, Q4_MS_32B) for K, N in Q4_SHAPES_32B] + \
         [(K, N, Q4_MS_SSM) for K, N in Q4_SHAPES_SSM] + \
-        [(K, N, Q4_MS_MOE) for K, N in Q4_SHAPES_MOE]
+        [(K, N, Q4_MS_MOE) for K, N in Q4_SHAPES_MOE] + \
+        [(K, N, Q4_MS_RANK) for K, N in Q4_SHAPES_RANK]
     for K, N, m_list in cases:
         w = torch.from_numpy(rng.standard_normal(
             (K, N), dtype=np.float32)).cuda() / np.sqrt(K)
@@ -1450,6 +1499,9 @@ def check_ssd(torch, timer, rng):
 #  phases 3 and 4
 # --------------------------------------------------------------------------- #
 
+#: phase 3's depth: 24 of qwen2.5-14b's 48 layers (cut for time; phases
+#: 5, 13, 14 (b) and 18 run all 48)
+PAGED_LAYERS = 24
 SERVE_ARGS = ["--arch", "qwen2.5-14b", "--batch", "8", "--ctx", "2048",
               "--page-tokens", "16", "--prefill-chunk", "256",
               "--prompt-len", "256", "--prompt-len-max", "1025",
@@ -1483,7 +1535,8 @@ def serve_full(torch, ops, serve):
     ops.reset_launch_counts()
     deltas = {}
     for quant in (False, True):
-        argv = SERVE_ARGS + ["--dtype", "bf16"]     # all 48 layers
+        argv = SERVE_ARGS + ["--dtype", "bf16", "--layers",
+                             str(PAGED_LAYERS)]
         if quant:
             argv.append("--kv-quant-kernel")
         args = serve.parse_args(argv)
@@ -2153,8 +2206,17 @@ def stream_summary(name, res, resident_bytes):
         f"stall {stall * 1e3:.1f} ms, {read / 1e6:.1f} MB read")
 
 
+#: phase 5's seed-0 q4 store of qwen2.5-14b (48 layers, bf16), kept for
+#: phase 14 (b) and phase 18, which serve the same store (removed after
+#: phase 18, or at exit)
+STORE_14B = {}
+
+
 def serve_streamed_full(torch, ops, serve):
-    """Phase 5; returns the streamed run's launch counts."""
+    """Phase 5; returns the streamed run's launch counts. Its store stays
+    for phases 14 and 18 (``STORE_14B``)."""
+    import atexit
+
     from repro_torch.configs import get_config
     from repro_torch.runtime.paramstore import ParamStore, ResidentSource
     from repro_torch.runtime.streaming import StreamingParamSource
@@ -2162,6 +2224,8 @@ def serve_streamed_full(torch, ops, serve):
     args = serve.parse_args(STREAM_ARGS + ["--dtype", "bf16"])
     cfg = get_config(args.arch)                # full width, all 48 layers
     sdir, tree = write_store(torch, cfg, torch.bfloat16, seed=0)
+    atexit.register(shutil.rmtree, sdir, True)
+    kept = False
     try:
         store = ParamStore(sdir)
         nbytes = store.layer_nbytes
@@ -2233,9 +2297,35 @@ def serve_streamed_full(torch, ops, serve):
                                  f"resident run's for uids {bad}")
         log(f"  streamed and resident tokens equal for {len(reqs)} "
             f"requests")
+        STORE_14B.update(dir=sdir, n_layers=cfg.n_layers)
+        kept = True
     finally:
-        shutil.rmtree(sdir, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(sdir, ignore_errors=True)
     return counts["streamed"]
+
+
+def reuse_store(torch, cfg):
+    """Phase 5's store (``STORE_14B``) and its tree on the card, read back
+    from it: the store phase 14 (b) would build again from the same seed
+    (a ~16 s build)."""
+    from repro_torch.quant import map_tree
+    from repro_torch.runtime.paramstore import ParamStore, stack_layers
+
+    if STORE_14B.get("n_layers") != cfg.n_layers:
+        raise AssertionError(f"phase 5's store holds "
+                             f"{STORE_14B.get('n_layers')} layers, "
+                             f"phase 14 serves {cfg.n_layers}")
+    t0 = time.perf_counter()
+    with ParamStore(STORE_14B["dir"]) as store:
+        head = map_tree(lambda t: t.cuda(), store.head())
+        tree = dict(head, blocks=stack_layers([
+            map_tree(lambda t: t.cuda(), store.layer(i))
+            for i in range(store.n_layers)]))
+    torch.cuda.synchronize()
+    log(f"  phase 5's q4 store ({cfg.n_layers} layers) read back to the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    return STORE_14B["dir"], tree
 
 
 def logged_run(torch, eng, prefill_name, cache, reqs):
@@ -2369,12 +2459,12 @@ SPEC_ARGS = ["--arch", "qwen1.5-32b", "--batch", "2", "--ctx", "1024",
 #: before any split, as a fraction of max|logit| (about 13 bf16 ulps,
 #: 2^-8 each, of the largest logit)
 SPEC_BF16_REL = 5e-2
-#: phase 7's depth: 32 of qwen1.5-32b's 64 layers, cut so that the whole
-#: script, phase 17's training included, stays inside its time limit
-#: (the two streamed runs and the store scale with the depth: 64 layers
-#: took 131-158 s of the phase)
-SPEC_LAYERS = 16
-PARITY_ARGS = ["--batch", "4", "--ctx", "1024", "--requests", "8",
+#: phase 7's depth: 8 of qwen1.5-32b's 64 layers (twice its streamed
+#: window of 4), cut so that the whole script stays inside its time
+#: limit (the two streamed runs and the store scale with the depth: 64
+#: layers took 131-158 s of the phase)
+SPEC_LAYERS = 8
+PARITY_ARGS = ["--batch", "4", "--ctx", "1024", "--requests", "4",
                "--prompt-len", "128", "--prompt-len-max", "513",
                "--new-tokens", "16", "--seed", "0", "--dtype", "f32",
                "--layers", "4"]
@@ -3385,6 +3475,14 @@ def ci_smokes() -> None:
                     raise AssertionError(f"{label}: the ranks never "
                                          f"launched B5-stats ({summed})")
                 ranked = f"; the ranks' launches summed {summed}"
+                # the stream and failover sections across the same ranks
+                want = [w for flag, w in (
+                    ("--stream-window", "streamed ring across 8 ranks"),
+                    ("failover", "ring across 4 x 2 ranks -> 2 x 2"))
+                    if flag in cmd]
+                if any(w not in out for w in want):
+                    raise AssertionError(f"{label}: no {want} in its "
+                                         f"output")
             checks = [ln.strip() for ln in out.splitlines()
                       if "identical" in ln]
             if "--device-budget" in cmd and label.startswith("("):
@@ -3453,12 +3551,16 @@ def report_graphs() -> None:
                 f"{w['idle']:.3f}; trace {w['trace']}")
             log(f"    top device ops (ms): {w['top_device']}")
             log(f"    top host ops (self ms, calls): {w['top_host']}")
-    want = {"paged_verify": 2688, "paged_prefill": 2160}
+    # phase 3's schedule: 56 decode steps and 45 prompt chunks, each
+    # launching one kernel a layer (2688 and 2160 at 48 layers)
+    want = {"paged_verify": 56 * PAGED_LAYERS,
+            "paged_prefill": 45 * PAGED_LAYERS}
+    want_b4 = want["paged_verify"] + want["paged_prefill"]
     bf16 = {k: paged["bf16"]["launches"][k] for k in want}
     int8 = paged["int8"]["launches"]["paged_verify_quant"]
     log(f"  exact launch counts under graphs: bf16 {bf16}, int8 B4 {int8} "
-        f"(phase 3's before graphs: {want}, 4848)")
-    if bf16 != want or int8 != 4848:
+        f"(phase 3's before graphs: {want}, {want_b4})")
+    if bf16 != want or int8 != want_b4:
         raise AssertionError("graphed launch counts differ from phase 3's "
                              "exact counts before graphs")
     spec = PHASE12["spec"]
@@ -3926,13 +4028,17 @@ def report_tiers() -> None:
 RING_ARGS = ["--arch", "qwen2.5-14b", "--batch", "8", "--ctx", "1024",
              "--prompt-len", "512", "--new-tokens", "32", "--seed", "0",
              "--stages", "4"]
-#: phase 14's depth: all of qwen2.5-14b's 48 layers
+#: phase 14 (b)-(c)'s depth: all of qwen2.5-14b's 48 layers (phase 5's
+#: store, which phase 18 serves too)
 RING_LAYERS = 48
 #: B5 launches a ring pass: every layer of every microbatch (4 stages)
 RING_B5 = RING_LAYERS * 4
+#: phase 14 (a)'s depth, cut for time: the bf16 resident ring
+RING_A_LAYERS = 16
+RING_A_B5 = RING_A_LAYERS * 4
 #: greedy steps of phase 14 (b)'s resident q4 ring, the reference of phase
-#: 18 (a)'s ranks on the same store
-RANK_STEPS = 32
+#: 18 (a)'s ranks on the same store (cut for time)
+RANK_STEPS = 8
 #: phase 14's record, printed at its end beside the card
 RING = {}
 #: phase 14 (b)'s store, prefilled cache and resident ring run, for
@@ -3965,7 +4071,7 @@ def ring_resident(torch, ops, serve):
     from repro_torch.runtime.serve import RingPlan, RingServeStep, ring_params
 
     args = serve.parse_args(RING_ARGS + ["--dtype", "bf16", "--layers",
-                                         str(RING_LAYERS)])
+                                         str(RING_A_LAYERS)])
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     cfg, params = serve.build_model(args)
@@ -3990,14 +4096,14 @@ def ring_resident(torch, ops, serve):
         ops.reset_launch_counts()
         run = serve.greedy_steps(step, serve.to_ring_cache(cache, cfg, plan),
                                  nxt, n, dev, keep=True)
-        launched(ops, {"flash_verify": RING_B5 * n}, f"ring k={k} graphed")
+        launched(ops, {"flash_verify": RING_A_B5 * n}, f"ring k={k} graphed")
         graphed_ms = 1e3 * float(np.median(run["step_s"][1:]))
         worst, n_equal, splits = near_tie_only(
             f"ring k={k} against the one-device decode", by_row(run),
             by_row(one), SPEC_BF16_REL)
         log(f"  ring k={k} (w {plan.w}, M 4), graphed: step p50 "
             f"{graphed_ms:.2f} ms against the one-device step's "
-            f"{one_ms:.2f} ms; {RING_B5 * n} B5 launches ({RING_B5} a step "
+            f"{one_ms:.2f} ms; {RING_A_B5 * n} B5 launches ({RING_A_B5} a step "
             f"x {n}); streams equal to the one-device decode's for "
             f"{n_equal} of 8 rows, logits within {worst:.3g} of max|ref| up"
             f" to each row's first difference; splits (row, token, top-2 "
@@ -4010,7 +4116,7 @@ def ring_resident(torch, ops, serve):
         ops.reset_launch_counts()
         erun = serve.greedy_steps(eager, serve.to_ring_cache(cache, cfg, plan),
                                   nxt, n_eager, dev, keep=True)
-        launched(ops, {"flash_verify": RING_B5 * n_eager},
+        launched(ops, {"flash_verify": RING_A_B5 * n_eager},
                  f"ring k={k} eager")
         d = max(float((a - b).abs().max())
                 for a, b in zip(erun["logits"], run["logits"]))
@@ -4036,7 +4142,7 @@ def ring_resident(torch, ops, serve):
             vstep(vc, vt)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t1)
-        launched(ops, {"flash_verify": RING_B5 * 6}, f"ring k={k} verify")
+        launched(ops, {"flash_verify": RING_A_B5 * 6}, f"ring k={k} verify")
         verify_ms = 1e3 * float(np.median(times[1:]))
         log(f"  ring k={k}, eager: step p50 {eager_ms:.2f} ms; logits max|d| "
             f"{d} against the graphed steps ({n_eager} steps); verify pass "
@@ -4081,11 +4187,9 @@ def bank_copies(torch):
 def ring_streamed(torch, ops, serve):
     """Phase 14 (b) and (c): phase 5's q4 store through the resident and
     the streamed ring (M 4, k 2, banks 2 steps ahead), then a stage killed
-    mid-decode. The store, the prefilled cache and the resident ring's
-    ``RANK_STEPS`` steps stay for phase 18 (a) (``RANK_REF``; the store
-    is removed at exit if phase 18 does not take it)."""
-    import atexit
-
+    mid-decode, in one process. The store (phase 5's, read back), the
+    prefilled cache and the resident ring's ``RANK_STEPS`` steps stay for
+    phase 18 (``RANK_REF``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.profiles import (paper_table2_cluster,
                                            profile_from_config)
@@ -4102,8 +4206,7 @@ def ring_streamed(torch, ops, serve):
     n = 8
     args = serve.parse_args(RING_ARGS + ["--dtype", "bf16", "--ring-k", "2",
                                          "--new-tokens", str(n)])
-    sdir, tree = write_store(torch, cfg, torch.bfloat16, 0)
-    atexit.register(shutil.rmtree, sdir, True)
+    sdir, tree = reuse_store(torch, cfg)
     kept = False
     try:
         q4_bytes = sum(t.numel() * t.element_size()
@@ -4217,10 +4320,10 @@ def ring_streamed(torch, ops, serve):
         fargs = serve.parse_args(["--arch", "qwen2.5-14b", "--batch", "8",
                                   "--ctx", "64", "--prompt-len", "4",
                                   "--new-tokens", "6", "--seed", "0",
-                                  "--stages", "4", "--ring-k", "2",
-                                  "--dtype", "bf16"])
+                                  "--stages", "4", "--tp", "1",
+                                  "--ring-k", "2", "--dtype", "bf16"])
         fo = serve.serve_failover(
-            sdir, cfg, fargs, stage=2,
+            sdir, cfg, fargs, stage=2, ranks=False,
             device_profiles=paper_table2_cluster(),
             model_profile=profile_from_config(cfg))
         ev = fo["event"]
@@ -4359,8 +4462,9 @@ def report_ring() -> None:
 
 MOE_ARCH = "mixtral-8x7b"
 MOE_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
-#: (a) and (c): the depth of the q4 store (mixtral has 32 layers)
-MOE_LAYERS = 16
+#: (a) and (c): the depth of the q4 store (mixtral has 32 layers; cut
+#: for time)
+MOE_LAYERS = 8
 #: (a): phase 5's mix at mixtral's published width
 MOE_STREAM_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "640",
                    "--requests", "8", "--prompt-len", "128",
@@ -4372,11 +4476,12 @@ MOE_RING_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "640",
                  "--prompt-len", "128", "--new-tokens", "8", "--seed", "0",
                  "--stages", "4"]
 #: (b): phase 3's mix, 8 of mixtral's 32 layers in bf16
+MOE_PAGED_LAYERS = 8
 MOE_PAGED_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "2048",
                   "--page-tokens", "16", "--prefill-chunk", "256",
                   "--prompt-len", "256", "--prompt-len-max", "1025",
                   "--requests", "16", "--new-tokens", "32", "--seed", "0",
-                  "--layers", "8", "--dtype", "bf16"]
+                  "--layers", str(MOE_PAGED_LAYERS), "--dtype", "bf16"]
 #: (d): 4 layers at full width, f32
 MOE_PARITY_ARGS = ["--batch", "4", "--ctx", "512", "--page-tokens", "16",
                    "--prefill-chunk", "128", "--prompt-len", "64",
@@ -4565,7 +4670,8 @@ def moe_paged_run(torch, ops, params, cfg, reqs, args, graphs):
 
 
 def moe_paged(torch, ops, serve):
-    """Phase 15 (b): 8 of mixtral's 32 layers in bf16 through the paged
+    """Phase 15 (b): ``MOE_PAGED_LAYERS`` of mixtral's 32 layers in bf16
+    through the paged
     engine, graphed against eager. Every prompt chunk launches B2 once a
     layer and every decode step B1 once a layer, exactly; streams equal,
     logits max|d| between the two printed. Returns the graphed run's
@@ -4786,8 +4892,8 @@ def report_moe() -> None:
 # --------------------------------------------------------------------------- #
 
 MLA_ARCH, VLM_ARCH = "minicpm3-4b", "qwen2-vl-2b"
-#: (a)'s depth: 31 of minicpm3-4b's 62 layers
-MLA_LAYERS = 31
+#: (a)'s depth: 8 of minicpm3-4b's 62 layers (cut for time)
+MLA_LAYERS = 8
 HYB_ARCH, AUD_ARCH = "recurrentgemma-9b", "whisper-tiny"
 #: phase 3's paged mix, for any --arch
 PAGED_MIX = ["--batch", "8", "--ctx", "2048", "--page-tokens", "16",
@@ -5543,12 +5649,18 @@ def report_fam() -> None:
 TRAIN = {}
 #: phase 17's runs: (a) qwen2.5-14b at full width, ``QWEN_TRAIN_LAYERS``
 #: layers; (b) mamba2-780m at full width and depth
-QWEN_TRAIN_LAYERS = 2
+QWEN_TRAIN_LAYERS = 1
+#: (a)'s checkpoint step and steps in all: the checkpoint's ~22 GB written
+#: and read back take most of the phase, the steps ~0.24 s each
+QWEN_CKPT_STEP, QWEN_STEPS = 6, 10
+#: (b)'s steps (cut for time; B6 launches once a layer a step)
+MAMBA_STEPS = 5
 QWEN_TRAIN = ["--arch", "qwen2.5-14b", "--n-layers", str(QWEN_TRAIN_LAYERS),
               "--batch", "8", "--seq", "128", "--device", "cuda", "--seed",
               "0"]
 MAMBA_TRAIN = ["--arch", "mamba2-780m", "--batch", "4", "--seq", "1024",
-               "--steps", "10", "--ckpt-every", "1000", "--device", "cuda",
+               "--steps", str(MAMBA_STEPS), "--ckpt-every", "1000",
+               "--device", "cuda",
                "--seed", "0"]
 
 
@@ -5583,46 +5695,47 @@ def trained(torch, LT, argv):
 
 def train_qwen(torch, ops) -> None:
     """(a) qwen2.5-14b at full width, ``QWEN_TRAIN_LAYERS`` of 48 layers,
-    f32: 20 steps with one checkpoint, at step 20, then ``--resume`` to
-    30, beside one uninterrupted 30-step run. One checkpoint (params and
-    two f32 moments) is all the resume needs; a second would double the
-    disk the run writes."""
+    f32: ``QWEN_CKPT_STEP`` steps with one checkpoint, at the last, then
+    ``--resume`` to ``QWEN_STEPS``, beside one uninterrupted run of
+    ``QWEN_STEPS``. One checkpoint (params and two f32 moments) is all the
+    resume needs; a second would double the disk the run writes."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as LT
 
     cfg = dataclasses.replace(get_config("qwen2.5-14b"),
                               n_layers=QWEN_TRAIN_LAYERS)
     n = cfg.total_params()
+    c, n_steps = QWEN_CKPT_STEP, QWEN_STEPS
     d = tempfile.mkdtemp(prefix="chip_smoke_train_")
     log(f"  {n / 1e9:.3f} B params; a checkpoint of {12 * n / 1e9:.1f} GB "
         f"in {d} ({shutil.disk_usage(d).free / 1e9:.1f} GB free)")
     try:
         t0 = time.perf_counter()
         first = trained(torch, LT, QWEN_TRAIN + [
-            "--steps", "20", "--ckpt-every", "20", "--ckpt-dir", d])
+            "--steps", str(c), "--ckpt-every", str(c), "--ckpt-dir", d])
         resumed = trained(torch, LT, QWEN_TRAIN + [
-            "--steps", "30", "--ckpt-every", "1000", "--resume",
+            "--steps", str(n_steps), "--ckpt-every", "1000", "--resume",
             "--ckpt-dir", d])
         straight = trained(torch, LT, QWEN_TRAIN + [
-            "--steps", "30", "--ckpt-every", "1000", "--ckpt-dir",
+            "--steps", str(n_steps), "--ckpt-every", "1000", "--ckpt-dir",
             os.path.join(d, "straight")])
         wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(d, ignore_errors=True)
     args = LT.parse_args(QWEN_TRAIN)
     rows = {k: train_line(f"(a) {k}", r, args, 16 * n)
-            for k, r in (("first 20", first), ("resumed to 30", resumed),
-                         ("straight 30", straight))}
+            for k, r in ((f"first {c}", first),
+                         (f"resumed to {n_steps}", resumed),
+                         (f"straight {n_steps}", straight))}
     head = first["losses"]
-    assert np.mean(head[15:20]) < head[0], (head[0], head[15:20])
-    assert resumed["start"] == 20 and len(resumed["losses"]) == 10
-    rel = np.abs(np.asarray(resumed["losses"])
-                 - np.asarray(straight["losses"][20:30])) \
-        / np.abs(np.asarray(straight["losses"][20:30]))
-    log(f"  (a) loss {head[0]:.4f} -> {np.mean(head[15:20]):.4f} (mean of "
-        f"steps 16-20); steps 21-30 resumed against uninterrupted: largest "
-        f"relative difference {rel.max():.3g} (limit 1e-3); the three runs "
-        f"{wall:.1f} s")
+    assert np.mean(head[c - 3:c]) < head[0], (head[0], head[c - 3:c])
+    assert resumed["start"] == c and len(resumed["losses"]) == n_steps - c
+    tail = np.asarray(straight["losses"][c:n_steps])
+    rel = np.abs(np.asarray(resumed["losses"]) - tail) / np.abs(tail)
+    log(f"  (a) loss {head[0]:.4f} -> {np.mean(head[c - 3:c]):.4f} (mean of "
+        f"steps {c - 2}-{c}); steps {c + 1}-{n_steps} resumed against "
+        f"uninterrupted: largest relative difference {rel.max():.3g} (limit "
+        f"1e-3); the three runs {wall:.1f} s")
     assert rel.max() <= 1e-3, rel
     TRAIN["qwen"] = dict(rows, resume_rel=float(rel.max()),
                          ckpt_s=first["ckpt_s"],
@@ -5631,8 +5744,8 @@ def train_qwen(torch, ops) -> None:
 
 
 def train_mamba(torch, ops) -> None:
-    """(b) mamba2-780m at full width and depth, f32: 10 steps of batch 4
-    x 1024; B6 launches once a layer a step (its backward recomputes the
+    """(b) mamba2-780m at full width and depth, f32: ``MAMBA_STEPS`` steps
+    of batch 4 x 1024; B6 launches once a layer a step (its backward recomputes the
     plain scan)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as LT
@@ -5649,7 +5762,7 @@ def train_mamba(torch, ops) -> None:
     row = train_line("(b) mamba2-780m", res, LT.parse_args(MAMBA_TRAIN),
                      16 * n)
     want = dict.fromkeys(counts, 0)
-    want["ssd_scan"] = cfg.n_layers * 10
+    want["ssd_scan"] = cfg.n_layers * MAMBA_STEPS
     log(f"  (b) launches {counts} (want {want['ssd_scan']} B6)")
     assert counts == want, counts
     TRAIN["mamba"] = dict(row, launches=counts["ssd_scan"],
@@ -5821,8 +5934,17 @@ def report_train() -> None:
 # --------------------------------------------------------------------------- #
 
 RANK_JOB = "repro_torch.runtime.serve:rank_ring_job"
+RANK_STREAM_JOB = "repro_torch.runtime.serve:rank_stream_job"
 #: ranks: 4 stages x tp 2, every rank on the one card
 RANK_STAGES, RANK_TP = 4, 2
+#: phase 18 (e): greedy steps of the streamed ring across the ranks
+STREAM_RANK_STEPS = 8
+#: phase 18 (e)'s windows staged at a time (the window in use counts):
+#: one of its k 2, so the peak staged is half the resident rows
+STREAM_RANK_DEPTH = 1
+#: phase 18 (f)'s depth: the first layers of phase 5's store (the phase's
+#: time is three worlds' starts and two replays, which grow with depth)
+FAILOVER_LAYERS = 8
 #: phase 18's record, printed at its end beside the card
 RANKS = {}
 
@@ -5864,16 +5986,14 @@ def ranks_full(torch, world):
     cfg = get_config("qwen2.5-14b")
     ref = RANK_REF
     n = RANK_STEPS
-    try:
-        t0 = time.perf_counter()
-        ranks = world.run(RANK_JOB, cfg=cfg, n_stages=RANK_STAGES,
-                          tp=RANK_TP, k=ref["k"], store=ref["store"],
-                          cache=ref["cache"], first=ref["first"], steps=n,
-                          verify_tokens=5, verify_reps=4, keep_logits=True,
-                          trace=True)
-        wall = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(ref["store"], ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = world.run(RANK_JOB, cfg=cfg, n_stages=RANK_STAGES,
+                      tp=RANK_TP, k=ref["k"], store=ref["store"],
+                      cache=ref["cache"], first=ref["first"], steps=n,
+                      verify_tokens=5, verify_reps=4, keep_logits=True,
+                      trace=True)
+    wall = time.perf_counter() - t0
+    RANKS["a_ranks"] = ranks
     ref_ms = ref["ms"]
     want = {"tokens": ref["tokens"],
             "logits": [lg.cuda() for lg in ref["logits"]]}
@@ -5915,6 +6035,155 @@ def ranks_full(torch, world):
         f"({PROJECTIONS} projections x {L}), none else; over the 8 ranks "
         f"{total}")
     return total
+
+
+def ranks_streamed(torch, world):
+    """Phase 18 (e): the streamed ring across the same 8 ranks over phase
+    5's q4 store at full width and depth, k 2, ``STREAM_RANK_STEPS``
+    greedy steps from (a)'s prefilled cache: each rank stages only its
+    stage's windows and its part of each leaf, ``STREAM_RANK_DEPTH``
+    windows at a time. Tokens and logits equal (a)'s eager resident rank
+    steps from the same cache (max|d| 0) on every rank, exact launches a
+    rank, each rank's peak staged bytes at most its windows'; returns the
+    launches summed over the ranks."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2.5-14b")
+    ref, a = RANK_REF, RANKS["a_ranks"]
+    n = STREAM_RANK_STEPS
+    t0 = time.perf_counter()
+    ranks = world.run(RANK_STREAM_JOB, cfg=cfg, n_stages=RANK_STAGES,
+                      tp=RANK_TP, k=ref["k"], store=ref["store"],
+                      cache=ref["cache"], first=ref["first"], steps=n,
+                      keep_logits=True, depth=STREAM_RANK_DEPTH)
+    wall = time.perf_counter() - t0
+    worst = 0.0
+    for r, res in zip(ranks, a):
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]) \
+                or not np.array_equal(r["tokens"], res["tokens"][:n]):
+            raise AssertionError(f"(e) rank {r['rank']}: streamed tokens "
+                                 f"differ from the ranks' or from (a)'s")
+        for lg, want in zip(r["logits"], res["logits"]):
+            worst = max(worst, float(np.abs(lg - want).max()))
+        if r["nbytes"] != res["nbytes"]:
+            raise AssertionError(f"(e) rank {r['rank']}: its share "
+                                 f"{r['nbytes']} B streamed, {res['nbytes']}"
+                                 f" B resident")
+    if worst != 0.0 or len(ranks[0]["logits"]) != n:
+        raise AssertionError(f"(e) streamed logits differ from (a)'s "
+                             f"resident steps: max|d| {worst}")
+    L = ref["L"]
+    total = rank_launches(ranks, {"flash_verify_stats": L * n,
+                                  "q4_matmul": PROJECTIONS * L * n},
+                          "phase 18 (e)")
+    plan_rows = L // RANK_STAGES
+    held = STREAM_RANK_DEPTH * plan_rows // ref["k"]
+    lines = []
+    for r in ranks:
+        pf = r["prefetch"]
+        own = plan_rows * pf["row_nbytes"]
+        if pf["bytes_a_pass"] != own or pf["passes"] != n:
+            raise AssertionError(f"(e) rank {r['rank']} read "
+                                 f"{pf['bytes_a_pass']} B a pass, its "
+                                 f"{plan_rows} rows' parts are {own} B")
+        if pf["peak_staged_bytes"] > held * pf["row_nbytes"]:
+            raise AssertionError(f"(e) rank {r['rank']} staged "
+                                 f"{pf['peak_staged_bytes']} B at its peak, "
+                                 f"more than {held} rows")
+        lines.append(f"rank {r['rank']}: {pf['bytes_a_pass'] / 1e9:.3f} GB "
+                     f"a pass = its local shards of {plan_rows} rows, peak "
+                     f"staged {pf['peak_staged_bytes'] / 1e9:.3f} GB "
+                     f"({pf['peak_staged_bytes'] / own:.3f} of its resident "
+                     f"rows), stall {pf['stall_s']:.3f} s")
+    r0 = ranks[0]
+    step_ms = 1e3 * float(np.median(r0["step_s"][1:]))
+    res_ms = RANKS["a"]["step_ms"]
+    RANKS["e"] = dict(step_ms=step_ms, res_ms=res_ms, wall=wall,
+                      gb=r0["prefetch"]["bytes_a_pass"] / 1e9,
+                      peak=max(r["prefetch"]["peak_staged_bytes"]
+                               for r in ranks) / 1e9,
+                      stall=max(r["prefetch"]["stall_s"] for r in ranks))
+    log(f"  (e) the streamed ring across the same 8 ranks over the q4 "
+        f"store (k {ref['k']}, {STREAM_RANK_DEPTH} window staged at a time), "
+        f"{n} greedy steps from (a)'s "
+        f"cache: tokens and logits equal (a)'s eager resident steps (max|d| "
+        f"{worst}) on every rank; rank 0's streamed step p50 {step_ms:.2f} "
+        f"ms against (a)'s resident {res_ms:.2f} ms; launches a rank exactly "
+        f"{L * n} B5-stats and {PROJECTIONS * L * n} B3, over the 8 ranks "
+        f"{total}; the world's run {wall:.1f} s")
+    for line in lines:
+        log(f"      {line}")
+    return total
+
+
+def first_layers(sdir, n):
+    """A store of the first ``n`` layers of the store at ``sdir``: its
+    files linked into a new temporary directory, the manifest's depth
+    cut."""
+    from repro_torch.runtime import paramstore as P
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_first_")
+    with open(os.path.join(sdir, P.MANIFEST)) as f:
+        manifest = json.load(f)
+    manifest["n_layers"] = n
+    with open(os.path.join(out, P.MANIFEST), "w") as f:
+        json.dump(manifest, f)
+    for name in [P.HEAD_FILE] + [P._layer_file(i) for i in range(n)]:
+        os.symlink(os.path.join(sdir, name), os.path.join(out, name))
+    return out
+
+
+def ranks_failover(torch, serve, world):
+    """Phase 18 (f): failover across ranks on the card: qwen2.5-14b at
+    full width from the first ``FAILOVER_LAYERS`` layers of phase 5's q4
+    store, the 8 ranks of ``world`` (4 stages x tp 2) streaming it,
+    prompts of 4 tokens, 6 new tokens; the driver's ``--chaos failover``
+    (``serve_failover``) ``SIGKILL``s stage 1's first rank as the third
+    token's pass starts (which ends the world):
+    the death attributed to stage 1, the survivors re-spawned as 2 x 2 =
+    4 ranks that replay the history, zero tokens lost and the tokens after
+    recovery equal a clean 4-rank run fed the same history."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"),
+                              n_layers=FAILOVER_LAYERS)
+    sdir = first_layers(STORE_14B["dir"], FAILOVER_LAYERS)
+    fargs = serve.parse_args(["--arch", "qwen2.5-14b", "--batch", "8",
+                              "--ctx", "64", "--prompt-len", "4",
+                              "--new-tokens", "6", "--seed", "0",
+                              "--stages", str(RANK_STAGES),
+                              "--tp", str(RANK_TP), "--ring-k", "1",
+                              "--dtype", "bf16"])
+    try:
+        t0 = time.perf_counter()
+        fo = serve.serve_failover(sdir, cfg, fargs, world=world)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    ev = fo["event"]
+    exc = fo["failures"][0]
+    died = exc.ranks("died")
+    seen_ms = (exc.t_seen - exc.t_first) * 1e3
+    if ev.failed_stage != 1 or ev.n_stages_after != 2 or ev.tokens_lost \
+            or died != [RANK_TP]:
+        raise AssertionError(f"(f) failover: {ev}, died {died}")
+    RANKS["f"] = dict(detect_ms=ev.detect_s * 1e3, seen_ms=seen_ms,
+                      resolve_ms=ev.resolve_s * 1e3,
+                      rebuild_s=ev.rebuild_s, replay_s=ev.replay_s,
+                      recovery_s=ev.recovery_s, wall=wall,
+                      replayed=ev.replayed_tokens)
+    log(f"  (f) rank {died[0]} (stage 1, member 0) SIGKILLed at token "
+        f"{ev.token_index}: attributed to stage {ev.failed_stage}; 8 ranks "
+        f"-> {ev.n_stages_after} x {RANK_TP} = "
+        f"{ev.n_stages_after * RANK_TP} re-spawned (plan {ev.plan}), "
+        f"replayed {ev.replayed_tokens} tokens, 0 lost; detect "
+        f"{ev.detect_s * 1e3:.1f} ms (the death seen {seen_ms:.1f} ms after "
+        f"the kill, then the world ended), re-solve "
+        f"{ev.resolve_s * 1e3:.2f} ms, "
+        f"rebuild {ev.rebuild_s:.2f} s (4 processes started and loaded), "
+        f"replay {ev.replay_s:.2f} s; the tokens after recovery equal a "
+        f"clean 4-rank run's fed the same history; the phase's run "
+        f"{wall:.1f} s")
 
 
 def ranks_parity(torch, ops, serve, world):
@@ -5978,6 +6247,9 @@ def ranks_parity(torch, ops, serve, world):
                     steps=n, keep_logits=True, check_replicated=True,
                     return_cache=kv == "int8", offsets=offsets)
             ranks = runs[True]
+            if kv == "float32":
+                streamed_parity(world, cfg, sdir, path, nxt, n, want,
+                                ranks)
             rank_launches(ranks, {"flash_verify_stats": plan.L_pad * n},
                           f"phase 18 (b) {kv} cache")
             for r in ranks:
@@ -6042,6 +6314,41 @@ def ranks_parity(torch, ops, serve, world):
         free_card(torch)
 
 
+def streamed_parity(world, cfg, sdir, path, nxt, n, want, resident):
+    """Phase 18 (g): the streamed ring across the ranks on (b)'s 4-layer
+    f32 store and cache: every step's logits within 2e-4 of max|ref| of
+    the one-process ring on ``use_kernels(False)`` (``want``) with equal
+    tokens, equal to the resident ranks' (max|d| 0), the launches as
+    derived."""
+    ranks = world.run(RANK_STREAM_JOB, cfg=cfg, n_stages=RANK_STAGES,
+                      tp=RANK_TP, store=sdir, cache=path,
+                      first=nxt.cpu().numpy(), steps=n, keep_logits=True,
+                      check_replicated=True, depth=2)
+    rank_launches(ranks, {"flash_verify_stats": cfg.n_layers * n},
+                  "phase 18 (g)")
+    r0, worst = ranks[0], 0.0
+    for t in range(n):
+        rel = float(np.abs(r0["logits"][t] - want[t]).max()
+                    / np.abs(want[t]).max())
+        worst = max(worst, rel)
+        if rel >= 2e-4 or not np.array_equal(r0["tokens"][t],
+                                             want[t].argmax(-1)):
+            raise AssertionError(f"(g) step {t}: streamed ranks against "
+                                 f"plain {rel:.3g} of max|ref|, or other "
+                                 f"tokens")
+    same = max(float(np.abs(a - b).max())
+               for a, b in zip(r0["logits"], resident[0]["logits"]))
+    if same != 0.0 or any(r["unequal"] for r in ranks):
+        raise AssertionError(f"(g) streamed against resident ranks max|d| "
+                             f"{same}, or members' activations differ")
+    RANKS["g"] = dict(worst=worst, reads=r0["prefetch"]["reads"])
+    log(f"  (g) the streamed ring across the ranks, f32: logits within "
+        f"{worst:.3g} of max|ref| of the one-process ring on "
+        f"use_kernels(False) over all {n} steps, tokens equal, equal to the "
+        f"resident ranks' (max|d| 0); rank 0 read "
+        f"{r0['prefetch']['reads']} rows in {n} passes")
+
+
 def report_ranks() -> None:
     """Phase 18's numbers again, beside the card's name and power limit."""
     log(f"  card: {card()}")
@@ -6051,6 +6358,16 @@ def report_ranks() -> None:
         f"one-process ring {a['ref_ms']:.2f} ms; {a['n_equal']} of 8 rows "
         f"equal, {a['splits']} near-tie splits")
     log(f"  (b) {RANKS['b']}")
+    e, f, g = RANKS["e"], RANKS["f"], RANKS["g"]
+    log(f"  (e) rank 0's streamed step {e['step_ms']:.2f} ms against the "
+        f"resident {e['res_ms']:.2f} ms; {e['gb']:.3f} GB read a pass a "
+        f"rank, peak staged {e['peak']:.3f} GB, stall {e['stall']:.3f} s")
+    log(f"  (f) detect {f['detect_ms']:.1f} ms (death seen after "
+        f"{f['seen_ms']:.1f} ms), re-solve "
+        f"{f['resolve_ms']:.2f} ms, rebuild {f['rebuild_s']:.2f} s, replay "
+        f"{f['replay_s']:.2f} s ({f['replayed']} tokens); the phase "
+        f"{f['wall']:.1f} s")
+    log(f"  (g) streamed ranks against plain {g['worst']:.3g} of max|ref|")
 
 
 def share_bytecode():
@@ -6130,7 +6447,8 @@ def main() -> int:
     rows["ssd_scan"] = check_ssd(torch, timer, np.random.default_rng(3))
     log(f"  phase 2 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 3: serve qwen2.5-14b at full width, 48 layers, bf16")
+    log(f"== phase 3: serve qwen2.5-14b at full width, {PAGED_LAYERS} of 48 "
+        f"layers, bf16")
     counts = serve_full(torch, ops, serve)
     log(f"  main-path launches: {counts}")
     log(f"  phase 3 done at {time.perf_counter() - t_start:.0f} s")
@@ -6185,9 +6503,9 @@ def main() -> int:
     report_tiers()
     log(f"  phase 13 done at {time.perf_counter() - t_start:.0f} s")
 
-    log(f"== phase 14: the piped ring, qwen2.5-14b at full width, "
-        f"{RING_LAYERS} layers: resident bf16, streamed q4, failover, "
-        f"parity")
+    log(f"== phase 14: the piped ring, qwen2.5-14b at full width: "
+        f"resident bf16 ({RING_A_LAYERS} layers), resident and streamed q4 "
+        f"({RING_LAYERS} layers), failover, parity")
     ring_resident(torch, ops, serve)
     ring_streamed(torch, ops, serve)
     ring_parity(torch, ops, serve)
@@ -6195,9 +6513,9 @@ def main() -> int:
     log(f"  phase 14 done at {time.perf_counter() - t_start:.0f} s")
 
     log(f"== phase 15: the moe family: mixtral-8x7b q4 resident, streamed "
-        f"and through the ring ({MOE_LAYERS} of 32 layers), bf16 paged (8 "
-        f"layers), parity with phi3.5-moe (4 layers f32), the card's "
-        f"profile")
+        f"and through the ring ({MOE_LAYERS} of 32 layers), bf16 paged "
+        f"({MOE_PAGED_LAYERS} layers), parity with phi3.5-moe (4 layers "
+        f"f32), the card's profile")
     moe_counts = moe_streamed(torch, ops, serve)
     log(f"  main-path launches: {moe_counts}")
     moe_paged_counts = moe_paged(torch, ops, serve)
@@ -6229,15 +6547,22 @@ def main() -> int:
     report_train()
     log(f"  phase 17 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 18: the ring across ranks: 4 stages x tp 2 = 8 rank "
-        "processes on the card over gloo (qwen2.5-14b at full width and "
-        "depth from phase 14's q4 store; parity at 4 layers f32)")
+    log(f"== phase 18: the ring across ranks: 4 stages x tp 2 = 8 rank "
+        f"processes on the card over gloo (qwen2.5-14b at full width and "
+        f"depth from phase 5's q4 store, resident and streamed; parity at 4 "
+        f"layers f32; failover at {FAILOVER_LAYERS} layers)")
     from repro_torch.launch.mesh import RankWorld
     with RankWorld(RANK_STAGES * RANK_TP, device="cuda:0",
                    threads=1) as world:
         world.start()            # the ranks reach the card meanwhile
         rank_counts = ranks_full(torch, world)
+        log(f"  (a) done at {time.perf_counter() - t_start:.0f} s")
+        stream_counts_18 = ranks_streamed(torch, world)
+        log(f"  (e) done at {time.perf_counter() - t_start:.0f} s")
         ranks_parity(torch, ops, serve, world)
+        log(f"  (b), (g) done at {time.perf_counter() - t_start:.0f} s")
+        ranks_failover(torch, serve, world)
+    shutil.rmtree(STORE_14B.pop("dir"), ignore_errors=True)
     report_ranks()
     log(f"  phase 18 done at {time.perf_counter() - t_start:.0f} s")
 
@@ -6250,7 +6575,9 @@ def main() -> int:
         counts[k] += v
     for k, v in fam_counts.items():
         counts[k] += v
-    counts["flash_verify_stats"] = rank_counts["flash_verify_stats"]
+    counts["flash_verify_stats"] = rank_counts["flash_verify_stats"] \
+        + stream_counts_18["flash_verify_stats"]
+    counts["q4_matmul"] += stream_counts_18["q4_matmul"]
     for name, row in rows.items():
         row["launches"] = counts[name]
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s on")

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 ``nvcc`` compiles each source under ``csrc/`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with ``ctypes``. The
+shared library with a plain C interface, loaded with ``ctypes``; a source
+listed in ``PARTS`` compiles as several objects at once (one per value of
+its macro, and one without it), linked into its library. The
 libraries land in ``build/kernels/`` at the repository root (git-ignored),
 each under a name keyed by a hash of all sources, the header they share
 (``csrc/tc_common.cuh``) and the flags, so an edit rebuilds them. Nothing
 is built at import: the first launch of any kernel builds every library,
-one ``nvcc`` process per source, all started together. A missing ``nvcc``
+one ``nvcc`` process per source or part, all started together. A missing ``nvcc``
 or a failed build raises — there is no fallback.
 """
 from __future__ import annotations
@@ -25,9 +27,13 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"paged_tiles": _CSRC / "paged_tiles.cu",
            "q4_matmul": _CSRC / "q4_matmul.cu",
            "ssd_scan": _CSRC / "ssd_scan.cu"}
+#: library name -> (macro, n): the source compiles once with ``-Dmacro=i``
+#: for each i < n and once without the macro (paged_tiles: its eight
+#: (q, pool, scale) dtype pairs' kernels, and its C interface)
+PARTS = {"paged_tiles": ("PAGED_TILES_PAIR", 8)}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES: Dict[str, int] = {"paged_verify": 0, "paged_prefill": 0,
@@ -58,6 +64,7 @@ def _key() -> str:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(PARTS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -67,38 +74,65 @@ def library_path(name: str) -> Path:
 
 def build() -> Dict[str, Path]:
     """Compile every source whose hashed library does not exist yet, all
-    ``nvcc`` processes at once; returns the library path by name."""
+    ``nvcc`` processes (a source's parts included) at once, then link the
+    parts; returns the library path by name."""
     paths = {name: library_path(name) for name in SOURCES}
     todo = [name for name, p in paths.items() if not p.exists()]
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    procs = {}
+    procs, objs, temps = [], {}, []
     try:
         for name in todo:
             tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-            procs[name] = (cmd, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        failed = []
-        for name, (cmd, tmp, proc) in procs.items():
+            temps.append(tmp)
+            macro, n = PARTS.get(name, (None, 0))
+            if not n:
+                cmds = [[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                         str(SOURCES[name])]]
+            else:
+                objs[name] = [tmp.with_suffix(f".{i}.o")
+                              for i in range(n + 1)]
+                temps += objs[name]
+                cmds = [[nvcc, *NVCC_FLAGS, "-c",
+                         *([f"-D{macro}={i}"] if i < n else []),
+                         "-o", str(o), str(SOURCES[name])]
+                        for i, o in enumerate(objs[name])]
+            for cmd in cmds:
+                procs.append((name, cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        failed, logs = [], {name: [] for name in todo}
+        for name, cmd, proc in procs:
             out, _ = proc.communicate()
+            logs[name].append(out)
             if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
                 failed.append(f"nvcc failed ({proc.returncode}):\n"
                               f"{' '.join(cmd)}\n{out}")
-            else:
-                os.replace(tmp, paths[name])
-                build_log[name] = out
+        for name in objs:
+            if failed:
+                break
+            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, "-shared", "-o", str(tmp),
+                   *(str(o) for o in objs[name])]
+            link = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            if link.returncode != 0:
+                failed.append(f"nvcc failed ({link.returncode}):\n"
+                              f"{' '.join(cmd)}\n{link.stdout}")
         if failed:
             raise RuntimeError("\n".join(failed))
+        for name in todo:
+            os.replace(paths[name].with_suffix(f".{os.getpid()}.tmp"),
+                       paths[name])
+            build_log[name] = "".join(logs[name])
     finally:
-        for _, tmp, proc in procs.values():
+        for *_, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        for tmp in temps:
             tmp.unlink(missing_ok=True)
     return paths
 

@@ -108,12 +108,12 @@
 
 #include "tc_common.cuh"
 
-namespace {
-
-constexpr int kMaxWarps = 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+// The file compiles as nine parts, all at once: the kernels of each (q
+// dtype, pool dtype, scale dtype) pair in a part of their own
+// (-DPAGED_TILES_PAIR=i, i in 0..7, the order of ``Pair`` below), and the
+// C interface with the dispatch to the pairs (no PAGED_TILES_PAIR). The
+// parts share the launch arguments' types and each pair's entry point.
+namespace tile_parts {
 
 struct Geo {
   int T, H, h_kv, D, bs, nb, window;     // window <= 0: none; D <= D_pad
@@ -126,6 +126,28 @@ struct Geo {
   long long kv_sp, kv_ss, kv_sh;
   long long sc_sp, sc_ss, sc_sh;
 };
+
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *table, *kv_len;
+  void *out, *part_acc, *part_ml, *lse;
+};
+
+// pair I's kernels launched through by_dim (defined in part I)
+template <int I>
+int pair_entry(const Args& a, const Geo& g, int B, int key_split,
+               bool partial, bool contig, cudaStream_t s);
+
+}  // namespace tile_parts
+
+namespace {
+
+using tile_parts::Args;
+using tile_parts::Geo;
+
+constexpr int kMaxWarps = 8;
+constexpr unsigned kFull = 0xffffffffu;
+
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 // design 2's key split where the caller does not choose it: the pool alone
 // fixes it (f32 blocks of 32 keys feed 2 warps; the others' 64 keys, 4)
@@ -723,11 +745,6 @@ combine_splits(const float* __restrict__ part_acc,
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *ks, *vs, *table, *kv_len;
-  void *out, *part_acc, *part_ml, *lse;
-};
-
 template <typename QT, typename KT, typename ST, int D, int KS, bool kPartial,
           bool kContig>
 int launch(const Args& a, const Geo& g, int B, cudaStream_t stream) {
@@ -807,19 +824,49 @@ int by_dim(const Args& a, const Geo& g, int B, int key_split, bool partial,
   return int(cudaErrorInvalidValue);
 }
 
-template <typename QT>
-int by_pool(const Args& a, const Geo& g, int B, int kv_dtype, int sc_dtype,
-            int key_split, bool partial, bool contig, cudaStream_t s) {
-  if (kv_dtype == kF32)
-    return by_dim<QT, float, float>(a, g, B, key_split, partial, contig, s);
-  if (kv_dtype == kBF16)
-    return by_dim<QT, __nv_bfloat16, float>(a, g, B, key_split, partial,
-                                            contig, s);
-  if (kv_dtype == kI8 && sc_dtype == kF32)
-    return by_dim<QT, int8_t, float>(a, g, B, key_split, partial, contig, s);
-  if (kv_dtype == kI8 && sc_dtype == kBF16)
-    return by_dim<QT, int8_t, __nv_bfloat16>(a, g, B, key_split, partial,
-                                             contig, s);
+// the (q, pool, scale) dtypes of pair I: the parts' order
+template <int I> struct Pair;
+template <> struct Pair<0> {
+  using Q = float; using K = float; using S = float; };
+template <> struct Pair<1> {
+  using Q = float; using K = __nv_bfloat16; using S = float; };
+template <> struct Pair<2> {
+  using Q = float; using K = int8_t; using S = float; };
+template <> struct Pair<3> {
+  using Q = float; using K = int8_t; using S = __nv_bfloat16; };
+template <> struct Pair<4> {
+  using Q = __nv_bfloat16; using K = float; using S = float; };
+template <> struct Pair<5> {
+  using Q = __nv_bfloat16; using K = __nv_bfloat16; using S = float; };
+template <> struct Pair<6> {
+  using Q = __nv_bfloat16; using K = int8_t; using S = float; };
+template <> struct Pair<7> {
+  using Q = __nv_bfloat16; using K = int8_t; using S = __nv_bfloat16; };
+
+#ifndef PAGED_TILES_PAIR      // the C interface's part
+// pair index of a q dtype and a pool (int8 pools by their scales' dtype)
+int pair_of(int q_dtype, int kv_dtype, int sc_dtype) {
+  const int q = q_dtype == kF32 ? 0 : q_dtype == kBF16 ? 4 : -1;
+  const int pool = kv_dtype == kF32 ? 0 : kv_dtype == kBF16 ? 1
+                   : kv_dtype == kI8 && sc_dtype == kF32 ? 2
+                   : kv_dtype == kI8 && sc_dtype == kBF16 ? 3 : -1;
+  return q < 0 || pool < 0 ? -1 : q + pool;
+}
+
+int by_pair(const Args& a, const Geo& g, int B, int q_dtype, int kv_dtype,
+            int sc_dtype, int key_split, bool partial, bool contig,
+            cudaStream_t s) {
+  using tile_parts::pair_entry;
+  switch (pair_of(q_dtype, kv_dtype, sc_dtype)) {
+    case 0: return pair_entry<0>(a, g, B, key_split, partial, contig, s);
+    case 1: return pair_entry<1>(a, g, B, key_split, partial, contig, s);
+    case 2: return pair_entry<2>(a, g, B, key_split, partial, contig, s);
+    case 3: return pair_entry<3>(a, g, B, key_split, partial, contig, s);
+    case 4: return pair_entry<4>(a, g, B, key_split, partial, contig, s);
+    case 5: return pair_entry<5>(a, g, B, key_split, partial, contig, s);
+    case 6: return pair_entry<6>(a, g, B, key_split, partial, contig, s);
+    case 7: return pair_entry<7>(a, g, B, key_split, partial, contig, s);
+  }
   return int(cudaErrorInvalidValue);
 }
 
@@ -907,14 +954,27 @@ int paged_tiles(const void* q, const void* k, const void* v,
                part_ml, lse};
   if (lse != nullptr && part_acc == nullptr) return int(cudaErrorInvalidValue);
   const bool partial = part_acc != nullptr;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == kF32)
-    return by_pool<float>(a, g, B, kv_dtype, sc_dtype, key_split, partial,
-                          contig != 0, s);
-  if (q_dtype == kBF16)
-    return by_pool<__nv_bfloat16>(a, g, B, kv_dtype, sc_dtype, key_split,
-                                  partial, contig != 0, s);
-  return int(cudaErrorInvalidValue);
+  return by_pair(a, g, B, q_dtype, kv_dtype, sc_dtype, key_split, partial,
+                 contig != 0, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"
+
+#else                         // pair PAGED_TILES_PAIR's part
+}  // namespace
+
+namespace tile_parts {
+
+template <int I>
+int pair_entry(const Args& a, const Geo& g, int B, int key_split,
+               bool partial, bool contig, cudaStream_t s) {
+  using P = Pair<I>;
+  return by_dim<typename P::Q, typename P::K, typename P::S>(
+      a, g, B, key_split, partial, contig, s);
+}
+
+template int pair_entry<PAGED_TILES_PAIR>(const Args&, const Geo&, int, int,
+                                          bool, bool, cudaStream_t);
+
+}  // namespace tile_parts
+#endif

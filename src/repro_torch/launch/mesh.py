@@ -22,10 +22,24 @@ vocab-sharded embed, the greedy argmax over the vocab shards) and the
 ring of its member (the ring hop, the final hiddens' sum over the
 stages). Nothing runs on the global default group.
 
-``RankWorld`` spawns the ranks (``torch.multiprocessing``, start method
-``spawn``) and runs jobs on all of them: ``"module:function"`` called as
-``function(ctx, **kwargs)`` on each rank with a ``RankContext``; the
-serve driver runs one job, the tests a world a module.
+``RankWorld`` starts the ranks (``torch.multiprocessing``, start method
+``forkserver``: the server imports torch and the ring's modules once and
+each rank forks from it, where a spawned rank spent seconds of CPU
+importing them again) and runs jobs on all of them: ``"module:function"`` called as
+``function(ctx, **kwargs)`` on each rank with a ``RankContext``, whose
+``state`` dict lives as long as the rank, so a later job can go on where
+an earlier one stopped (the failover drives a generation a token a job).
+A rank that dies (its exit code or signal), raises (its traceback, and
+whether an ``iopolicy.StageFailure`` was among the causes) or does not
+answer in time makes the job raise ``RankFailure`` with a ``RankError``
+for each, and the parent kills the whole world at once: survivors blocked
+in a collective with a dead peer never wait out their timeout.
+``RankWorld.kill`` sends a rank ``SIGKILL`` (a dead device, for the tests
+and the chaos runs); a rank the parent killed counts as dead at once.
+Gloo tells the survivors of a dead peer before the parent can see its
+exit, so while a survivor's error says its peer went away the parent
+waits up to ``PEER_GRACE_S`` for that exit: the death, not the
+survivors' errors, is what the failure names.
 """
 from __future__ import annotations
 
@@ -34,7 +48,9 @@ import datetime
 import importlib
 import os
 import queue
+import re
 import shutil
+import signal
 import tempfile
 import time
 import traceback
@@ -43,9 +59,14 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from ..runtime.collectives import Axis
+from ..runtime.telemetry import clock
 
 #: seconds a collective waits for its peers before the rank fails
 RANK_TIMEOUT_S = 300.0
+#: what the fork server imports before it forks a rank (none of them
+#: touches CUDA at import, so each rank starts its own CUDA context)
+PRELOAD = ("torch", "numpy", "repro_torch.launch.mesh",
+           "repro_torch.runtime.serve", "repro_torch.runtime.failover")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +84,9 @@ def make_ring_layout(n_stages: int = 4, tp: int = 1,
     if tp != 1:
         raise ValueError(f"tp={tp}: the one-process ring runs each stage on "
                          f"one device (tp=1); a tensor-parallel group runs "
-                         f"across ranks (make_rank_layout), and the streamed "
-                         f"ring and failover across ranks are ROADMAP Queue "
-                         f"A item 6")
+                         f"across ranks, a process each (make_rank_layout "
+                         f"in a RankWorld: runtime.serve.rank_ring_job and "
+                         f"rank_stream_job, ElasticRingServer(ranks=True))")
     if n_stages < 1:
         raise ValueError(f"n_stages={n_stages}: a ring needs a stage")
     return RingLayout(n_stages=n_stages, tp=1, device=torch.device(device))
@@ -177,11 +198,13 @@ def make_rank_layout(n_stages: int, tp: int, pods: int = 1, *, rank: int,
 @dataclasses.dataclass
 class RankContext:
     """What a job gets on its rank: the rank, the world's size, the
-    rank's device and the collectives' timeout."""
+    rank's device, the collectives' timeout and ``state``, kept between
+    the jobs of one rank process."""
     rank: int
     world: int
     device: str
     timeout_s: float
+    state: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def layout(self, n_stages: int, tp: int, pods: int = 1) -> RankLayout:
         return make_rank_layout(n_stages, tp, pods, rank=self.rank,
@@ -192,6 +215,15 @@ class RankContext:
 def _resolve(fn: str):
     module, name = fn.split(":")
     return getattr(importlib.import_module(module), name)
+
+
+def _raised(e: BaseException) -> Dict[str, Any]:
+    """What the parent learns of an exception on a rank: its traceback
+    and whether a ``StageFailure`` is among its causes."""
+    from ..runtime.iopolicy import StageFailure, find_cause
+
+    return {"traceback": traceback.format_exc(),
+            "stage_failure": find_cause(e, StageFailure) is not None}
 
 
 def _rank_main(rank: int, world: int, store_path: str, device: str,
@@ -205,8 +237,8 @@ def _rank_main(rank: int, world: int, store_path: str, device: str,
         if dev.type == "cuda":
             torch.cuda.set_device(dev.index or 0)
         init_rank_world(rank, world, store_path, timeout_s=timeout_s)
-    except BaseException:                       # noqa: BLE001
-        results.put((None, rank, False, traceback.format_exc()))
+    except BaseException as e:                  # noqa: BLE001
+        results.put((None, rank, False, _raised(e)))
         return
     ctx = RankContext(rank, world, device, timeout_s)
     while True:
@@ -217,25 +249,77 @@ def _rank_main(rank: int, world: int, store_path: str, device: str,
         try:
             out = _resolve(fn)(ctx, **kwargs)
             results.put((jid, rank, True, out))
-        except BaseException:                   # noqa: BLE001
-            results.put((jid, rank, False, traceback.format_exc()))
+        except BaseException as e:              # noqa: BLE001
+            results.put((jid, rank, False, _raised(e)))
     import torch.distributed as dist
 
     dist.destroy_process_group()
 
 
+#: what gloo raises on a rank whose peer in a collective went away
+_PEER_LOST = re.compile(r"Connection (closed|reset) by peer|Broken pipe")
+
+
+@dataclasses.dataclass(frozen=True)
+class RankError:
+    """One rank's part in a failed job: ``kind`` "died" (``exitcode``, and
+    ``signal`` where a signal ended it), "raised" (``traceback``;
+    ``stage_failure``: a ``StageFailure`` was among its causes) or
+    "silent" (no answer before the deadline)."""
+    rank: int
+    kind: str
+    exitcode: Optional[int] = None
+    signal: Optional[int] = None
+    traceback: str = ""
+    stage_failure: bool = False
+
+    def describe(self) -> str:
+        if self.kind == "died":
+            how = f"killed by signal {self.signal}" if self.signal \
+                else f"exited with code {self.exitcode}"
+            return f"rank {self.rank} {how}"
+        if self.kind == "raised":
+            last = self.traceback.strip().splitlines()[-1:] or [""]
+            return f"rank {self.rank} raised: {last[0]}"
+        return f"rank {self.rank} did not answer in time"
+
+
 class RankFailure(RuntimeError):
-    """A rank raised, died or did not answer in time."""
+    """A rank raised, died or did not answer in time: ``errors`` says
+    which and how; on ``telemetry.clock``, ``t_seen`` is when the parent
+    saw it (before it ended the world) and ``t_first`` the earliest
+    moment it knows of (when it killed the rank itself, else
+    ``t_seen``)."""
+
+    def __init__(self, msg: str, errors: Sequence[RankError] = (),
+                 t_first: Optional[float] = None):
+        super().__init__(msg)
+        self.errors = list(errors)
+        self.t_seen = clock()
+        self.t_first = self.t_seen if t_first is None else t_first
+
+    def ranks(self, kind: str) -> List[int]:
+        return [e.rank for e in self.errors if e.kind == kind]
 
 
 class RankWorld:
-    """``world`` rank processes (start method ``spawn``) joined over gloo,
-    running jobs: ``run("module:function", **kwargs)`` calls
+    """``world`` rank processes (start method ``forkserver``) joined over
+    gloo, running jobs: ``run("module:function", **kwargs)`` calls
     ``function(ctx, **kwargs)`` on every rank and returns the results in
-    rank order. A rank that raises, dies or outlasts ``timeout_s`` makes
-    ``run`` raise ``RankFailure`` and ends the world (the next ``run``
-    starts a new one). Every rank runs on ``device``; ``threads``: torch
-    threads a rank."""
+    rank order (``submit`` then ``collect``, for a caller that acts
+    between the two). A rank that raises, dies or outlasts ``timeout_s``
+    makes the job raise ``RankFailure`` and ends the world at once (the
+    next job starts a new one). Every rank runs on ``device``;
+    ``threads``: torch threads a rank."""
+
+    #: seconds the parent waits, after a rank raised, for the other
+    #: ranks' errors before it ends the world
+    GRACE_S = 0.25
+    #: seconds it waits for a rank's exit while a survivor's error says
+    #: a peer went away (gloo's "Connection closed by peer"): above the
+    #: 0.33-0.45 s an H100 host took from a SIGKILL to the visible exit
+    #: of a rank holding a CUDA context
+    PEER_GRACE_S = 2.0
 
     def __init__(self, world: int, *, device: str = "cuda",
                  threads: Optional[int] = None,
@@ -245,16 +329,19 @@ class RankWorld:
         self.threads = threads
         self.timeout_s = timeout_s
         self._procs: List = []
+        self._killed: Dict[int, float] = {}
         self._jid = 0
 
     def start(self) -> None:
         import torch.multiprocessing as mp
 
-        ctx = mp.get_context("spawn")
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload(list(PRELOAD))
         self._dir = tempfile.mkdtemp(prefix="rank_world_")
         store = os.path.join(self._dir, "store")
         self._results = ctx.Queue()
         self._jobs = [ctx.Queue() for _ in range(self.world)]
+        self._killed = {}
         self._procs = [ctx.Process(
             target=_rank_main, daemon=True,
             args=(r, self.world, store, self.device, self.threads,
@@ -263,59 +350,119 @@ class RankWorld:
         for p in self._procs:
             p.start()
 
-    def run(self, fn: str, *, timeout_s: Optional[float] = None,
-            **kwargs) -> List[Any]:
-        """``fn(ctx, **kwargs)`` on every rank; the results in rank
-        order."""
+    def kill(self, rank: int) -> None:
+        """Send rank ``rank`` ``SIGKILL`` (a dead device): the job running
+        raises ``RankFailure`` naming it as died."""
+        self._killed[rank] = clock()
+        os.kill(self._procs[rank].pid, signal.SIGKILL)
+
+    def _dead(self) -> List[RankError]:
+        """The ranks that exited, and those the parent killed (dead
+        before their exit shows)."""
+        out = []
+        for r, p in enumerate(self._procs):
+            code = p.exitcode
+            if code is None and r in self._killed:
+                code = -signal.SIGKILL
+            if code is not None:
+                out.append(RankError(r, "died", exitcode=code,
+                                     signal=-code if code < 0 else None))
+        return out
+
+    def submit(self, fn: str, **kwargs) -> int:
+        """Queue ``fn(ctx, **kwargs)`` on every rank; returns the job's
+        id for ``collect``."""
         if not self._procs:
             self.start()
         self._jid += 1
-        jid = self._jid
         for q in self._jobs:
-            q.put((jid, fn, kwargs))
+            q.put((self._jid, fn, kwargs))
+        return self._jid
+
+    def collect(self, jid: int, fn: str = "the job", *,
+                timeout_s: Optional[float] = None) -> List[Any]:
+        """Job ``jid``'s results in rank order; a failure raises
+        ``RankFailure`` (every rank seen dead, raised or silent) and kills
+        the world."""
         out: Dict[int, Any] = {}
+        raised: Dict[int, RankError] = {}
         deadline = time.monotonic() + (timeout_s or self.timeout_s)
+        first = None                  # when the first rank raised
         try:
             while len(out) < self.world:
                 try:
-                    got, rank, ok, val = self._results.get(timeout=0.2)
+                    got, rank, ok, val = self._results.get(timeout=0.05)
                 except queue.Empty:
-                    dead = [r for r, p in enumerate(self._procs)
-                            if p.exitcode is not None]
-                    if dead:
-                        raise RankFailure(
-                            f"rank(s) {dead} exited (codes "
-                            f"{[self._procs[r].exitcode for r in dead]}) "
-                            f"during {fn}")
-                    if time.monotonic() > deadline:
-                        raise RankFailure(f"{fn}: no answer from rank(s) "
-                                          f"{sorted(set(range(self.world)) - set(out))} "
-                                          f"in time")
-                    continue
-                if not ok:
-                    raise RankFailure(f"rank {rank} failed in {fn}:\n{val}")
-                if got == jid:
+                    rank = None
+                if rank is not None and ok and got == jid:
                     out[rank] = val
+                elif rank is not None and not ok and got in (jid, None):
+                    raised[rank] = RankError(
+                        rank, "raised", traceback=val["traceback"],
+                        stage_failure=val["stage_failure"])
+                    first = first or time.monotonic()
+                dead = self._dead()
+                now = time.monotonic()
+                if first is not None and not dead:
+                    lost = any(_PEER_LOST.search(e.traceback)
+                               for e in raised.values())
+                    over = now > first + (self.PEER_GRACE_S if lost
+                                          else self.GRACE_S)
+                else:
+                    over = False
+                if dead or over:
+                    errors = dead + [e for r, e in sorted(raised.items())
+                                     if r not in {d.rank for d in dead}]
+                    t_first = min((self._killed[e.rank] for e in dead
+                                   if e.rank in self._killed),
+                                  default=None)
+                    raise RankFailure(
+                        f"{fn}: " + "; ".join(e.describe() for e in errors)
+                        + "".join(f"\n{e.traceback}" for e in errors
+                                  if e.traceback), errors, t_first)
+                if now > deadline:
+                    errors = [raised.get(r) or RankError(r, "silent")
+                              for r in sorted(set(range(self.world))
+                                              - set(out))]
+                    raise RankFailure(
+                        f"{fn}: " + "; ".join(e.describe() for e in errors),
+                        errors)
         except BaseException:
             self.close(kill=True)
             raise
         return [out[r] for r in range(self.world)]
 
+    def run(self, fn: str, *, timeout_s: Optional[float] = None,
+            **kwargs) -> List[Any]:
+        """``fn(ctx, **kwargs)`` on every rank; the results in rank
+        order."""
+        return self.collect(self.submit(fn, **kwargs), fn,
+                            timeout_s=timeout_s)
+
     def close(self, kill: bool = False) -> None:
-        """End every rank (ranks waiting for a job leave the world
-        cleanly; ``kill``, or a rank still busy after 10 s: killed) and
-        remove the store."""
+        """End every rank and remove the store: ranks waiting for a job
+        leave the world cleanly (a rank still busy after 10 s is killed);
+        ``kill`` (a failed world) sends every rank ``SIGKILL`` at once and
+        does not wait for the exits, which take a second or two where a
+        rank holds a CUDA context: a failover re-plans and re-spawns
+        meanwhile (``multiprocessing`` reaps them later)."""
         procs, self._procs = self._procs, []
         if not procs:
             return
         for q in self._jobs:
             q.put(None)
-        end = time.monotonic() + (0.0 if kill else 10.0)
-        for p in procs:
-            p.join(max(0.0, end - time.monotonic()))
-        for p in procs:
-            if p.is_alive():
+        if kill:
+            for p in procs:
+                if p.exitcode is None:
+                    p.kill()
+        else:
+            end = time.monotonic() + 10.0
+            for p in procs:
+                p.join(max(0.0, end - time.monotonic()))
+            alive = [p for p in procs if p.is_alive()]
+            for p in alive:
                 p.kill()
+            for p in alive:
                 p.join()
         shutil.rmtree(self._dir, ignore_errors=True)
 

@@ -24,9 +24,12 @@ decode: ``--batch`` prompts of ``--prompt-len`` tokens (``RequestGenerator``
 stream (``--stream-window W``): the weights go to a layer store in a
   temporary directory (packed q4 with ``--store-quant q4``); the batch
   decodes layer by layer from it after a resident prefill, ``W`` layers
-  staged ahead; on the ring, the streamed ring
-  (``runtime.streaming.StreamingRingDriver``) decodes beside the resident
-  ring over the stored weights (a token mismatch exits nonzero); then the
+  staged ahead; on the ring, across the decode section's rank processes
+  (the same world), the streamed ring (``runtime.serve.rank_stream_job``:
+  each rank stages only its stage's windows and its part of each leaf
+  from the store) decodes beside the resident ring over the same store
+  (``rank_ring_job``; a token mismatch, or ranks that took different
+  tokens, exit nonzero); then the
   requests below are served through the layer-wise engine
   (``runtime.streaming.make_streaming_engine``) over a dense cache, and
   ``--check-resident`` serves them again with the stored weights resident
@@ -57,11 +60,16 @@ paged (``--paged-kv``; implied by ``--check-dense``, ``--prefill-chunk``,
 chaos: ``--chaos transient`` decodes the batch again from the store (the
   stream section's, or one of its own at window 2) whose layer reads fail
   ``--chaos-faults`` times and exits nonzero unless the retried run's
-  tokens equal the clean run's; ``--chaos failover`` kills ring stage 1
-  mid-decode through ``runtime.failover.ElasticRingServer`` and exits
-  nonzero unless recovery loses no token and the tokens after it equal a
-  clean survivor-ring run fed the same history; ``--chaos rank`` makes
-  the last rank of the decode section's ring across ranks raise at its
+  tokens equal the clean run's; ``--chaos failover`` serves the ring
+  prompts through ``runtime.failover.ElasticRingServer`` across the
+  decode section's ``--stages x --tp`` rank processes, SIGKILLs stage
+  1's first rank as the third token's pass starts, and exits nonzero
+  unless the death is attributed to stage 1 (the output names the rank),
+  no token is lost and the tokens after recovery (the re-plan, the
+  survivors re-spawned as a smaller world that replays the history) equal
+  a clean run on that survivor world fed the same history; ``--chaos
+  rank`` makes the last rank of the decode section's ring across ranks
+  raise at its
   second step, and the driver exits nonzero. ``--io-retries``,
   ``--io-backoff-ms`` and ``--io-deadline-s`` set the ``IOPolicy`` of every
   store read and tier copy.
@@ -112,11 +120,9 @@ from ..runtime.memory import MemoryBudget, TierManager
 from ..runtime.metrics import MetricsRegistry, validate_metrics_snapshot
 from ..runtime.paramstore import (STACKED_FAMILIES, ParamStore, ResidentSource,
                                   save_param_store)
-from ..runtime.serve import (RingPlan, RingServeStep, pad_and_permute,
-                             quantize_ring_params, ring_params,
-                             ring_supported)
-from ..runtime.streaming import (StreamingParamSource, StreamingRingDriver,
-                                 make_streaming_engine)
+from ..runtime.serve import (RingPlan, pad_and_permute,
+                             quantize_ring_params, ring_supported)
+from ..runtime.streaming import StreamingParamSource, make_streaming_engine
 from ..runtime.telemetry import Tracer, clock, format_summary, resolve_tracer
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -725,12 +731,13 @@ def layerwise_decode(source, params, cfg, args: argparse.Namespace, *,
             "step_s": run["step_s"]}
 
 
-def serve_stream(params, cfg, args: argparse.Namespace, *, tracer=None,
-                 metrics=None) -> Dict:
+def serve_stream(params, cfg, args: argparse.Namespace, world, *,
+                 tracer=None, metrics=None) -> Dict:
     """``--stream-window W``: write the store, decode the batch layer by
     layer from it (``layerwise_decode``, the JAX driver's
-    ``_stream_smoke``), on the ring also ``stream_ring``, then serve the
-    requests through the layer-wise engine (``serve_streamed``)."""
+    ``_stream_smoke``), on the ring also ``stream_ring`` across
+    ``world``'s ranks, then serve the requests through the layer-wise
+    engine (``serve_streamed``)."""
     W = args.stream_window
     sdir, tree, layer_nbytes = write_store(params, cfg, args)
     try:
@@ -750,7 +757,7 @@ def serve_stream(params, cfg, args: argparse.Namespace, *, tracer=None,
         out = {"tokens": dec["tokens"], "step_s": dec["step_s"],
                "decode_stats": st, "ring": None}
         if args.stages > 1 and ring_supported(cfg, args.batch, args.stages):
-            out["ring"] = stream_ring(sdir, tree, cfg, args, tracer=tracer)
+            out["ring"] = stream_ring(sdir, tree, cfg, args, world)
         out.update(serve_streamed(sdir, tree, cfg, make_requests(cfg, args),
                                   args, tracer=tracer, metrics=metrics))
     finally:
@@ -918,17 +925,32 @@ def vocab_cut(step: Callable, cfg) -> Callable:
     return fn
 
 
+def rank_tokens(rank: Dict) -> np.ndarray:
+    """A rank's greedy tokens (steps, B, 1) as ``greedy_steps`` gives
+    them: (B, steps, 1)."""
+    return rank["tokens"].transpose(1, 0, 2)
+
+
+def save_ring_cache(cache: Dict, path: str) -> str:
+    """A one-device cache to a ``torch.save`` file the ranks map."""
+    torch.save({"len": cache["len"].cpu(),
+                "layers": {n: a.cpu() for n, a in cache["layers"].items()}},
+               path)
+    return path
+
+
 def ring_ranks(weights, cfg, args: argparse.Namespace, cache: Dict,
-               nxt: torch.Tensor, *, keep: bool) -> List[Dict]:
+               nxt: torch.Tensor, world, *, keep: bool) -> List[Dict]:
     """Run the decode section's ring across ranks: ``weights`` written to
     a layer store and the prefilled ``cache`` to a file, both in a
-    temporary directory, then ``runtime.serve.rank_ring_job`` on ``pods x
-    --stages x --tp`` rank processes (``launch.mesh.RankWorld``; the
-    kernels built here first, so the ranks do not race their builds),
-    each reading only its part. Returns every rank's result; a rank that
+    temporary directory, then ``runtime.serve.rank_ring_job`` on
+    ``world``'s ``--stages x --tp`` rank processes
+    (``launch.mesh.RankWorld``, started here if it is not up; the
+    kernels built first, so the ranks do not race their builds), each
+    reading only its part. Returns every rank's result; a rank that
     fails, dies or times out exits nonzero."""
     from ..kernels import _build
-    from ..launch.mesh import RankFailure, RankWorld
+    from ..launch.mesh import RankFailure
 
     card = args.device == "cuda"
     T = args.verify_tokens
@@ -937,31 +959,23 @@ def ring_ranks(weights, cfg, args: argparse.Namespace, cache: Dict,
         tree = weights if isinstance(weights, dict) \
             else tree_from_params(weights)
         store = save_param_store(tree, cfg, os.path.join(work, "store"))
-        path = os.path.join(work, "cache.pt")
-        torch.save({"len": cache["len"].cpu(),
-                    "layers": {n: a.cpu() for n, a in
-                               cache["layers"].items()}}, path)
+        path = save_ring_cache(cache, os.path.join(work, "cache.pt"))
         if card:
             _build.build()
         t0 = clock()
-        # one torch thread a rank: the card does the work, and a thread
-        # pool a rank would have the ranks' host threads spin against
-        # each other on the machine's cores
-        with RankWorld(args.stages * args.tp, device=args.device,
-                       threads=1) as world:
-            ranks = world.run(
-                "repro_torch.runtime.serve:rank_ring_job", cfg=cfg,
-                n_stages=args.stages, tp=args.tp, k=args.ring_k,
-                store=store, cache=path, first=nxt.cpu().numpy(),
-                steps=args.new_tokens,
-                verify_tokens=T if T > 1 and cfg.family != "ssm" else 1,
-                verify_reps=4, keep_logits=keep,
-                fail_rank=args.stages * args.tp - 1
-                if args.chaos == "rank" else None)
+        ranks = world.run(
+            "repro_torch.runtime.serve:rank_ring_job", cfg=cfg,
+            n_stages=args.stages, tp=args.tp, k=args.ring_k,
+            store=store, cache=path, first=nxt.cpu().numpy(),
+            steps=args.new_tokens,
+            verify_tokens=T if T > 1 and cfg.family != "ssm" else 1,
+            verify_reps=4, keep_logits=keep,
+            fail_rank=args.stages * args.tp - 1
+            if args.chaos == "rank" else None)
         print(f"ring across ranks: {len(ranks)} processes up in "
               f"{max(r['t_start'] for r in ranks) - t0:.2f} s, their groups"
               f" and parts loaded in {max(r['load_s'] for r in ranks):.2f}"
-              f" s, all done and ended in {clock() - t0:.2f} s")
+              f" s, all done in {clock() - t0:.2f} s")
         return ranks
     except RankFailure as e:
         raise SystemExit(f"ring across ranks FAILED: {e}")
@@ -969,12 +983,12 @@ def ring_ranks(weights, cfg, args: argparse.Namespace, cache: Dict,
         shutil.rmtree(work, ignore_errors=True)
 
 
-def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
-               metrics=None) -> Dict:
+def serve_ring(weights, cfg, args: argparse.Namespace, world, *,
+               tracer=None, metrics=None) -> Dict:
     """``--stages M``: prefill on the one-device path, decode
     ``--new-tokens`` steps through the ring across ``M x --tp`` rank
-    processes (``ring_ranks``: one a stage and tensor-parallel member,
-    over gloo) and through the one-device step from the same cache, and
+    processes (``ring_ranks`` on ``world``: one a stage and
+    tensor-parallel member, over gloo) and through the one-device step from the same cache, and
     exit nonzero unless their tokens are equal (bf16 on the card: unless
     each row splits only where the top-2 gap is under twice the logit
     difference) and every rank took the same tokens; with
@@ -993,12 +1007,12 @@ def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
     # the one-device step multiplies B, and sums its shards' attention and
     # FFN halves apart, so the streams may split, but only at a near tie
     near_ties = card and args.dtype != "f32"
-    ranks = ring_ranks(weights, cfg, args, cache, nxt, keep=near_ties)
+    ranks = ring_ranks(weights, cfg, args, cache, nxt, world, keep=near_ties)
     r0 = ranks[0]
     if any(not np.array_equal(r["tokens"], r0["tokens"]) for r in ranks):
         raise SystemExit("ring across ranks FAILED: the ranks took "
                          "different greedy tokens")
-    ring = {"tokens": r0["tokens"].transpose(1, 0, 2),
+    ring = {"tokens": rank_tokens(r0),
             "step_s": r0["step_s"],
             "logits": [torch.from_numpy(lg).to(device)
                        for lg in r0["logits"]]}
@@ -1047,129 +1061,181 @@ def serve_ring(weights, cfg, args: argparse.Namespace, *, tracer=None,
     return out
 
 
-def stream_ring(sdir: str, tree, cfg, args: argparse.Namespace, *,
-                tracer=None) -> Dict:
-    """The stream section's ring: from the batch prefilled over ``tree``
-    (the stored weights, q4 included), ``--new-tokens`` steps through the
-    resident ring over ``tree`` and through the streamed ring over the
-    store at ``sdir`` (``StreamingRingDriver``, banks ``max(1, W // w)``
-    steps ahead), and exit nonzero on any token mismatch. The JAX driver
-    streams its ring from a fresh cache; the port's starts where the
-    resident ring starts, so the two can be compared token for token."""
-    device = torch.device(args.device)
+def stream_ring(sdir: str, tree, cfg, args: argparse.Namespace, world
+                ) -> Dict:
+    """The stream section's ring, across the decode section's ranks
+    (``world``, the same ``--stages x --tp`` layout): from the batch
+    prefilled over ``tree`` (the stored weights, q4 included),
+    ``--new-tokens`` steps through the resident ring over the store at
+    ``sdir`` (``rank_ring_job``) and through the streamed ring over it
+    (``rank_stream_job``: each rank streams only its stage's windows and
+    its part of each leaf, ``max(1, W // w)`` windows ahead), and exit
+    nonzero unless their tokens are equal and every rank took the same
+    tokens (a rank that fails exits nonzero too). The JAX driver streams
+    its ring from a fresh cache; the port's starts where the resident
+    ring starts, so the two can be compared token for token."""
+    from ..launch.mesh import RankFailure
+
     W = args.stream_window
     plan = RingPlan.make(cfg, args.stages, k=args.ring_k)
+    depth = max(1, W // plan.w)
     _, cache, nxt, _ = ring_prefill(tree, cfg, args)
-    resident = vocab_cut(RingServeStep(
-        cfg, plan, ring_params(tree, cfg, plan, tp=args.tp),
-        graphs=device.type == "cuda", device=device), cfg)
-    ref = greedy_steps(resident, to_ring_cache(cache, cfg, plan), nxt,
-                       args.new_tokens, device)
-    store = ParamStore(sdir)
-    total = store.layer_nbytes * cfg.n_layers
-    drv = StreamingRingDriver(cfg, plan, store,
-                              prefetch_depth=max(1, W // plan.w),
-                              device=device, policy=io_policy(args),
-                              tracer=tracer)
+    work = tempfile.mkdtemp(prefix="stream_ring_")
     try:
-        run = greedy_steps(vocab_cut(drv.step, cfg),
-                           to_ring_cache(cache, cfg, plan), nxt,
-                           args.new_tokens, device)
+        kw = dict(cfg=cfg, n_stages=args.stages, tp=args.tp, k=args.ring_k,
+                  store=sdir, first=nxt.cpu().numpy(),
+                  cache=save_ring_cache(cache, os.path.join(work,
+                                                            "cache.pt")),
+                  steps=args.new_tokens, keep_logits=True)
+        del cache
+        ref = world.run("repro_torch.runtime.serve:rank_ring_job", **kw)
+        run = world.run("repro_torch.runtime.serve:rank_stream_job",
+                        depth=depth, policy=io_policy(args), **kw)
+    except RankFailure as e:
+        raise SystemExit(f"streamed ring across ranks FAILED: {e}")
     finally:
-        drv.close()
-        store.close()
-    st = drv.stats()
-    if not np.array_equal(run["tokens"], ref["tokens"]):
-        raise SystemExit("streamed ring vs resident ring parity FAILED")
-    print(f"streamed ring decode (k={plan.k}, w={plan.w}, "
-          f"M={args.stages}, {max(1, W // plan.w)} banks ahead): "
-          f"{float(np.median(run['step_s'])) * 1e3:.1f} ms/token/batch; "
-          f"peak staged {st.peak_resident_bytes / 1e6:.3f} MB of "
-          f"{total / 1e6:.3f} MB in the store; stall "
-          f"{st.stall_s * 1e3:.1f} ms; tokens equal to the resident ring's "
-          f"over the stored weights")
-    return {"plan": plan, "stored_tokens": ref["tokens"],
-            "streamed_tokens": run["tokens"], "streamed_step_s":
-            run["step_s"], "stream_stats": st, "store_bytes": total}
+        shutil.rmtree(work, ignore_errors=True)
+    if any(not np.array_equal(r["tokens"], run[0]["tokens"])
+           for r in ref + run):
+        raise SystemExit("streamed ring vs resident ring parity FAILED "
+                         "(across ranks)")
+    d = max((float(np.abs(a - b).max()) for a, b in
+             zip(run[0]["logits"], ref[0]["logits"])), default=0.0)
+    pf = [r["prefetch"] for r in run]
+    r0 = run[0]
+    total = ParamStore(sdir)
+    try:
+        store_bytes = total.layer_nbytes * cfg.n_layers
+    finally:
+        total.close()
+    print(f"streamed ring across {len(run)} ranks (k={plan.k}, w={plan.w},"
+          f" M={args.stages}, TP={args.tp}, {depth} windows ahead): rank "
+          f"0's step {float(np.median(r0['step_s'])) * 1e3:.1f} ms "
+          f"against {float(np.median(ref[0]['step_s'])) * 1e3:.1f} ms "
+          f"resident; a rank read {min(p['bytes_a_pass'] for p in pf) / 1e6:.3f}"
+          f"-{max(p['bytes_a_pass'] for p in pf) / 1e6:.3f} MB a pass of the "
+          f"store's {store_bytes / 1e6:.3f} MB, peak staged "
+          f"{max(p['peak_staged_bytes'] for p in pf) / 1e6:.3f} MB, stall "
+          f"{max(p['stall_s'] for p in pf) * 1e3:.1f} ms at most; tokens "
+          f"equal to the resident ring's across the same ranks, on every "
+          f"rank (logits max|d| {d:.3g})")
+    return {"plan": plan, "stored_tokens": rank_tokens(ref[0]),
+            "streamed_tokens": rank_tokens(r0), "streamed_step_s": r0["step_s"],
+            "stream_ranks": run, "resident_ranks": ref, "logits_max_d": d,
+            "store_bytes": store_bytes}
 
 
 def serve_failover(sdir: str, cfg, args: argparse.Namespace, *,
                    stage: int = 1, tracer=None, device_profiles=None,
-                   model_profile=None) -> Dict:
+                   model_profile=None, ranks: bool = True,
+                   world=None) -> Dict:
     """``--chaos failover``: serve the ring prompts through
-    ``ElasticRingServer`` over the store at ``sdir`` while a fault kills
-    ring stage ``stage`` at the first layer read of the pass of the third
-    token (every pass reads each layer once), and exit nonzero unless the
-    failure was recovered with zero tokens lost and the tokens after it
-    equal a clean run on the survivor ring fed the same history (the JAX
-    driver's ``_chaos_smoke``). Returns the event, the streams and the
-    fired faults. ``device_profiles``/``model_profile``: re-plan the
-    survivors through Halda (``ElasticRingServer``'s)."""
-    from ..runtime.failover import ElasticRingServer
+    ``ElasticRingServer`` over the store at ``sdir`` while ring stage
+    ``stage`` dies at the pass of the third token, and exit nonzero unless
+    the death was attributed to that stage, no token was lost and the
+    tokens after recovery equal a clean run on the survivor ring fed the
+    same history (the JAX driver's ``_chaos_smoke``). ``ranks`` (the
+    default): the ring runs across ``--stages x --tp`` rank processes and
+    the parent ``SIGKILL``s the stage's member-0 rank as that pass starts
+    (``RankChaos``); the survivors are re-planned and re-spawned as a
+    world of their own. Else every stage runs in this process (``--tp``
+    must be 1) and a fault kills the stage at the first layer read of the
+    pass (every pass reads each layer once). ``world``: a running world of
+    that layout to serve on first (the decode section's; the kill ends
+    it); the clean run reuses the survivors' world. Returns the event,
+    the streams, what the server caught and the fired faults.
+    ``device_profiles``/``model_profile``: re-plan the survivors through
+    Halda (``ElasticRingServer``'s)."""
+    from ..runtime.failover import ElasticRingServer, RankChaos
 
     prompts = ring_prompts(cfg, args).cpu().numpy()
     S, n_new = prompts.shape[1], args.new_tokens
     if n_new < 3:
         raise SystemExit("--chaos failover kills a stage at the third "
                          "token: it needs --new-tokens >= 3")
-    kw = dict(batch=args.batch, ctx=args.ctx, tp=1,     # layout: one card
+    kw = dict(batch=args.batch, ctx=args.ctx, tp=args.tp, ranks=ranks,
               policy=io_policy(args), device=args.device,
               cache_dtype=DTYPES[args.dtype])
-    inj = FaultInjector([FaultSpec(op="layer_read", mode="stage_failure",
-                                   stage=stage,
-                                   after=cfg.n_layers * (S + 1), times=1)],
-                        tracer=tracer)
-    store = FaultyStore(ParamStore(sdir), inj)
+    inj = None
+    if ranks:
+        store = sdir
+        chaos = RankChaos(stage=stage, token=2, mode="kill")
+    else:
+        inj = FaultInjector([FaultSpec(op="layer_read", mode="stage_failure",
+                                       stage=stage,
+                                       after=cfg.n_layers * (S + 1),
+                                       times=1)], tracer=tracer)
+        store, chaos = FaultyStore(ParamStore(sdir), inj), None
     srv = ElasticRingServer(cfg, store, n_stages=args.stages,
                             k=args.ring_k, tracer=tracer,
                             device_profiles=device_profiles,
-                            model_profile=model_profile, **kw)
+                            model_profile=model_profile, chaos=chaos,
+                            world=world, **kw)
     try:
         toks = srv.generate(prompts, n_new)
+        survivors = srv.take_world()
     finally:
         srv.close()
-        store.close()
+        if not ranks:
+            store.close()
     if not srv.events:
-        raise SystemExit("chaos failover: the injected stage death never "
+        raise SystemExit("chaos failover: the stage's death never "
                          "surfaced")
     ev = srv.events[0]
+    if ev.failed_stage != stage:
+        raise SystemExit(f"chaos failover: the death was attributed to "
+                         f"stage {ev.failed_stage}, not {stage}: "
+                         f"{srv.failures[0]}")
     if ev.tokens_lost or toks.shape[1] != n_new:
         raise SystemExit(f"chaos failover: lost {ev.tokens_lost} tokens")
     i = ev.token_index
-    clean = ParamStore(sdir)
+    clean = sdir if ranks else ParamStore(sdir)
     ref_srv = ElasticRingServer(cfg, clean, n_stages=ev.plan["n_stages"],
-                                k=ev.plan["k"], **kw)
+                                k=ev.plan["k"], world=survivors, **kw)
     try:
         ref = ref_srv.generate(np.concatenate([prompts, toks[:, :i]], 1),
                                n_new - i)
     finally:
         ref_srv.close()
-        clean.close()
+        if ranks:
+            survivors.close()
+        else:
+            clean.close()
     if not np.array_equal(toks[:, i:], ref):
         raise SystemExit("chaos failover: tokens after recovery differ from "
                          "a clean survivor-ring run fed the same history")
-    print(f"chaos failover: stage {ev.failed_stage} died at token {i}; ring "
-          f"{ev.n_stages_before}->{ev.n_stages_after} stages (k "
-          f"{ev.plan['k']}, w {ev.plan['w']}), replayed "
-          f"{ev.replayed_tokens} tokens, recovered in "
+    exc = srv.failures[0]
+    died = [e for e in getattr(exc, "errors", []) if e.kind == "died"]
+    cause = "; ".join(e.describe() for e in died) + (
+        f", seen {(exc.t_seen - exc.t_first) * 1e3:.1f} ms after the kill"
+        if died else str(exc).splitlines()[0])
+    where = (f"across {args.stages} x {args.tp} ranks -> "
+             f"{ev.n_stages_after} x {args.tp}" if ranks
+             else f"in one process, {ev.n_stages_before} -> "
+             f"{ev.n_stages_after} stages")
+    print(f"chaos failover: stage {ev.failed_stage} died at token {i} "
+          f"({cause}); ring {where} (k {ev.plan['k']}, w {ev.plan['w']}), "
+          f"replayed {ev.replayed_tokens} tokens, recovered in "
           f"{ev.recovery_s:.3f}s (detect {ev.detect_s * 1e3:.1f} ms, "
           f"re-solve {ev.resolve_s * 1e3:.1f} ms, rebuild "
           f"{ev.rebuild_s:.3f}s, replay {ev.replay_s:.3f}s), 0 tokens lost; "
           f"tokens after recovery equal a clean survivor-ring run")
     return {"event": ev, "tokens": toks, "reference": ref,
-            "fired": list(inj.fired)}
+            "failures": list(srv.failures),
+            "fired": list(inj.fired) if inj is not None else []}
 
 
-def serve_decode(params, cfg, args: argparse.Namespace, *, tracer=None,
-                 metrics=None) -> Dict:
+def serve_decode(params, cfg, args: argparse.Namespace, world, *,
+                 tracer=None, metrics=None) -> Dict:
     """The decode section: prefill the batch, then decode it through the
-    ring (``serve_ring``) where ``--stages`` > 1 and ``ring_supported``
-    holds, else on one device. Returns the tokens (B, new_tokens + 1),
+    ring across ``world``'s ranks (``serve_ring``) where ``--stages`` > 1
+    and ``ring_supported`` holds, else on one device. Returns the tokens (B, new_tokens + 1),
     the first one from the prefill, and the ring's result or None."""
     device = torch.device(args.device)
     B, Mst = args.batch, args.stages
     if Mst > 1 and ring_supported(cfg, B, Mst):
-        ring = serve_ring(params, cfg, args, tracer=tracer, metrics=metrics)
+        ring = serve_ring(params, cfg, args, world, tracer=tracer,
+                          metrics=metrics)
         return {"tokens": np.concatenate([ring["first"],
                                           ring["tokens"][:, :, 0]], 1),
                 "ring": ring}
@@ -1240,36 +1306,23 @@ def serve_paged_section(params, cfg, args: argparse.Namespace, *,
     return res
 
 
-def run(args: argparse.Namespace, params=None) -> Dict:
-    """Every section the flags ask for, in the JAX driver's order:
-    decode, stream, paged, chaos. ``params``: a ``DenseModel`` to serve in
-    place of the seed's random weights. Returns each section's result
-    under its name (``decode``, ``stream``, ``paged``, ``chaos``) and the
-    ring's under ``ring`` (with the stream section's streamed ring merged
-    in)."""
-    if args.stages > 1:
-        print(f"ring: the decode section runs across {args.stages} x "
-              f"{args.tp} rank processes (stage x tensor-parallel member, "
-              f"over gloo); the stream section's ring and --chaos failover "
-              f"run in one process, every stage unsharded (their q4 groups "
-              f"and vocab padding follow --tp={args.tp})")
-    cfg, params = build_model(args, params)
-    # --kv-quant-kernel asks for int8 pages: the other sections keep the
-    # config's own cache, as the JAX driver's do
-    base = dataclasses.replace(cfg, kv_dtype=get_config(args.arch).kv_dtype)
-    tracer, metrics = instruments(args)
-    res: Dict = {"decode": serve_decode(params, base, args, tracer=tracer,
-                                        metrics=metrics)}
+def run_sections(params, cfg, base, args: argparse.Namespace, world,
+                 tracer, metrics) -> Dict:
+    """``run``'s sections in order, the ring's on ``world``."""
+    res: Dict = {"decode": serve_decode(params, base, args, world,
+                                        tracer=tracer, metrics=metrics)}
     res["ring"] = res["decode"]["ring"]
     stacked = cfg.family in STACKED_FAMILIES
     if args.stream_window and stacked:
-        res["stream"] = st = serve_stream(params, base, args, tracer=tracer,
-                                          metrics=metrics)
+        res["stream"] = st = serve_stream(params, base, args, world,
+                                          tracer=tracer, metrics=metrics)
         if st["ring"] is not None:
             res["ring"].update(st["ring"])
         if st["rejected"]:
             raise SystemExit(f"{len(st['rejected'])} requests shed: "
                              f"{st['rejected'][0].reason}")
+    if args.chaos != "failover":
+        world.close()              # the failover serves on it first
     if args.paged_kv and not stacked:
         print(f"paged-kv: unsupported family {cfg.family} -- skipped")
     elif args.paged_kv and cfg.mla and cfg.kv_dtype == "int8":
@@ -1293,9 +1346,39 @@ def run(args: argparse.Namespace, params=None) -> Dict:
             sdir, _, _ = write_store(params, base, args)
             try:
                 res["chaos"] = serve_failover(sdir, base, args,
-                                              tracer=tracer)
+                                              tracer=tracer, world=world)
             finally:
                 shutil.rmtree(sdir, ignore_errors=True)
+    return res
+
+
+def run(args: argparse.Namespace, params=None) -> Dict:
+    """Every section the flags ask for, in the JAX driver's order:
+    decode, stream, paged, chaos. ``params``: a ``DenseModel`` to serve in
+    place of the seed's random weights. Returns each section's result
+    under its name (``decode``, ``stream``, ``paged``, ``chaos``) and the
+    ring's under ``ring`` (with the stream section's streamed ring merged
+    in)."""
+    from .mesh import RankWorld
+
+    if args.stages > 1:
+        print(f"ring: the decode, stream and --chaos failover sections "
+              f"run across one world of {args.stages} x {args.tp} rank "
+              f"processes (stage x tensor-parallel member, over gloo); the "
+              f"failover's survivors are a world of their own")
+    cfg, params = build_model(args, params)
+    # --kv-quant-kernel asks for int8 pages: the other sections keep the
+    # config's own cache, as the JAX driver's do
+    base = dataclasses.replace(cfg, kv_dtype=get_config(args.arch).kv_dtype)
+    tracer, metrics = instruments(args)
+    # one torch thread a rank: the card does the work, and a thread pool
+    # a rank would have the ranks' host threads spin against each other
+    # on the machine's cores; the ranks start at the world's first job
+    world = RankWorld(args.stages * args.tp, device=args.device, threads=1)
+    try:
+        res = run_sections(params, cfg, base, args, world, tracer, metrics)
+    finally:
+        world.close()
     print("sample token ids:", res["decode"]["tokens"][:, -1][:8].tolist())
     print(f"kernel launches {ops.launch_counts()}")
     export_instruments(tracer, metrics, args)

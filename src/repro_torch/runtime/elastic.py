@@ -6,9 +6,10 @@ machinery gives fault tolerance: when a stage dies, the survivors re-run
 Halda over the reduced stage list, re-permute the layer stack for the new
 (M', k', w') plan, and continue from the last token — KV state for the
 lost stage's layers is rebuilt by a re-prefill of the conversation so far
-(decode state is the only non-checkpointed state). The port's stages
-share one device (``launch.mesh``), so a "failed stage" is the schedule's
-stage, reported by a ``StageFailure``.
+(decode state is the only non-checkpointed state). In one process a
+"failed stage" is the schedule's stage, reported by a ``StageFailure``;
+across ranks it is the stage of a rank process that died or whose read
+raised one (``runtime.failover``).
 """
 from __future__ import annotations
 

@@ -145,10 +145,11 @@ def _flat_parts(tree: Params) -> List[Tuple[str, Optional[str],
     return out
 
 
-def _raw_bytes(t: torch.Tensor) -> bytes:
-    """A tensor's bytes in row-major order, as numpy's ``tobytes``."""
+def _write_raw(f, t: torch.Tensor) -> None:
+    """Write a tensor's bytes in row-major order (numpy's ``tobytes``
+    order) to ``f``, from its host copy without another."""
     t = t.detach().to("cpu").contiguous().reshape(-1)
-    return t.view(torch.uint8).numpy().tobytes()
+    f.write(memoryview(t.view(torch.uint8).numpy()))
 
 
 def _specs(flat, *, offset: int = 0) -> List[LeafSpec]:
@@ -206,14 +207,14 @@ def write_param_store(layer: Callable[[int], Params], head: Params, cfg,
             raise ValueError(f"layer {i}: leaves differ from layer 0's")
         with open(os.path.join(directory, _layer_file(i)), "wb") as f:
             for _, _, t, _ in flat:
-                f.write(_raw_bytes(t))
+                _write_raw(f, t)
     layer_nbytes = sum(s.nbytes for s in layer_specs)
 
     head_flat = _flat_parts(head)
     head_specs = _specs(head_flat)
     with open(os.path.join(directory, HEAD_FILE), "wb") as f:
         for _, _, t, _ in head_flat:
-            f.write(_raw_bytes(t))
+            _write_raw(f, t)
 
     quantized = any(s.part for s in layer_specs + head_specs)
     manifest = {
@@ -359,6 +360,11 @@ class ParamStore(ParamSource):
         self._files: Dict[int, Any] = {}
         self.released = 0          # release() calls that actually dropped
         self.released_bytes = 0    # bytes those drops returned to the OS
+
+    @property
+    def layer_leaves(self) -> List[LeafSpec]:
+        """The manifest's specs of a layer file's leaves, in file order."""
+        return list(self._leaves)
 
     @property
     def quant_format(self) -> Optional[str]:

@@ -7,9 +7,10 @@ block of k*w ring rows (``ring_permutation``). All M stages run in one
 process on one device (``launch.mesh.RingLayout``): each stage has its
 own k*w rows of the layer bank and of the cache, and the ring hop is a
 hand-off of a stage's output to the next stage. Tensor parallelism inside
-a stage (the JAX package's "model" axis) is ROADMAP Queue A item 6, so
-the sequence-split attention merge, the vocab-sharded embed and unembed
-and the split FFN are their tp = 1 identities here.
+a stage (the JAX package's "model" axis) runs across ranks (the second
+half of this module: ``RankRingStep``, its parts resident or streamed),
+so in one process the sequence-split attention merge, the vocab-sharded
+embed and unembed and the split FFN are their tp = 1 identities.
 
 Decode schedule (one pass, T tokens for the whole batch): the batch
 splits into M microbatches; at microstep t, stage m takes microbatch
@@ -668,6 +669,17 @@ def _tree_nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_tensors(tree))
 
 
+def rank_head(source, cfg: ModelConfig, layout, *, device=None) -> Params:
+    """Rank ``layout``'s part of the head, read once from ``source`` (a
+    ``ParamStore``'s mapped head file, or a ``ResidentSource``): the vocab
+    shard of ``embed`` (and ``unembed``) padded to a multiple of tp, and
+    ``final_norm``."""
+    device = torch.device(device or layout.device)
+    head = getattr(source, "head_view", source.head)()
+    head = pad_vocab(head, cfg, layout.tp)
+    return _shard_tree(head, "", (), layout.mesh, layout.coords, device)
+
+
 def rank_params(source, cfg: ModelConfig, plan: RingPlan, layout, *,
                 device=None) -> Params:
     """Rank ``layout``'s part of the ring's parameters, read from
@@ -677,8 +689,7 @@ def rank_params(source, cfg: ModelConfig, plan: RingPlan, layout, *,
     (zero layers past L) with this member's slice of every FFN and expert
     stack (q4 leaves cut as packed bytes and scale rows,
     ``quantize_ring_params`` at the real tp keeping them together), each
-    prepared as ``ring_params`` prepares a row; the vocab shard of
-    ``embed`` (and ``unembed``) padded to a multiple of tp; ``final_norm``;
+    prepared as ``ring_params`` prepares a row; the head (``rank_head``);
     and ``nbytes``, the bytes cut out before any q4 leaf was dequantized
     (the rank's share of the model)."""
     from ..bridge import block_from_tree
@@ -698,11 +709,84 @@ def rank_params(source, cfg: ModelConfig, plan: RingPlan, layout, *,
                                                   device=device), zero)
         nbytes += _tree_nbytes(tree)
         blocks.append(block_from_tree(_prep_ring_layer(tree)))
-    head = getattr(source, "head_view", source.head)()
-    head = pad_vocab(head, cfg, layout.tp)
-    head = _shard_tree(head, "", (), mesh, coords, device)
+    head = rank_head(source, cfg, layout, device=device)
     nbytes += _tree_nbytes(head)
     return dict(head, blocks=blocks, nbytes=nbytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafCut:
+    """One leaf of a store's layer file and a rank's part of it: ``spec``
+    (the store's ``paramstore.LeafSpec``), ``split`` (its ring spec, the
+    layer axis dropped) and ``local`` (a ``LeafSpec`` of the part at its
+    offset in the rank's flat layer: a q4 part's quant record carries the
+    part's unpacked shape)."""
+    spec: Any
+    split: tuple
+    local: Any
+
+    def copy(self, src: torch.Tensor, dst: torch.Tensor, mesh,
+             coords) -> None:
+        """Copy the rank's part of the leaf out of ``src`` (a layer file's
+        bytes, e.g. its mapping) into ``dst`` (the rank's flat layer):
+        bytes the rank does not own are never copied. The leaf is cut as
+        bytes (its elements' bytes a trailing axis), so no offset needs
+        to be aligned to its element size."""
+        from . import sharding as S
+
+        isz = self.spec.nbytes // math.prod(self.spec.shape)
+        raw = src[self.spec.offset:self.spec.offset + self.spec.nbytes]
+        part = S.local_shard(raw.view(tuple(self.spec.shape) + (isz,)),
+                             self.split, mesh, coords)
+        out = dst[self.local.offset:self.local.offset + self.local.nbytes]
+        out.view(tuple(self.local.shape) + (isz,)).copy_(part)
+
+
+def rank_layer_cuts(leaves: Sequence, plan: RingPlan, layout
+                    ) -> List[LeafCut]:
+    """The rank's part of every leaf of a store's layer (``leaves``: the
+    manifest's ``LeafSpec``s, ``ParamStore.layer_leaves``) by the ring's
+    specs, as ``rank_params`` cuts a layer, laid out leaf after leaf in a
+    flat layer of their own. q4 leaves are cut as packed rows and scale
+    rows together; rows that do not split together raise, as
+    ``_shard_tree`` raises."""
+    from .paramstore import LeafSpec
+    from . import sharding as S
+
+    mesh = layout.mesh
+    cuts, offset, parts = [], 0, {}
+    for spec in leaves:
+        path = "['blocks']" + "".join(f"['{k}']"
+                                      for k in spec.key.split("/"))
+        if spec.part is not None:
+            path += "." + spec.part
+        # the sanitized spec of the stacked leaf: an entry a dimension
+        split = tuple(ring_leaf_spec(path, (plan.L_pad,) + tuple(spec.shape),
+                                     mesh)[1:])
+        shape = tuple(d // S.axis_size(mesh, e)
+                      for d, e in zip(spec.shape, split))
+        nbytes = spec.nbytes // math.prod(spec.shape) * math.prod(shape)
+        if spec.part is not None:
+            parts.setdefault(spec.key, {})[spec.part] = (spec.shape, shape)
+        cuts.append(LeafCut(spec, split, LeafSpec(
+            key=spec.key, shape=shape, dtype=spec.dtype, offset=offset,
+            nbytes=nbytes, part=spec.part, quant=spec.quant)))
+        offset += nbytes
+    for i, c in enumerate(cuts):
+        if c.spec.part is None:
+            continue
+        (pf, pl), (sf, sl) = parts[c.spec.key]["packed"], \
+            parts[c.spec.key]["scale"]
+        if pf[-2] // pl[-2] != sf[-2] // sl[-2]:
+            raise ValueError(f"{c.spec.key}: packed rows and scale rows "
+                             f"split differently (quantize_ring_params at "
+                             f"the real tp keeps them together)")
+        per = 8 // int(c.spec.quant["bits"])
+        quant = dict(c.spec.quant, shape=list(pl[:-2]) + [pl[-2] * per,
+                                                           pl[-1]])
+        cuts[i] = dataclasses.replace(
+            c, local=dataclasses.replace(c.local, quant=quant))
+    return cuts
 
 
 def rank_cache(cache: Dict, cfg: ModelConfig, plan: RingPlan, layout, *,
@@ -728,6 +812,48 @@ def rank_cache(cache: Dict, cfg: ModelConfig, plan: RingPlan, layout, *,
     ln = S.local_shard(cache["len"], ring_cache_spec("['len']", 1, mesh),
                        mesh, coords)
     return {"len": ln.to(device).contiguous(), "layers": layers}
+
+
+def rank_init_cache(cfg: ModelConfig, plan: RingPlan, layout, batch: int,
+                    max_len: int, *, dtype=torch.float32, device=None
+                    ) -> Dict:
+    """Rank ``layout``'s part of an empty ring cache (``init_cache``'s
+    zeros, as ``rank_cache`` would cut them), made at the part's shapes
+    without the whole cache."""
+    from ..models import init_cache
+    from . import sharding as S
+
+    device = torch.device(device or layout.device)
+    mesh = layout.mesh
+    like = init_cache(cfg, batch, max_len, dtype=dtype, device="meta")
+    layers = {}
+    for name, a in like["layers"].items():
+        spec = ring_cache_spec(f"['layers']['{name}']", a.dim(), mesh)[1:]
+        row = S.local_shard(a[0], spec, mesh, layout.coords)
+        layers[name] = torch.zeros((plan.k * plan.w,) + tuple(row.shape),
+                                   dtype=a.dtype, device=device)
+    ln = S.local_shard(like["len"], ring_cache_spec("['len']", 1, mesh),
+                       mesh, layout.coords)
+    return {"len": torch.zeros(ln.shape, dtype=ln.dtype, device=device),
+            "layers": layers}
+
+
+class ResidentWindows:
+    """A rank's windows from its resident rows (``rank_params``'
+    ``blocks``): ``get(r)`` is window r's w blocks; the streamed
+    counterpart is ``streaming.RankWindowPrefetcher``."""
+
+    def __init__(self, blocks: Sequence, w: int):
+        self.blocks, self.w = blocks, w
+
+    def begin_pass(self) -> None:
+        pass
+
+    def get(self, r: int) -> Sequence:
+        return self.blocks[r * self.w:(r + 1) * self.w]
+
+    def done(self, r: int) -> None:
+        pass
 
 
 @dataclasses.dataclass
@@ -893,7 +1019,13 @@ class RankRingStep:
     ``("pod", "data", "model")`` mesh.
 
     ``params`` is ``rank_params``' and ``cache`` ``rank_cache``'s (its
-    ``len``: the tokens so far). A pass: the vocab-sharded embed summed
+    ``len``: the tokens so far). ``windows``: where the stage's rows come
+    from, a window (w rows) at a time: ``ResidentWindows`` over
+    ``params["blocks"]`` (the default), or the rank's
+    ``streaming.RankWindowPrefetcher`` (then ``params`` needs only the
+    head, ``rank_head``'s), which the step tells when a pass begins and
+    when a window's last microbatch is done. A pass: the vocab-sharded
+    embed summed
     over "model"; at microstep t, stage m takes microbatch e = (t - m) mod
     M through window r = (t - e) // M of its rows where it is in the
     schedule (the JAX step computes and masks the others; here they are
@@ -917,7 +1049,8 @@ class RankRingStep:
 
     def __init__(self, cfg: ModelConfig, plan: RingPlan, layout,
                  params: Params, *, n_tokens: int = 1, tracer=None,
-                 probe: Optional[Callable] = None, offsets: bool = True):
+                 probe: Optional[Callable] = None, offsets: bool = True,
+                 windows=None):
         if n_tokens < 1:
             raise ValueError("n_tokens must be >= 1")
         if n_tokens > 1 and cfg.family == "ssm":
@@ -926,9 +1059,13 @@ class RankRingStep:
         if layout.n_stages != plan.n_stages:
             raise ValueError(f"a {plan.n_stages}-stage plan on a "
                              f"{layout.n_stages}-stage layout")
-        if len(params["blocks"]) != plan.k * plan.w:
-            raise ValueError(f"{len(params['blocks'])} blocks on a rank, the "
-                             f"plan's stage holds {plan.k * plan.w}")
+        if windows is None:
+            if len(params["blocks"]) != plan.k * plan.w:
+                raise ValueError(f"{len(params['blocks'])} blocks on a "
+                                 f"rank, the plan's stage holds "
+                                 f"{plan.k * plan.w}")
+            windows = ResidentWindows(params["blocks"], plan.w)
+        self.windows = windows
         self.cfg, self.plan, self.layout = cfg, plan, layout
         self.n_tokens, self.params = n_tokens, params
         self.tracer = resolve_tracer(tracer)
@@ -974,23 +1111,32 @@ class RankRingStep:
             j = t - (t - stage) % M
             return j, 0 <= j < kM
 
+        # stage m runs window r over microbatches 0..M-1 at microsteps
+        # m + rM .. m + rM + M - 1: fetched at the first, done after the
+        # last
+        self.windows.begin_pass()
+        blocks: Sequence = ()
         for t in range(plan.n_steps):
             j, valid = in_schedule(m, t)
             out = None
             if valid:
                 with phase(f"microstep[{t}]"):
                     e = (t - m) % M
+                    r = j // M
+                    if e == 0:
+                        blocks = self.windows.get(r)
                     batch = slice(e * mb, (e + 1) * mb)
                     h = emb[batch] if j == 0 else x
-                    base = (j // M) * w
-                    for i in range(base, base + w):
-                        c = {n: a[i, batch] for n, a in layers.items()}
+                    for i, blk in enumerate(blocks):
+                        c = {n: a[r * w + i, batch]
+                             for n, a in layers.items()}
                         if layer is _ring_ssd_layer:
-                            h = layer(cfg, p["blocks"][i], h, c, ln[batch])
+                            h = layer(cfg, blk, h, c, ln[batch])
                         else:
-                            h = layer(cfg, p["blocks"][i], h, c, ln[batch],
-                                      sh)
+                            h = layer(cfg, blk, h, c, ln[batch], sh)
                         sh.seen("x", h)
+                    if e == M - 1:
+                        self.windows.done(r)
                     if j == kM - 1:
                         hidden[batch] = ll.rms_norm(h, p["final_norm"],
                                                     cfg.norm_eps)
@@ -1035,8 +1181,8 @@ def rank_ring_job(ctx, *, cfg: ModelConfig, n_stages: int, tp: int,
                   verify_tokens: int = 1, verify_reps: int = 1,
                   keep_logits: bool = False, check_replicated: bool = False,
                   offsets: bool = True, return_cache: bool = False,
-                  trace: bool = False, fail_rank: Optional[int] = None
-                  ) -> Dict:
+                  trace: bool = False, fail_rank: Optional[int] = None,
+                  stream: Optional[Dict[str, Any]] = None) -> Dict:
     """One rank's run of the ring across ranks (a ``launch.mesh.RankWorld``
     job; every rank of a ``pods x n_stages x tp`` world runs it): its part
     of the layer store at ``store`` (``rank_params``) and of the
@@ -1057,7 +1203,8 @@ def rank_ring_job(ctx, *, cfg: ModelConfig, n_stages: int, tp: int,
     (``check_replicated``), its cache part after each step
     (``return_cache``) and, with ``trace``, the steps' share spent in
     collectives and their staging. ``fail_rank``: that rank raises at its
-    second step (the driver's failure path)."""
+    second step (the driver's failure path). ``stream``: the rows stream
+    from the store instead (``rank_stream_job``)."""
     from ..kernels import ops
     from .paramstore import ParamStore
     from .telemetry import Tracer
@@ -1066,11 +1213,17 @@ def rank_ring_job(ctx, *, cfg: ModelConfig, n_stages: int, tp: int,
     lay = ctx.layout(n_stages, tp, pods)
     dev = lay.device
     plan = RingPlan.make(cfg, n_stages, k)
+    tracer = Tracer() if trace else None
     src = ParamStore(store)
-    try:
-        params = rank_params(src, cfg, plan, lay)
-    finally:
-        src.close()
+    windows = None
+    if stream is None:
+        try:
+            params = rank_params(src, cfg, plan, lay)
+        finally:
+            src.close()
+    else:
+        windows, params = _rank_windows(src, cfg, plan, lay, tracer=tracer,
+                                        **stream)
     if isinstance(cache, str):
         cache = torch.load(cache, map_location="cpu", mmap=True)
     c = rank_cache(cache, cfg, plan, lay)
@@ -1083,9 +1236,8 @@ def rank_ring_job(ctx, *, cfg: ModelConfig, n_stages: int, tp: int,
     unequal: List[str] = []
     probe = _replicated_probe(lay.model, seen, unequal) \
         if check_replicated else None
-    tracer = Tracer() if trace else None
     step = RankRingStep(cfg, plan, lay, params, tracer=tracer, probe=probe,
-                        offsets=offsets)
+                        offsets=offsets, windows=windows)
     tok = torch.as_tensor(np.asarray(first)[rows], device=dev).int()
     toks, secs, kept, caches = [], [], [], []
     ops.reset_launch_counts()
@@ -1127,7 +1279,7 @@ def rank_ring_job(ctx, *, cfg: ModelConfig, n_stages: int, tp: int,
     T = verify_tokens
     if T > 1:
         vstep = RankRingStep(cfg, plan, lay, params, n_tokens=T,
-                             probe=probe, offsets=offsets)
+                             probe=probe, offsets=offsets, windows=windows)
         ln0 = c["len"].clone()
         vt = tok[:, -1:].expand(-1, T).contiguous()
         for i in range(verify_reps):
@@ -1142,4 +1294,46 @@ def rank_ring_job(ctx, *, cfg: ModelConfig, n_stages: int, tp: int,
                     vl, lay.model, cfg.vocab).float().cpu().numpy()
         c["len"].copy_(ln0)
     out["caches"] = caches
+    if windows is not None:
+        # a failed job ends the whole world, so only a finished one has a
+        # prefetcher to stop
+        out["prefetch"] = windows.report()
+        windows.close()
+        src.close()
     return out
+
+
+def _rank_windows(store, cfg: ModelConfig, plan: RingPlan, layout, *,
+                  depth: int = 2, policy=None, fault=None, tracer=None):
+    """A rank's streamed windows over ``store`` (an open ``ParamStore``)
+    and its head: (``streaming.RankWindowPrefetcher``, the head with
+    ``nbytes``, the rank's share of the model as ``rank_params`` counts
+    it). ``fault``: ``(rank, faults.FaultSpec)``, that rank's layer reads
+    go through a ``faults.FaultyStore`` firing the spec; ``tracer``: the
+    prefetcher's spans."""
+    from .faults import FaultInjector, FaultyStore
+    from .streaming import RankWindowPrefetcher
+
+    if fault is not None and fault[0] == layout.rank:
+        store = FaultyStore(store, FaultInjector([fault[1]]))
+    head = rank_head(store, cfg, layout)
+    pf = RankWindowPrefetcher(store, cfg, plan, layout, depth=depth,
+                              policy=policy, tracer=tracer)
+    nbytes = _tree_nbytes(head) + plan.k * plan.w * pf.local_nbytes
+    return pf, dict(head, nbytes=nbytes)
+
+
+def rank_stream_job(ctx, *, depth: int = 2, policy=None, fault=None,
+                    **kwargs) -> Dict:
+    """``rank_ring_job`` with the rank's rows streamed from the store
+    (``streaming.RankWindowPrefetcher``: only its stage's windows and
+    only its part of each leaf, ``depth`` windows staged ahead of the
+    compute front, each released after its last microbatch of a pass)
+    instead of held resident: the same result plus ``prefetch``, the
+    rank's ``RankWindowPrefetcher.report`` (bytes read a pass, peak
+    staged bytes, stall, retries). ``policy``: the reads' ``IOPolicy``;
+    ``fault``: ``(rank, faults.FaultSpec)`` fired on that rank's reads.
+    A read that fails past its retries raises on its rank, so the job
+    fails with a ``launch.mesh.RankFailure`` naming it."""
+    return rank_ring_job(ctx, stream=dict(depth=depth, policy=policy,
+                                          fault=fault), **kwargs)

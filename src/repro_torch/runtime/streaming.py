@@ -37,7 +37,9 @@ which ``chip_smoke.py`` measures with CUDA events around ``_to_card``.
 ``RingBankPrefetcher`` and ``StreamingRingDriver`` stream the piped ring
 (``runtime.serve``) the same way: a worker stages each microstep's
 window bank one step ahead of the compute front and releases a layer
-after its last use in the pass.
+after its last use in the pass. ``RankWindowPrefetcher`` streams one rank
+of the ring across ranks: only its stage's windows, and of each row only
+the rank's part of every leaf (``serve.RankRingStep`` runs them).
 """
 from __future__ import annotations
 
@@ -113,8 +115,8 @@ class _Staging:
     mmap into a free one (``_stage``), and its host-to-device copy on the
     side stream (``_to_card``), after which the buffer goes back to the
     ring with the copy's event. Subclasses set ``store``, ``on_card``,
-    ``device``, ``_side``, ``_cv``, ``_free``, ``_ring_made``, ``_stop``
-    and ``_n_buffers``."""
+    ``device``, ``_side``, ``_cv``, ``_free``, ``_ring_made``, ``_stop``,
+    ``_n_buffers`` and ``_buf_nbytes``."""
 
     def _reopen(self, i: int) -> None:
         reopen = getattr(self.store, "reopen", None)
@@ -125,7 +127,7 @@ class _Staging:
         """A free staging buffer; once its last copy to the card is done."""
         with self._cv:
             if not self._ring_made:
-                n = self.store.layer_nbytes
+                n = self._buf_nbytes
                 for _ in range(self._n_buffers):
                     self._free.append((torch.empty(
                         n, dtype=torch.uint8, pin_memory=self.on_card),
@@ -159,13 +161,17 @@ class _Staging:
             raise
         return buf, t0, clock()          # event = disk -> staging only
 
+    def _leaves(self, buf: torch.Tensor) -> Params:
+        """A staged layer's leaves as views of the flat ``buf``."""
+        return self.store.leaves(buf)
+
     def _to_card(self, buf: torch.Tensor, nbytes: int):
         """Host-to-device copy of a staged layer on the side stream; the
         staging buffer goes back to the ring with the copy's event."""
         with torch.cuda.stream(self._side):
             dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
             dev.copy_(buf[:nbytes], non_blocking=True)
-            tree = self.store.leaves(dev)    # unaligned leaves copy here
+            tree = self._leaves(dev)         # unaligned leaves copy here
             event = torch.cuda.Event()
             event.record(self._side)
         self._give_back(buf, event)
@@ -216,6 +222,7 @@ class LayerPrefetcher(_Staging):
         # window + 1 buffers: the in-window layers plus, at most, one read
         # that was in flight when the front moved past it
         self._n_buffers = self.window + 1
+        self._buf_nbytes = store.layer_nbytes
         # layer -> (tree, nbytes, tier at rest, host buffer | copy event)
         self._buf: Dict[int, Tuple[Params, int, str, Any]] = {}
         self._queue: deque = deque()
@@ -527,41 +534,35 @@ def make_streaming_engine(source: ParamSource, cfg, batch: int, ctx: int,
 #  the streamed piped ring
 # --------------------------------------------------------------------------- #
 
-class RingBankPrefetcher(_Staging):
-    """Stage each microstep's window bank for the streamed ring.
-
-    The ring schedule needs, at microstep ``t``, a bank whose stage-``m``
-    rows hold that stage's round-``r_m(t)`` window
-    (``serve.ring_bank_layers``: M*w rows). A worker thread assembles
-    the banks of a pass in order, at most ``depth`` steps ahead of the
-    compute front: each layer a bank needs is read once a pass (one
-    memcpy out of the mmap into a pinned staging buffer, then its
-    host-to-device copy on a side stream, as ``LayerPrefetcher`` stages),
-    shared by every later bank of the pass that holds it, and released
-    after its last use in the pass (``done``), behind the front. A bank
-    is the list of its rows' layer trees, views of the staged device
-    buffers: the JAX package stacks a bank into one array for its sharded
-    ``device_put``, which on one card would move the same bytes again
-    every step. Rows past the model's layers (ring padding) share one
-    zero layer, made once and kept.
-
-    ``get(t)`` makes the compute stream wait on the bank's copies. Staged
+class _PassStaging(_Staging):
+    """What the streamed ring's prefetchers share: a pass is a list of
+    units (a microstep's bank, or a rank's window), each a list of layer
+    rows. A worker thread stages the pass's units in order, at most
+    ``depth`` units past the compute front (the unit in use counts): each
+    layer a unit holds is read once a pass through ``policy`` with
+    ``health`` (``_read``: one memcpy out of the mmap into a pinned
+    staging buffer), copied to the card on the side stream, shared by
+    every later unit of the pass that holds it and released after the
+    last one (``done``), behind the front. Rows past the model's layers
+    (ring padding) share one zero layer, released like a read one.
+    ``get(t)`` returns unit t's trees, views of the staged device
+    buffers, and makes the compute stream wait on their copies. Staged
     bytes lease from ``memory`` (host while staging, device once on the
-    card); ``stats()`` gives ``PrefetchStats``; reads go through
-    ``policy`` with ``health``; with a tracer, ``layer_read[i]`` and
-    ``bank[t]`` (the worker's time to stage the bank) spans land on the
-    ``ring-prefetcher`` track and blocked ``get`` calls on ``decode``.
-    On the CPU staged layers stay on the host (private copies).
-    """
+    card); ``stats()`` gives ``PrefetchStats``; with a tracer,
+    ``layer_read[i]`` and ``<unit>[t]`` (the worker's time to stage the
+    unit) spans land on the ``ring-prefetcher`` track and blocked ``get``
+    calls on ``decode``. On the CPU staged layers stay on the host
+    (private copies). Subclasses set ``unit`` and may give ``_read``,
+    ``_leaves`` and ``_where``."""
 
-    def __init__(self, store: ParamStore, cfg, plan, *, depth: int = 2,
+    unit = "bank"
+
+    def __init__(self, store: ParamStore, units: List[List[int]],
+                 n_layers: int, *, row_nbytes: int, depth: int = 2,
                  device="cuda", policy: Optional[IOPolicy] = None,
                  tracer=None, memory: Optional[TierManager] = None,
                  owner: str = "weights"):
-        from .serve import ring_bank_layers
-
         self.store = store
-        self.plan = plan
         self.depth = max(depth, 1)
         self.device = torch.device(device)
         self.on_card = self.device.type == "cuda"
@@ -572,34 +573,31 @@ class RingBankPrefetcher(_Staging):
         self.memory = memory if memory is not None \
             else TierManager(name="ring-prefetch-memory")
         self.owner = owner
-        self.health = WorkerHealth(name="RingBankPrefetcher")
+        self.health = WorkerHealth(name=type(self).__name__)
         self._side = torch.cuda.Stream(self.device) if self.on_card else None
         self._free: deque = deque()
         self._ring_made = False
         self._n_buffers = 2          # one being filled, one being copied
-        self.n_steps = plan.n_steps
-        self._rows = [ring_bank_layers(plan, t) for t in range(self.n_steps)]
-        self.n_layers = cfg.n_layers
-        last: Dict[int, int] = {}
-        for t, rows in enumerate(self._rows):
-            for layer in rows:
-                if layer < self.n_layers:
-                    last[int(layer)] = t
-        self._last_use = last
-        self._zero: Optional[Params] = None   # padding rows' layer
-        self._zero_bytes = 0
+        self._buf_nbytes = self.row_nbytes = row_nbytes
+        self.n_layers = n_layers
+        # padding rows are one key, the zero layer's
+        self._units = [[min(int(g), n_layers) for g in rows]
+                       for rows in units]
+        self._last_use = {g: t for t, rows in enumerate(self._units)
+                          for g in rows}
         # layer -> (tree, nbytes, tier, copy event or None)
         self._staged: Dict[int, Tuple[Params, int, str, Any]] = {}
-        self._banks: Dict[int, List[Tuple[Params, Any]]] = {}
+        self._ready: Dict[int, List[Tuple[Params, Any]]] = {}
         self._cv = threading.Condition()
         self._stop = False
         self._interrupted = False
         self._error: Optional[BaseException] = None
         self._want: deque = deque()
-        self._front = -1                  # last consumed step
+        self._front = -1                  # last unit done this pass
+        self.passes = 0
         self._resident = 0
         self._peak = 0
-        self._read = 0
+        self._read_bytes = 0
         self._stall = 0.0
         self._served = 0
         self._events: List[PrefetchEvent] = []
@@ -608,82 +606,82 @@ class RingBankPrefetcher(_Staging):
 
     # -- staging ----------------------------------------------------------- #
 
+    def _read(self, i: int) -> Tuple[torch.Tensor, float, float]:
+        return self._stage(i)
+
+    def _where(self) -> str:
+        return ""
+
     def _hold(self, nbytes: int) -> None:
         with self._cv:
             self._resident += nbytes
             self._peak = max(self._peak, self._resident)
 
-    def _zero_layer(self) -> Params:
-        if self._zero is None:
-            n = self.store.layer_nbytes
-            tier = "device" if self.on_card else "host"
-            self.memory.lease(tier, n, self.owner, wait=True,
-                              timeout=self.policy.op_deadline_s,
-                              cancelled=lambda: self._stop)
-            buf = torch.zeros(n, dtype=torch.uint8,
-                              device=self.device if self.on_card else "cpu")
-            self._zero = self.store.leaves(buf)
-            self._zero_bytes = n
-            self._hold(n)
-        return self._zero
+    def _zero_layer(self) -> Tuple[Params, Any]:
+        n = self.row_nbytes
+        tier = "device" if self.on_card else "host"
+        self.memory.lease(tier, n, self.owner, wait=True,
+                          timeout=self.policy.op_deadline_s,
+                          cancelled=lambda: self._stop)
+        buf = torch.zeros(n, dtype=torch.uint8,
+                          device=self.device if self.on_card else "cpu")
+        tree = self._leaves(buf)
+        with self._cv:
+            self._staged[self.n_layers] = (tree, n, tier, None)
+        self._hold(n)
+        return tree, None
 
     def _layer(self, layer: int) -> Tuple[Params, Any]:
         """Layer ``layer``'s staged tree and copy event (None on the
         host): staged now unless this pass staged it already."""
-        if layer >= self.n_layers:
-            return self._zero_layer(), None
         ent = self._staged.get(layer)
         if ent is not None:
             return ent[0], ent[3]
-        est = self.store.layer_nbytes
-        self.memory.lease("host", est, self.owner, wait=True,
+        if layer == self.n_layers:
+            return self._zero_layer()
+        n = self.row_nbytes
+        self.memory.lease("host", n, self.owner, wait=True,
                           timeout=self.policy.op_deadline_s,
                           cancelled=lambda: self._stop)
         try:
             buf, t0, t1 = self.policy.run(
-                f"layer_read[{layer}]", lambda: self._stage(layer),
+                f"layer_read[{layer}]", lambda: self._read(layer),
                 reopen=lambda: self._reopen(layer), health=self.health)
         except BaseException:
-            self.memory.release("host", est, self.owner)
+            self.memory.release("host", n, self.owner)
             raise
-        nbytes = est
         if self.on_card:
             try:
-                self.memory.lease("device", nbytes, self.owner, wait=True,
+                self.memory.lease("device", n, self.owner, wait=True,
                                   timeout=self.policy.op_deadline_s,
                                   cancelled=lambda: self._stop)
             except BaseException:
                 self._give_back(buf)
-                self.memory.release("host", est, self.owner)
+                self.memory.release("host", n, self.owner)
                 raise
-            tree, event = self._to_card(buf, nbytes)
-            self.memory.release("host", est, self.owner)
+            tree, event = self._to_card(buf, n)
+            self.memory.release("host", n, self.owner)
             tier = "device"
         else:
-            tree, event = self.store.leaves(buf[:nbytes].clone()), None
+            tree, event = self._leaves(buf[:n].clone()), None
             self._give_back(buf)
             tier = "host"
         self.tracer.span_event(f"layer_read[{layer}]", t0, t1,
                                cat="prefetch", track="ring-prefetcher",
-                               nbytes=nbytes)
+                               nbytes=n)
         with self._cv:     # bookkeeping races with done()'s releases
-            self._staged[layer] = (tree, nbytes, tier, event)
-            self._read += nbytes
-            self._events.append(PrefetchEvent(layer, t0, t1, nbytes))
-        self._hold(nbytes)
+            self._staged[layer] = (tree, n, tier, event)
+            self._read_bytes += n
+            self._events.append(PrefetchEvent(layer, t0, t1, n))
+        self._hold(n)
         return tree, event
-
-    def _build_bank(self, t: int) -> List[Tuple[Params, Any]]:
-        with self.tracer.span(f"bank[{t}]", cat="prefetch",
-                              track="ring-prefetcher"):
-            return [self._layer(int(i)) for i in self._rows[t]]
 
     def _worker(self) -> None:
         if self.on_card:
             torch.cuda.set_device(self.device)
         while True:
             with self._cv:
-                # never more than ``depth`` banks past the front: what
+                # never more than ``depth`` units past the front: what
                 # bounds the staged bytes by the windows, not the model
                 while not self._stop and (
                         not self._want
@@ -693,7 +691,9 @@ class RingBankPrefetcher(_Staging):
                     return
                 t = self._want.popleft()
             try:
-                bank = self._build_bank(t)
+                with self.tracer.span(f"{self.unit}[{t}]", cat="prefetch",
+                                      track="ring-prefetcher"):
+                    rows = [self._layer(g) for g in self._units[t]]
             except (KeyboardInterrupt, SystemExit):
                 with self._cv:
                     self._stop = True
@@ -706,81 +706,88 @@ class RingBankPrefetcher(_Staging):
                     self._cv.notify_all()
                 return
             with self._cv:
-                self._banks[t] = bank
+                self._ready[t] = rows
                 self._cv.notify_all()
 
     # -- front side -------------------------------------------------------- #
 
     def begin_pass(self) -> None:
-        """Enqueue the pass's microsteps (banks build ``depth`` ahead)."""
+        """Enqueue the pass's units (staged ``depth`` ahead); what an
+        unfinished pass left staged is released."""
         with self._cv:
             if self._error is not None:
-                raise RuntimeError(f"bank staging failed "
-                                   f"({self.health.report()})") \
+                raise RuntimeError(f"{self._where()}{self.unit} staging "
+                                   f"failed ({self.health.report()})") \
                     from self._error
-            self._banks.clear()
+            self._ready.clear()
+            for layer in list(self._staged):
+                self._drop_locked(layer)
             self._front = -1
             self._want.clear()
-            self._want.extend(range(self.n_steps))
+            self._want.extend(range(len(self._units)))
+            self.passes += 1
             self._cv.notify_all()
 
     def _drop_locked(self, layer: int) -> None:
         _, nbytes, tier, _ = self._staged.pop(layer)
         self._resident -= nbytes
         self.memory.release(tier, nbytes, self.owner)
-        self.store.release(layer)
+        if layer < self.n_layers:
+            self.store.release(layer)
 
     def get(self, t: int, *, timeout: Optional[float] = None) -> List[Params]:
-        """Block until step ``t``'s bank is staged (at most ``timeout``
-        seconds, default the policy's ``get_timeout_s``); returns its M*w
-        layer trees in bank-row order. On the card the current stream
-        waits for their copies."""
+        """Block until unit ``t`` is staged (at most ``timeout`` seconds,
+        default the policy's ``get_timeout_s``); returns its layer trees
+        in row order. On the card the current stream waits for their
+        copies."""
         if timeout is None:
             timeout = self.policy.get_timeout_s
         deadline = clock() + timeout
+        unit = self.unit
         with self._cv:
             t0 = clock()
             with self.tracer.phase("disk_wait", cat="prefetch",
                                    track="decode", min_dur=2e-4,
-                                   label=f"bank_wait[{t}]"):
-                while t not in self._banks:
+                                   label=f"{unit}_wait[{t}]"):
+                while t not in self._ready:
                     if self._error is not None:
                         raise RuntimeError(
-                            f"bank staging for step {t} failed "
-                            f"({self.health.report()})") from self._error
+                            f"{self._where()}{unit} staging failed at "
+                            f"{unit} {t} ({self.health.report()})") \
+                            from self._error
                     if self._stop:
                         raise RuntimeError(
-                            "bank prefetcher stopped" + (
+                            f"{unit} prefetcher stopped" + (
                                 " (worker interrupted)"
                                 if self._interrupted else ""))
                     remaining = deadline - clock()
                     if remaining <= 0:
                         self.health.stalled = True
                         raise StallTimeout(
-                            f"bank for step {t} not staged within "
+                            f"{self._where()}{unit} {t} not staged within "
                             f"{timeout:.1f}s ({self.health.report()})",
-                            op=f"bank_build[{t}]")
+                            op=f"{unit}[{t}]")
                     self._cv.wait(min(remaining, 0.25))
             self._stall += clock() - t0
             self._served += 1
-            bank = self._banks[t]
+            rows = self._ready[t]
         if self.on_card:
             stream = torch.cuda.current_stream(self.device)
-            for tree, event in bank:
+            for tree, event in rows:
                 if event is not None:
                     stream.wait_event(event)
                 for x in tree_tensors(tree):
                     x.record_stream(stream)
-        return [tree for tree, _ in bank]
+        return [tree for tree, _ in rows]
 
     def done(self, t: int) -> None:
-        """Step ``t`` consumed: drop its bank and release the layers whose
-        last use in the pass was step ``t``."""
+        """Unit ``t`` consumed: drop it and release the layers whose last
+        use in the pass it was."""
         with self._cv:
-            self._banks.pop(t, None)
+            self._ready.pop(t, None)
             self._front = max(self._front, t)
-            for layer, last in self._last_use.items():
-                if last == t and layer in self._staged:
+            for layer in self._units[t]:
+                if self._last_use[layer] == t and layer in self._staged:
                     self._drop_locked(layer)
             self._cv.notify_all()
 
@@ -788,7 +795,7 @@ class RingBankPrefetcher(_Staging):
         with self._cv:
             return PrefetchStats(
                 events=list(self._events), peak_resident_bytes=self._peak,
-                total_bytes_read=self._read, stall_s=self._stall,
+                total_bytes_read=self._read_bytes, stall_s=self._stall,
                 layers_served=len(self._events),
                 releases=self.store.released,
                 retries=self.health.retries,
@@ -805,20 +812,128 @@ class RingBankPrefetcher(_Staging):
         self._thread.join(timeout=timeout)
         if self._thread.is_alive():
             self.health.stalled = True
-            log.error("RingBankPrefetcher.close: worker failed to join "
-                      "within %.1fs — %s", timeout, self.health.report())
+            log.error("%s.close: worker failed to join within %.1fs — %s",
+                      type(self).__name__, timeout, self.health.report())
             return False
         with self._cv:
-            self._banks.clear()
+            self._ready.clear()
             for layer in list(self._staged):
                 self._drop_locked(layer)
-            if self._zero is not None:
-                self.memory.release("device" if self.on_card else "host",
-                                    self._zero_bytes, self.owner)
-                self._resident -= self._zero_bytes
-                self._zero = None
         self.health.closed = True
         return True
+
+
+class RingBankPrefetcher(_PassStaging):
+    """Stage each microstep's window bank for the streamed ring.
+
+    The ring schedule needs, at microstep ``t``, a bank whose stage-``m``
+    rows hold that stage's round-``r_m(t)`` window
+    (``serve.ring_bank_layers``: M*w rows): the units of a pass are its
+    ``n_steps`` banks, each layer read whole. A bank is the list of its
+    rows' layer trees, views of the staged device buffers: the JAX
+    package stacks a bank into one array for its sharded ``device_put``,
+    which on one card would move the same bytes again every step.
+    """
+
+    def __init__(self, store: ParamStore, cfg, plan, *, depth: int = 2,
+                 device="cuda", policy: Optional[IOPolicy] = None,
+                 tracer=None, memory: Optional[TierManager] = None,
+                 owner: str = "weights"):
+        from .serve import ring_bank_layers
+
+        self.plan = plan
+        self.n_steps = plan.n_steps
+        super().__init__(
+            store, [ring_bank_layers(plan, t) for t in range(self.n_steps)],
+            cfg.n_layers, row_nbytes=store.layer_nbytes, depth=depth,
+            device=device, policy=policy, tracer=tracer, memory=memory,
+            owner=owner)
+
+
+class RankWindowPrefetcher(_PassStaging):
+    """Stage one rank's windows of the ring across ranks from the layer
+    store: the counterpart of the JAX ``RingBankPrefetcher`` over a
+    sharded bank, where each device receives only its shard of a bank.
+
+    A rank runs only its stage's k windows of w rows a pass
+    (``serve._rank_rows``), window r over microbatches 0..M-1 in a row,
+    so the units of its pass are those windows and it stages nothing of
+    another stage: at most ``depth`` windows are staged (the window in
+    use counts) and ``done(r)`` releases window r after its last
+    microbatch. Of each row it reads only the rank's part of every leaf,
+    cut by the ring's specs (``serve.rank_layer_cuts``, the cuts
+    ``rank_params`` makes) straight out of the mapped layer file into a
+    pinned staging buffer (one copy a leaf; q4 leaves as packed rows and
+    scale rows together), then one host-to-device copy of the rank's
+    flat layer. Padding rows share one zero layer at the rank's shapes.
+    The leases are the rank's own books. ``get(r)`` returns window r's w
+    blocks prepared as ``serve.rank_params`` prepares a row, so
+    ``serve.RankRingStep`` runs them as it runs its resident rows.
+    """
+
+    unit = "window"
+
+    def __init__(self, store: ParamStore, cfg, plan, layout, *,
+                 depth: int = 2, policy: Optional[IOPolicy] = None,
+                 tracer=None):
+        from .serve import _rank_rows, rank_layer_cuts
+
+        self.plan, self.layout = plan, layout
+        self.cuts = rank_layer_cuts(store.layer_leaves, plan, layout)
+        self._local = [c.local for c in self.cuts]
+        self.local_nbytes = sum(c.local.nbytes for c in self.cuts)
+        rows = _rank_rows(plan, layout.stage)
+        w = plan.w
+        self.windows = [[int(g) for g in rows[r * w:(r + 1) * w]]
+                        for r in range(plan.k)]
+        super().__init__(
+            store, self.windows, cfg.n_layers, row_nbytes=self.local_nbytes,
+            depth=depth, device=layout.device, policy=policy, tracer=tracer,
+            memory=TierManager(name="rank-prefetch-memory"))
+
+    def _leaves(self, buf: torch.Tensor) -> Params:
+        from .paramstore import _read_leaves
+
+        return _read_leaves(self._local, buf)
+
+    def _read(self, i: int) -> Tuple[torch.Tensor, float, float]:
+        """Copy the rank's part of layer i out of the mapping into a
+        staging buffer, a leaf at a time (no read-ahead hint: it would
+        pull the whole file); returns (the buffer, t_start, t_end)."""
+        t0 = clock()
+        src = self.store.layer_bytes(i)
+        buf = self._take_buffer()
+        try:
+            for c in self.cuts:
+                c.copy(src, buf, self.layout.mesh, self.layout.coords)
+        except BaseException:
+            self._give_back(buf)
+            raise
+        return buf, t0, clock()
+
+    def _where(self) -> str:
+        lay = self.layout
+        return f"rank {lay.rank} (stage {lay.stage}, member {lay.member}): "
+
+    def get(self, r: int, *, timeout: Optional[float] = None) -> List:
+        """Window ``r``'s w blocks (``_PassStaging.get``'s trees, prepared
+        as ring rows)."""
+        from ..bridge import block_from_tree
+        from .serve import _prep_ring_layer
+
+        return [block_from_tree(_prep_ring_layer(tree))
+                for tree in super().get(r, timeout=timeout)]
+
+    def report(self) -> Dict[str, Any]:
+        """What a rank reports of its streaming: passes, bytes read in all
+        and a pass, the rank's bytes a row, layer reads, peak staged
+        bytes, stall seconds and retries."""
+        st = self.stats()
+        return {"passes": self.passes, "bytes_read": st.total_bytes_read,
+                "bytes_a_pass": st.total_bytes_read / max(self.passes, 1),
+                "row_nbytes": self.local_nbytes, "reads": len(st.events),
+                "peak_staged_bytes": st.peak_resident_bytes,
+                "stall_s": st.stall_s, "retries": st.retries}
 
 
 class StreamingRingDriver:

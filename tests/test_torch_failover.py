@@ -257,13 +257,32 @@ def test_feasible_raises_when_no_ring_fits():
 
 
 def test_server_refuses_tp_and_ragged_batch():
+    """tp 2 runs the ring across rank processes (``ranks`` by default at
+    tp > 1; ``tests/test_torch_failover_ranks.py`` serves through it),
+    which take a layer store's directory; a ragged batch is still
+    refused; the one-process layout still refuses tp 2, naming the rank
+    path; a ``RankChaos`` needs the ranks."""
+    from repro_torch.runtime.failover import RankChaos
+
     _, cfg = _cfgs()
-    with pytest.raises(ValueError, match="item 6"):
+    srv = ElasticRingServer(cfg, "/a/store/dir", batch=8, ctx=32,
+                            n_stages=4, tp=2, device="cpu")
+    assert srv.ranks and srv.layout is None and srv.tp == 2
+    with pytest.raises(TypeError, match="directory"):
         ElasticRingServer(cfg, object(), batch=8, ctx=32, n_stages=4,
                           tp=2, device="cpu")
+    with pytest.raises(ValueError, match="RankWorld"):
+        ElasticRingServer(cfg, object(), batch=8, ctx=32, n_stages=4,
+                          tp=2, ranks=False, device="cpu")
+    with pytest.raises(ValueError, match="ranks=True"):
+        ElasticRingServer(cfg, object(), batch=8, ctx=32, n_stages=4,
+                          chaos=RankChaos(), device="cpu")
     with pytest.raises(ValueError, match="ring unsupported"):
         ElasticRingServer(cfg, object(), batch=6, ctx=32, n_stages=4,
                           device="cpu")
+    with pytest.raises(ValueError, match="ring unsupported"):
+        ElasticRingServer(cfg, "/a/store/dir", batch=6, ctx=32, n_stages=4,
+                          tp=2, device="cpu")
 
 
 def test_recovery_s_property():

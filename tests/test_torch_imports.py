@@ -78,7 +78,10 @@ def test_walk_covers_every_port_module():
     recurrentgemma and whisper configs) and the trainer's (optimizer,
     checkpoints, train step, train driver, shape stand-ins, the plain
     kernels under their JAX names) and the ring across ranks' (the
-    partition specs, the named-axis collectives) included."""
+    partition specs, the named-axis collectives; its streamed windows
+    and its failover live in ``runtime/streaming.py``,
+    ``runtime/serve.py``, ``runtime/failover.py`` and
+    ``launch/mesh.py``) included."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in FILES if p.name != "chip_smoke.py"}
     for want in ("quant/__init__.py", "quant/grouped.py",

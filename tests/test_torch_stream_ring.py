@@ -11,7 +11,7 @@ qwen2.5-14b, B 8, M 4 (the JAX ring at tp 1 on 4 host devices), logits
 within max|d|/max|ref| < 2e-4 and equal tokens. Also the driver's ring
 path through ``serve.main`` (the resident ring beside the one-device
 decode, the verify pass, the fallback where the batch does not split,
-``--tp`` refused). Everything runs on CPU tensors (the prefetcher stages
+the one-process layout's tp refused). Everything runs on CPU tensors (the prefetcher stages
 on the host).
 """
 import dataclasses
@@ -277,13 +277,17 @@ def test_driver_ring_path(argv, capsys):
 
 
 def test_driver_refuses_tp():
-    """The one-process ring (the stream section's and failover's) refuses
-    a tensor-parallel layout of a stage (that runs across ranks), and the
-    driver a width under 1."""
-    from repro_torch.launch.mesh import make_ring_layout
+    """The one-process ring refuses a tensor-parallel layout of a stage,
+    naming the rank path that runs one (the driver's stream section runs
+    its streamed ring there: ``tests/test_torch_stream_ranks.py``); a
+    rank layout takes tp 2; the driver refuses a width under 1."""
+    from repro_torch.launch.mesh import make_rank_layout, make_ring_layout
 
-    with pytest.raises(ValueError, match="item 6"):
+    with pytest.raises(ValueError, match="rank_stream_job"):
         make_ring_layout(4, 2, "cpu")
+    assert make_ring_layout(4, 1, "cpu").tp == 1
+    with pytest.raises(ValueError, match="pods, n_stages and tp >= 1"):
+        make_rank_layout(4, 0, rank=0, device="cpu")
     with pytest.raises(SystemExit):
         driver.parse_args(["--tp", "0"])
 
