@@ -90,7 +90,8 @@ Phase 3  serve 16 requests (prompts 256-1024, up to 32 new tokens) through
          every token's logits, timing every step and chunk between
          syncs, the engine's 30th step in a ``torch.profiler`` window
          (the main run's launches and streams, both ways).
-Phase 4  a 4-layer full-width f32 copy: the paged engine (chunked, f32
+Phase 4  a 2-layer (``PARITY_LAYERS``, cut for time from 4) full-width f32
+         copy: the paged engine (chunked, f32
          and int8 pages) with kernels against ``use_kernels(False)``:
          every launch agrees with its plain version on the same inputs;
          with f32 pages logits agree to 2e-4 of max|ref| and tokens are
@@ -144,7 +145,8 @@ Phase 7  speculative serve of qwen1.5-32b at full width, 8 of its 64
          ``Tracer`` and CUDA events around each layer's H2D copy.
          With random weights the draft and target rarely agree: the phase
          shows cost and correctness, not acceptance.
-Phase 8  spec parity at 4 layers, full width, f32 and an f32 cache, 4
+Phase 8  spec parity at 2 layers (``SPEC_PARITY_LAYERS``, cut for time
+         from 4), full width, f32 and an f32 cache, 4
          requests through 4 slots (cut from 8 for time): (a)
          qwen1.5-32b's dense engine with a distinct draft and with a
          perturbed self-draft (the target plus seeded noise, its size
@@ -167,7 +169,8 @@ Phase 9  serve mamba2-780m (the ssm family) at full width, 24 of its 48
          a temporary directory and served resident and streamed (window
          4): equal streams, 24 B6 launches a prefill and 2 B3 launches
          (in_proj, out_proj) a layer a pass.
-Phase 10 ssm parity at 4 layers, full width, f32 and an f32 cache: the
+Phase 10 ssm parity at 2 layers (``PARITY_LAYERS``, cut from 4),
+         full width, f32 and an f32 cache: the
          dense engine and the streamed q4 engine, kernels against
          ``use_kernels(False)``: every B6 (and B3) launch agrees with its
          plain version on the same inputs, logits agree to 2e-4 of
@@ -194,7 +197,9 @@ Phase 11 the CI smokes' shapes on the card: the reduced configs (head_dim
          ran with before the driver took the JAX driver's defaults); then
          every ``repro.launch.serve`` line of ``.github/workflows/ci.yml``
          as written, with ``repro_torch`` in its place (decode through the
-         4-stage ring across 8 rank processes, then its ``--paged-kv``,
+         4-stage ring across 8 rank processes -- the ``--batch 2`` line,
+         whose batch the stages do not split, through the GSPMD layer
+         across them -- then its ``--paged-kv``,
          ``--stream-window`` or ``--chaos`` section), each exiting 0 with
          its kernels launched (the ranks' B5-stats launches, which the
          driver prints summed over its ranks, above 0 on every line whose
@@ -259,10 +264,10 @@ Phase 14 the piped ring (PRP) in one process at qwen2.5-14b's full width,
          verify pass against 5 single steps, exactly 64 B5 launches a
          pass (16 layers x 4 microbatches); (b) phase 5's q4 store (all
          48 layers, read back from the store phase 5 kept) at k 2: the
-         resident q4 ring, 8 graphed steps (``RANK_STEPS``, cut for
-         time; kept, with the prefilled cache, as
+         resident q4 ring, 4 graphed steps (``RANK_STEPS``, cut for
+         time from 8; kept, with the prefilled cache, as
          phase 18 (a)'s reference), and the streamed ring (banks 2 steps
-         ahead), 8 steps, equal tokens, exactly 1344 B3 (7 x 192) and 192
+         ahead), 4 steps, equal tokens, exactly 1344 B3 (7 x 192) and 192
          B5 launches a pass; one
          eager resident step with every B3 launch (M = 2 rows) held
          against its plain version on the same inputs; peak
@@ -301,7 +306,8 @@ Phase 15 the moe family (mixtral-8x7b: 32 layers, d 4096, 8 experts of
          the paged engine (8 slots, ctx 2048, 16-token pages, 256-token
          chunks; 16 requests, prompts 256-1024, 32 new tokens) graphed
          and eager: B2 8 a chunk and B1 8 a decode step exactly, equal
-         streams; (d) mixtral and phi3.5-moe at 4 layers, full width, f32,
+         streams; (d) mixtral and phi3.5-moe at 2 layers (``PARITY_LAYERS``,
+         cut from 4), full width, f32,
          eager: the dense engine, the paged engine (chunked, f32 and int8
          pages) and the layer-wise engine over a q4 store, every launch
          held against its plain version on the same inputs, logits within
@@ -352,12 +358,13 @@ Phase 17 training on the card, f32, TF32 off, random weights from a seed,
          through ``repro_torch.launch.train.run`` (the train loop):
          (a) qwen2.5-14b at full width, 1 of its 48 layers, cut for time
          (``QWEN_TRAIN_LAYERS``; 1.832 B params; params,
-         grads and two moments 29.3 GB), batch 8 x 128: 6 steps with one
-         checkpoint, at step 6 (the JAX layout, ~22 GB, in the temp
-         dir), then
-         ``--resume`` to 10, beside an uninterrupted 10-step run:
-         finite losses, the mean of steps 4-6 below the first, steps
-         7-10 within 1e-3 relative of the uninterrupted run's; (b)
+         grads and two moments 29.3 GB), batch 8 x 128: 10 steps that
+         write no checkpoint; 10 steps with one checkpoint, at step 6
+         (the JAX layout, ~22 GB, in the temp dir), going on from the
+         same state; then ``--resume`` from it to 10: finite losses, the
+         mean of steps 4-6 below the first, the saving run's steps 1-10
+         and the resumed steps 7-10 within 1e-3 relative of the run that
+         saves nothing; (b)
          mamba2-780m at full width and depth, batch 4 x 1024, 5 steps:
          exactly 240 B6 launches (48 a step: its backward recomputes the
          plain scan) and nothing else; each run's step ms between syncs,
@@ -379,21 +386,23 @@ Phase 18 the ring across ranks, resident, streamed and through a
          thread a rank), each reading only its part of a layer store: (a)
          qwen2.5-14b at full width and depth from phase 5's q4 store and
          phase 14 (b)'s prefilled cache (batch 8, prompts of 512, ctx
-         1024), 8 greedy steps at k 2 (``RANK_STEPS``, cut for time)
+         1024), 4 greedy steps at k 2 (``RANK_STEPS``, cut for time
+         from 8)
          then 4 T = 5 verify passes, against phase 14
          (b)'s one-process resident ring on the same store (streams equal
          but at near ties, phase 7's rule; every rank the same tokens); (c)
-         exactly 384 B5-stats and 2688 B3 launches a rank (48 layer
-         rows x 8 steps, x 7 projections), nothing else; (d) rank 0's
+         exactly 192 B5-stats and 1344 B3 launches a rank (48 layer
+         rows x 4 steps, x 7 projections), nothing else; (d) rank 0's
          step and verify ms and the step's share in the collectives and
          their host staging (``comms`` phases on the ``comm`` track); (e)
          the streamed ring across the same 8 ranks over the same store at
          full width and depth, k 2, one window staged at a time (depth 1),
-         8 greedy steps from (a)'s cache (``serve.rank_stream_job``: each
+         4 greedy steps from (a)'s cache (``STREAM_RANK_STEPS``, cut
+         from 8; ``serve.rank_stream_job``: each
          rank stages only its stage's 12 rows, a window of 6 at a time, and
          of each only its part of every leaf): tokens
          and logits equal to (a)'s eager resident steps (max|d| 0) on every
-         rank, exactly 384 B5-stats and 2688 B3 launches a rank, each
+         rank, exactly 192 B5-stats and 1344 B3 launches a rank, each
          rank's bytes read a pass equal to its rows' local shards, its peak
          staged bytes at most one window's (half its resident rows), its
          stall, rank 0's
@@ -420,8 +429,38 @@ Phase 18 the ring across ranks, resident, streamed and through a
          2 stages x tp 2 = 4 ranks that replay the history, zero tokens
          lost and the tokens after recovery equal to a clean 4-rank run's
          fed the same history (on the survivors' world); the detect,
-         re-solve, rebuild and replay split printed. Its numbers again
-         beside the card's name and power limit.
+         re-solve, rebuild and replay split printed; (h) the GSPMD layer
+         across the same 8 ranks (``runtime.gspmd``, the path of any
+         batch the stages do not split): qwen2.5-14b at full width,
+         ``GSPMD_LAYERS`` = 4 of its 48 layers, cut for time (every step
+         sums each product over the data ranks, the vocab-sharded head's
+         included), bf16, batch 1: each rank cuts its FSDP part of every
+         weight from the tree handed over as CUDA tensors, prefills 256
+         tokens into its part of the cache and takes 4 greedy steps with
+         the weights where they lie (the data ranks sum their products);
+         every rank the same tokens, exactly 16 B5 launches a rank (the
+         kv heads split over tp), rank 0's prefill and step ms and the
+         step's share in the collectives, each rank's parameter bytes
+         against the one-process model's; then, f32 with kernels live,
+         full width, qwen2.5-14b (2 layers, B5 over its heads),
+         recurrentgemma-9b (3 layers, one of each block: B5 stats over
+         its local attention's sequence) and mamba2-780m (2 layers,
+         batch 2: B6 in the prefill): the ranks' prefill and 4 steps
+         against the one-process ``prefill`` and ``decode_step`` on the
+         card, logits within 2e-4 of max|ref|, tokens equal, launches
+         exact; (i) one ``fsdp`` and one ``zero1`` train step of
+         qwen2.5-14b at full width, 1 layer, f32, across the same 8 ranks
+         as 2 stages x tp 4 (zero1 at 4 x 2 would hold four copies of the
+         tensor-parallel model with their gradients: ~73 GB), against the
+         one-process ``make_train_step`` (phase 17's) on the same weights
+         and batch: loss and gradient norm within 1e-5 relative, each
+         leaf's first moment within 1e-4 of its max|ref|, every
+         parameter whose one-process update is at least 0.99 lr (its
+         gradient clear of Adam's eps) within 0.1 lr; the elements beyond
+         0.1 lr printed by leaf with their one-process |g| in units of
+         eps; zero1's one reduce-scatter and one all-gather over "data",
+         each style's step ms and ``max_memory_allocated`` a rank. Its
+         numbers again beside the card's name and power limit.
 
 Prints the card's name and power limit again, the kernels' JSON line, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
@@ -434,6 +473,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -1946,8 +1986,8 @@ def substituted(ops, mode, errs=None):
 
 
 def parity(torch, ops, serve) -> None:
-    """Phase 4, on a 4-layer full-width f32 copy: the paged engine
-    (chunked, f32 and int8 pages) with kernels against
+    """Phase 4, on a ``PARITY_LAYERS``-layer full-width f32 copy: the paged
+    engine (chunked, f32 and int8 pages) with kernels against
     ``use_kernels(False)``, and dense against paged.
 
     Every kernel launch of the kernel runs is held against its plain
@@ -1962,7 +2002,7 @@ def parity(torch, ops, serve) -> None:
     from repro_torch.runtime.engine import make_dense_engine
 
     args = serve.parse_args(SERVE_ARGS + ["--dtype", "f32", "--layers",
-                                          "4"])
+                                          str(PARITY_LAYERS)])
     cfg, params = serve.build_model(args)
     reqs = serve.make_requests(cfg, args)
     streams = {}
@@ -2464,10 +2504,14 @@ SPEC_BF16_REL = 5e-2
 #: limit (the two streamed runs and the store scale with the depth: 64
 #: layers took 131-158 s of the phase)
 SPEC_LAYERS = 8
+#: the depth of phases 4, 8, 10 and 15 (d), every model's (cut for time
+#: from 4; the parity holds each launch against its plain version
+#: on the same inputs, and the counts follow the depth)
+PARITY_LAYERS = SPEC_PARITY_LAYERS = 2
 PARITY_ARGS = ["--batch", "4", "--ctx", "1024", "--requests", "4",
                "--prompt-len", "128", "--prompt-len-max", "513",
                "--new-tokens", "16", "--seed", "0", "--dtype", "f32",
-               "--layers", "4"]
+               "--layers", str(SPEC_PARITY_LAYERS)]
 #: perturbed self-draft: noise std as a fraction of each weight's std,
 #: raised until the acceptance lands in ACCEPT_RANGE
 EPS_LADDER = (0.01, 0.02, 0.05, 0.1, 0.2, 0.5, 1.0)
@@ -2946,8 +2990,8 @@ def graphed_spec_case(torch, label, build, reqs, vanilla, verify_kernel,
 
 def spec_parity(torch, ops, serve) -> None:
     """Phase 8: (a) the dense engine, (b) the paged engine with chunked
-    admission, (c) the streamed q4 engine, all with spec, at 4 layers, full
-    width, f32 and an f32 cache."""
+    admission, (c) the streamed q4 engine, all with spec, at
+    ``SPEC_PARITY_LAYERS`` layers, full width, f32 and an f32 cache."""
     import copy
 
     from repro_torch.configs import get_config
@@ -2960,10 +3004,12 @@ def spec_parity(torch, ops, serve) -> None:
                                                make_streaming_engine)
 
     f32 = torch.float32
-    dcfg = dataclasses.replace(get_config(DRAFT_ARCH), n_layers=4)
+    dcfg = dataclasses.replace(get_config(DRAFT_ARCH),
+                               n_layers=SPEC_PARITY_LAYERS)
     dparams = M.init_params(dcfg, torch.Generator(device="cuda")
                             .manual_seed(12), f32, "cuda")
-    log(f"  depth cut: 4 layers for every model ({DRAFT_ARCH} draft "
+    log(f"  depth cut: {SPEC_PARITY_LAYERS} layers for every model "
+        f"({DRAFT_ARCH} draft "
         f"included); f32 caches (parity mode) in place of qwen1.5-32b's "
         f"int8 cache, which phase 7 runs")
 
@@ -3055,7 +3101,8 @@ def spec_parity(torch, ops, serve) -> None:
 
     # (c) qwen1.5-32b, streamed q4 engine
     args = serve.parse_args(["--arch", "qwen1.5-32b"] + PARITY_ARGS)
-    cfg = dataclasses.replace(get_config(args.arch), n_layers=4,
+    cfg = dataclasses.replace(get_config(args.arch),
+                              n_layers=SPEC_PARITY_LAYERS,
                               kv_dtype="bfloat16")
     reqs = serve.make_requests(cfg, args)
     sdir, tree = write_store(torch, cfg, f32, seed=3)
@@ -3255,8 +3302,9 @@ def serve_ssm_full(torch, ops, serve):
 
 
 def ssm_parity(torch, ops, serve) -> None:
-    """Phase 10, 4 layers at full width, f32 and an f32 cache: the dense
-    engine and the streamed q4 engine, kernels (every launch held against
+    """Phase 10, ``PARITY_LAYERS`` layers at full width, f32 and an f32
+    cache: the dense engine and the streamed q4 engine, kernels (every
+    launch held against
     its plain version on the same inputs) against ``use_kernels(False)``:
     logits within LOGIT_REL of max|ref|, tokens equal."""
     from repro_torch.models import init_cache
@@ -3265,7 +3313,8 @@ def ssm_parity(torch, ops, serve) -> None:
     from repro_torch.runtime.streaming import (StreamingParamSource,
                                                make_streaming_engine)
 
-    args = serve.parse_args(SSM_ARGS + ["--dtype", "f32", "--layers", "4"])
+    args = serve.parse_args(SSM_ARGS + ["--dtype", "f32", "--layers",
+                                        str(PARITY_LAYERS)])
     f32, Bn, ctx = torch.float32, args.batch, args.ctx
     cfg, params = serve.build_model(args)
     reqs = serve.make_requests(cfg, args)
@@ -3437,6 +3486,9 @@ def ci_smokes() -> None:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    # one CPU thread a driver: the card does their work, and 16 drivers
+    # (and their 88 ranks, one thread each) share the host's 8 cores
+    env["OMP_NUM_THREADS"] = "1"
     t0 = time.perf_counter()
     outdir = tempfile.mkdtemp(prefix="chip_smoke_ci_")
     runs = [(label, ["--smoke", "--dtype", "f32", "--stages", "1", *flags],
@@ -4038,7 +4090,7 @@ RING_A_LAYERS = 16
 RING_A_B5 = RING_A_LAYERS * 4
 #: greedy steps of phase 14 (b)'s resident q4 ring, the reference of phase
 #: 18 (a)'s ranks on the same store (cut for time)
-RANK_STEPS = 8
+RANK_STEPS = 4
 #: phase 14's record, printed at its end beside the card
 RING = {}
 #: phase 14 (b)'s store, prefilled cache and resident ring run, for
@@ -4203,7 +4255,7 @@ def ring_streamed(torch, ops, serve):
     cfg = dataclasses.replace(get_config("qwen2.5-14b"),
                               n_layers=RING_LAYERS)
     dev = torch.device("cuda")
-    n = 8
+    n = RANK_STEPS
     args = serve.parse_args(RING_ARGS + ["--dtype", "bf16", "--ring-k", "2",
                                          "--new-tokens", str(n)])
     sdir, tree = reuse_store(torch, cfg)
@@ -4482,11 +4534,12 @@ MOE_PAGED_ARGS = ["--arch", MOE_ARCH, "--batch", "8", "--ctx", "2048",
                   "--prompt-len", "256", "--prompt-len-max", "1025",
                   "--requests", "16", "--new-tokens", "32", "--seed", "0",
                   "--layers", str(MOE_PAGED_LAYERS), "--dtype", "bf16"]
-#: (d): 4 layers at full width, f32
+#: (d): ``PARITY_LAYERS`` layers at full width, f32
 MOE_PARITY_ARGS = ["--batch", "4", "--ctx", "512", "--page-tokens", "16",
                    "--prefill-chunk", "128", "--prompt-len", "64",
                    "--prompt-len-max", "257", "--requests", "6",
-                   "--new-tokens", "8", "--seed", "1", "--layers", "4",
+                   "--new-tokens", "8", "--seed", "1",
+                   "--layers", str(PARITY_LAYERS),
                    "--dtype", "f32"]
 #: phase 15's record, printed at its end beside the card
 MOE = {}
@@ -4714,8 +4767,8 @@ def moe_paged(torch, ops, serve):
 
 
 def moe_parity(torch, ops, serve) -> None:
-    """Phase 15 (d): mixtral-8x7b and phi3.5-moe at 4 layers, full width,
-    f32, eager, kernels against ``use_kernels(False)``: the dense engine,
+    """Phase 15 (d): mixtral-8x7b and phi3.5-moe at ``PARITY_LAYERS``
+    layers, full width, f32, eager, kernels against ``use_kernels(False)``: the dense engine,
     the paged engine (chunked admission, f32 and int8 pages) and the
     layer-wise engine over a q4 store. Every launch is held against its
     plain version on the same inputs (attention atol 2e-5, B3 1e-5 of
@@ -4936,6 +4989,7 @@ FAM = {}
 def free_card(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.ipc_collect()        # blocks rank processes held, released
 
 
 def held(torch, ops, label, want, run_kern, run_plain, int8=False):
@@ -5695,10 +5749,14 @@ def trained(torch, LT, argv):
 
 def train_qwen(torch, ops) -> None:
     """(a) qwen2.5-14b at full width, ``QWEN_TRAIN_LAYERS`` of 48 layers,
-    f32: ``QWEN_CKPT_STEP`` steps with one checkpoint, at the last, then
-    ``--resume`` to ``QWEN_STEPS``, beside one uninterrupted run of
-    ``QWEN_STEPS``. One checkpoint (params and two f32 moments) is all the
-    resume needs; a second would double the disk the run writes."""
+    f32: a reference run of ``QWEN_STEPS`` steps that writes no
+    checkpoint; a run of as many steps that checkpoints at step
+    ``QWEN_CKPT_STEP`` and goes on from the same state, held to the
+    reference at every step (a save leaves the live state as it was);
+    then ``--resume`` from that checkpoint to ``QWEN_STEPS``, held to the
+    reference's last steps. One checkpoint (params and two f32 moments)
+    is all the resume needs; a second would double the disk the run
+    writes."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as LT
 
@@ -5711,34 +5769,44 @@ def train_qwen(torch, ops) -> None:
         f"in {d} ({shutil.disk_usage(d).free / 1e9:.1f} GB free)")
     try:
         t0 = time.perf_counter()
-        first = trained(torch, LT, QWEN_TRAIN + [
-            "--steps", str(c), "--ckpt-every", str(c), "--ckpt-dir", d])
+        plain = trained(torch, LT, QWEN_TRAIN + [
+            "--steps", str(n_steps), "--ckpt-every", "1000", "--ckpt-dir",
+            d])
+        # n_steps < 2 c: the run's only checkpoint is step c's
+        saving = trained(torch, LT, QWEN_TRAIN + [
+            "--steps", str(n_steps), "--ckpt-every", str(c), "--ckpt-dir",
+            d])
         resumed = trained(torch, LT, QWEN_TRAIN + [
             "--steps", str(n_steps), "--ckpt-every", "1000", "--resume",
             "--ckpt-dir", d])
-        straight = trained(torch, LT, QWEN_TRAIN + [
-            "--steps", str(n_steps), "--ckpt-every", "1000", "--ckpt-dir",
-            os.path.join(d, "straight")])
         wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(d, ignore_errors=True)
     args = LT.parse_args(QWEN_TRAIN)
     rows = {k: train_line(f"(a) {k}", r, args, 16 * n)
-            for k, r in ((f"first {c}", first),
-                         (f"resumed to {n_steps}", resumed),
-                         (f"straight {n_steps}", straight))}
-    head = first["losses"]
+            for k, r in ((f"reference {n_steps}, no checkpoint", plain),
+                         (f"{n_steps}, checkpoint at {c}", saving),
+                         (f"resumed to {n_steps}", resumed))}
+    assert not plain["ckpt_s"] and len(saving["ckpt_s"]) == 1, (
+        plain["ckpt_s"], saving["ckpt_s"])
+    head = plain["losses"][:c]
     assert np.mean(head[c - 3:c]) < head[0], (head[0], head[c - 3:c])
     assert resumed["start"] == c and len(resumed["losses"]) == n_steps - c
-    tail = np.asarray(straight["losses"][c:n_steps])
-    rel = np.abs(np.asarray(resumed["losses"]) - tail) / np.abs(tail)
+    want = np.asarray(plain["losses"])
+
+    def rel(got):
+        got = np.asarray(got)
+        return np.abs(got - want[-len(got):]) / np.abs(want[-len(got):])
+    saved, res = rel(saving["losses"]), rel(resumed["losses"])
     log(f"  (a) loss {head[0]:.4f} -> {np.mean(head[c - 3:c]):.4f} (mean of "
-        f"steps {c - 2}-{c}); steps {c + 1}-{n_steps} resumed against "
-        f"uninterrupted: largest relative difference {rel.max():.3g} (limit "
-        f"1e-3); the three runs {wall:.1f} s")
-    assert rel.max() <= 1e-3, rel
-    TRAIN["qwen"] = dict(rows, resume_rel=float(rel.max()),
-                         ckpt_s=first["ckpt_s"],
+        f"steps {c - 2}-{c}); against the run that saves nothing, largest "
+        f"relative difference: the saving run's steps 1-{n_steps} "
+        f"{saved.max():.3g}, the resumed steps {c + 1}-{n_steps} "
+        f"{res.max():.3g} (limit 1e-3); the three runs {wall:.1f} s")
+    assert saved.max() <= 1e-3 and res.max() <= 1e-3, (saved, res)
+    TRAIN["qwen"] = dict(rows, resume_rel=float(res.max()),
+                         save_rel=float(saved.max()),
+                         ckpt_s=saving["ckpt_s"],
                          restore_s=resumed["restore_s"], wall=wall,
                          reckoned_gb=16 * n / 1e9)
 
@@ -5920,7 +5988,8 @@ def report_train() -> None:
                 f" tokens/s, peak {row['peak_gb']:.2f} GB (reckoned "
                 f"{q['reckoned_gb']:.2f} GB)")
     log(f"  qwen checkpoint saves {[round(x, 1) for x in q['ckpt_s']]} s, "
-        f"restore {q['restore_s']:.1f} s, resume {q['resume_rel']:.3g}, "
+        f"restore {q['restore_s']:.1f} s, saving run {q['save_rel']:.3g} "
+        f"and resume {q['resume_rel']:.3g} of the run that saves nothing, "
         f"three runs {q['wall']:.1f} s")
     m = TRAIN["mamba"]
     log(f"  mamba step {m['ms']:.1f} ms, {m['tok_s']:.0f} tokens/s, peak "
@@ -5938,7 +6007,7 @@ RANK_STREAM_JOB = "repro_torch.runtime.serve:rank_stream_job"
 #: ranks: 4 stages x tp 2, every rank on the one card
 RANK_STAGES, RANK_TP = 4, 2
 #: phase 18 (e): greedy steps of the streamed ring across the ranks
-STREAM_RANK_STEPS = 8
+STREAM_RANK_STEPS = 4
 #: phase 18 (e)'s windows staged at a time (the window in use counts):
 #: one of its k 2, so the peak staged is half the resident rows
 STREAM_RANK_DEPTH = 1
@@ -6368,6 +6437,335 @@ def report_ranks() -> None:
         f"{f['replay_s']:.2f} s ({f['replayed']} tokens); the phase "
         f"{f['wall']:.1f} s")
     log(f"  (g) streamed ranks against plain {g['worst']:.3g} of max|ref|")
+    h, i = RANKS["h"], RANKS["i"]
+    log(f"  (h) GSPMD at batch 1 ({GSPMD_LAYERS} layers bf16): rank 0's "
+        f"step {h['step_ms']:.2f} ms, comm share {h['share']:.3f}, a rank's "
+        f"part {h['part_gb'][0]:.3f}-{h['part_gb'][1]:.3f} GB of "
+        f"{h['whole_gb']:.3f}; parity (f32) {RANKS['h_parity']}")
+    log(f"  (i) train step across ranks: fsdp {i['fsdp']['ms']:.1f} ms, "
+        f"zero1 {i['zero1']['ms']:.1f} ms, one process {i['one_ms']:.1f} ms;"
+        f" peak a rank fsdp {max(i['fsdp']['peak_gb'])} GB, zero1 "
+        f"{max(i['zero1']['peak_gb'])} GB")
+
+
+# --------------------------------------------------------------------------- #
+#  phase 18 (h), (i): the GSPMD layer across the same ranks
+# --------------------------------------------------------------------------- #
+
+GSPMD_JOB = "repro_torch.runtime.gspmd:rank_gspmd_job"
+TRAIN_RANK_JOB = "repro_torch.runtime.train:rank_train_job"
+#: phase 18 (h)'s depth in bf16: the first layers of qwen2.5-14b, cut for
+#: time (at batch 1 a step keeps the weights where they lie and sums the
+#: data ranks' products, but the 8 ranks time-slice the card and every
+#: collective stages through host memory over gloo)
+GSPMD_LAYERS = 4
+#: (h)'s batch 1, its prompt, context and greedy steps
+GSPMD_PROMPT, GSPMD_CTX, GSPMD_STEPS = 256, 512, 4
+#: (h)'s parity in f32, kernels live, full width: (arch, layers, batch)
+GSPMD_PARITY = (("qwen2.5-14b", 2, 1), ("recurrentgemma-9b", 3, 1),
+                ("mamba2-780m", 2, 2))
+#: (i)'s mesh: 2 stages x tp 4 over the same 8 ranks (zero1 at (4, 2)
+#: would hold four tensor-parallel copies of the 7.3 GB f32 model with
+#: their gradients and moments: ~73 GB of the card's 80)
+TRAIN_RANK_MESH = (2, 4)
+TRAIN_RANK_LR = 1e-3
+
+
+def gspmd_tree(torch, arch, layers, dtype, seed=0):
+    """(config, the one-process model on the card, a copy of it as the
+    stacked tree the ranks cut their parts from)."""
+    from repro_torch.bridge import tree_from_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                         dtype=dtype, device="cuda")
+    return cfg, params, tree_from_params(
+        params, leaf=lambda t: t.detach().clone())
+
+
+def gspmd_launches(ranks, want, key, label):
+    for r in ranks:
+        full = {k: want.get(k, 0) for k in r[key]}
+        if r[key] != full:
+            raise AssertionError(f"{label}: rank {r['rank']} launched "
+                                 f"{r[key]}, wanted {full}")
+    return {k: sum(r[key][k] for r in ranks) for k in ranks[0][key]}
+
+
+def gspmd_full(torch, world):
+    """Phase 18 (h): qwen2.5-14b at full width, ``GSPMD_LAYERS`` layers,
+    bf16, batch 1 over 4 stages x tp 2 (one sequence does not split over
+    the stages: the JAX driver's ``gspmd_decode_step`` path): each rank
+    cuts its FSDP part of every weight (the tree handed over as CUDA
+    tensors), prefills the prompt into its part of the cache and takes
+    ``GSPMD_STEPS`` greedy steps; every rank the same tokens, exactly
+    ``GSPMD_LAYERS`` B5 launches a step a rank (40 heads over 8: the kv
+    heads split over tp, each member attends with its 4). Returns the
+    launches summed over the ranks."""
+    cfg, params, tree = gspmd_tree(torch, "qwen2.5-14b", GSPMD_LAYERS,
+                                   torch.bfloat16)
+    del params
+    free_card(torch)
+    from repro_torch.runtime.sharding import flatten_with_path
+
+    whole = sum(t.numel() * t.element_size()
+                for _, t in flatten_with_path(tree))
+    prompts = np.random.default_rng(1).integers(
+        3, cfg.vocab, (1, GSPMD_PROMPT)).astype(np.int32)
+    t0 = time.perf_counter()
+    ranks = world.run(GSPMD_JOB, cfg=cfg, n_stages=RANK_STAGES, tp=RANK_TP,
+                      params=tree, steps=GSPMD_STEPS, prompts=prompts,
+                      ctx_len=GSPMD_CTX, dtype="bfloat16", trace=True)
+    wall = time.perf_counter() - t0
+    del tree
+    free_card(torch)
+    for r in ranks:
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+            raise AssertionError(f"(h) rank {r['rank']} took other tokens")
+    total = gspmd_launches(ranks, {"flash_verify": GSPMD_LAYERS
+                                   * GSPMD_STEPS}, "launches",
+                           "phase 18 (h)")
+    gspmd_launches(ranks, {}, "prefill_launches", "phase 18 (h) prefill")
+    r0 = ranks[0]
+    step_ms = 1e3 * float(np.median(r0["step_s"][1:]))
+    parts = [r["nbytes"] for r in ranks]
+    RANKS["h"] = dict(step_ms=step_ms, share=r0["comm_share"],
+                      prefill_ms=1e3 * r0["prefill_s"], wall=wall,
+                      whole_gb=whole / 1e9,
+                      part_gb=(min(parts) / 1e9, max(parts) / 1e9),
+                      load_s=max(r["load_s"] for r in ranks),
+                      peak_gb=max(r["max_memory_allocated"]
+                                  for r in ranks) / 1e9)
+    h = RANKS["h"]
+    log(f"  (h) GSPMD decode across 8 ranks (4 stages x tp 2), qwen2.5-14b "
+        f"full width, {GSPMD_LAYERS} layers, bf16, batch 1: prefill of "
+        f"{GSPMD_PROMPT} tokens {h['prefill_ms']:.1f} ms, rank 0's step p50 "
+        f"{step_ms:.2f} ms (eager), {h['share']:.3f} of it in the "
+        f"collectives and their host staging; each rank holds "
+        f"{h['part_gb'][0]:.3f}-{h['part_gb'][1]:.3f} GB of the "
+        f"one-process model's {h['whole_gb']:.3f} GB (FSDP over data and "
+        f"model), peak allocated {h['peak_gb']:.2f} GB a rank; parts "
+        f"loaded in {h['load_s']:.1f} s; launches a rank exactly "
+        f"{GSPMD_LAYERS * GSPMD_STEPS} B5 (heads split), over the 8 ranks "
+        f"{total}; tokens equal on every rank; the world's run "
+        f"{wall:.1f} s")
+    return total
+
+
+def gspmd_parity(torch, ops, world):
+    """Phase 18 (h) parity: each of ``GSPMD_PARITY`` at full width in f32,
+    kernels live on both sides: the ranks' GSPMD prefill and 4 greedy
+    steps against the one-process ``prefill`` and ``decode_step`` on the
+    card, logits within 2e-4 of max|ref| and equal tokens at every step.
+    qwen2.5-14b runs B5 over its heads, recurrentgemma-9b B5 stats over
+    its local attention's sequence (one kv head), mamba2-780m B6 in the
+    prefill, each counted exactly. Returns the launches summed over the
+    ranks (prefill and steps)."""
+    from repro_torch.models import model as M
+
+    steps, S, ctx = 4, 64, 128
+    want_launch = {"qwen2.5-14b": ("flash_verify", lambda L: L * steps,
+                                   None),
+                   "recurrentgemma-9b": ("flash_verify_stats",
+                                         lambda L: (L // 3) * steps, None),
+                   "mamba2-780m": ("ssd_scan", None, lambda L: L)}
+    total, out = {}, {}
+    for arch, L, B in GSPMD_PARITY:
+        cfg, params, tree = gspmd_tree(torch, arch, L, torch.float32)
+        prompts = np.random.default_rng(2).integers(
+            3, cfg.vocab, (B, S)).astype(np.int32)
+        cache = M.init_cache(cfg, B, ctx, device="cuda")
+        lg, cache = M.prefill(params, cfg, torch.as_tensor(
+            prompts, device="cuda"), cache)
+        want = [lg[:, -1:].float().cpu().numpy()]
+        tok = lg[:, -1:].argmax(-1).to(torch.int32)
+        for _ in range(steps):
+            lg, cache = M.decode_step(params, cfg, cache, tok)
+            want.append(lg.float().cpu().numpy())
+            tok = lg.argmax(-1).to(torch.int32)
+        del params, cache, lg
+        free_card(torch)
+        ranks = world.run(GSPMD_JOB, cfg=cfg, n_stages=RANK_STAGES,
+                          tp=RANK_TP, params=tree, steps=steps,
+                          prompts=prompts, ctx_len=ctx, keep_logits=True)
+        del tree
+        free_card(torch)
+        name, per_step, per_prefill = want_launch[arch]
+        gspmd_launches(ranks, {name: per_step(L)} if per_step else {},
+                       "launches", f"phase 18 (h) {arch}")
+        gspmd_launches(ranks, {name: per_prefill(L)} if per_prefill else {},
+                       "prefill_launches", f"phase 18 (h) {arch} prefill")
+        for r in ranks:
+            for k in r["launches"]:
+                total[k] = total.get(k, 0) + r["launches"][k] \
+                    + r["prefill_launches"][k]
+        worst = 0.0
+        for r in ranks:
+            lo, hi = r["rows"]
+            for t, got in enumerate(r["logits"]):
+                w = want[t][lo:hi]
+                rel = float(np.abs(got - w).max() / np.abs(w).max())
+                worst = max(worst, rel)
+                if rel >= 2e-4 or not np.array_equal(
+                        got.argmax(-1), w.argmax(-1)):
+                    raise AssertionError(f"(h) {arch} step {t}: ranks "
+                                         f"against one process {rel:.3g} "
+                                         f"of max|ref|, or other tokens")
+        out[arch] = worst
+        log(f"  (h) parity {arch} ({L} layers, f32, batch {B}): the ranks' "
+            f"prefill and {steps} steps within {worst:.3g} of max|ref| of "
+            f"the one-process prefill and decode_step on the card, tokens "
+            f"equal; {name} "
+            + (f"{per_step(L)} a rank over the steps" if per_step else
+               f"{per_prefill(L)} a rank in the prefill"))
+    RANKS["h_parity"] = out
+    return total
+
+
+def gspmd_train(torch, world):
+    """Phase 18 (i): one ``fsdp`` and one ``zero1`` train step of
+    qwen2.5-14b at full width, 1 layer, f32, across the 8 ranks as 2
+    stages x tp 4 (``TRAIN_RANK_MESH``), against the one-process
+    ``make_train_step`` on the card (phase 17's step) on the same weights
+    and batch (8 x 128), with the bounds of the CPU test
+    (``tests/test_torch_train_ranks.py``): loss and gradient norm within
+    1e-5 relative; each leaf's first moment (1 - b1) g within 1e-4 of
+    its max|ref|; every parameter whose one-process update is at least
+    0.99 lr within 0.1 lr. Adam's first update lr g / (|g| + eps) is
+    near lr wherever the gradient is clear of eps; among 1.83 B
+    gradients some lie near eps, where the update turns a rounding of g
+    into a sizeable part of lr: the elements beyond 0.1 lr are printed
+    by leaf with their one-process |g| in units of eps. zero1 runs one
+    gradient reduce-scatter and one parameter all-gather over "data".
+    Each rank compares its own parts with the one-process step's
+    (``runtime.train.reference_diffs``): the weights before and after it
+    stay on the card and go to the ranks as CUDA tensors (8 ranks' f32
+    parts would be 7.3 GB to send back); the first moment goes on the
+    host, shared (the card has no room for a third copy beside zero1's
+    ranks)."""
+    from repro_torch.bridge import tree_from_params, tree_of_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime.optim import AdamW
+    from repro_torch.runtime.train import make_train_step
+
+    def shared_host(tree):
+        # copied straight into shared memory, where the ranks map it
+        if isinstance(tree, dict):
+            return {k: shared_host(v) for k, v in tree.items()}
+        out = torch.empty(tree.shape, dtype=tree.dtype).share_memory_()
+        return out.copy_(tree)
+
+    M_, tp = TRAIN_RANK_MESH
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=1)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         dtype=torch.float32, device="cuda")
+
+    def copy(t):
+        return t.detach().clone()
+    tree = tree_from_params(params, leaf=copy)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, (8, 129)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamW(lr=TRAIN_RANK_LR, warmup_steps=1)
+    step = make_train_step(cfg, opt, grad_dtype="float32")
+    leaves = list(params.parameters())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, st, m = step(params, opt.init(leaves), {
+        k: torch.as_tensor(v, device="cuda") for k, v in batch.items()})
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t1)
+    ref = {k: float(v) for k, v in m.items()}
+    after = tree_from_params(params, leaf=copy)
+    mu_ref = shared_host(tree_of_leaves(params, st.mu))
+    del params, st, m, leaves, step
+    free_card(torch)
+    setup_s = time.perf_counter() - t0
+    bound = 0.1 * TRAIN_RANK_LR
+    out = {}
+    for style in ("fsdp", "zero1"):
+        free_gb = torch.cuda.mem_get_info()[0] / 1e9
+        t0 = time.perf_counter()
+        ranks = world.run(TRAIN_RANK_JOB, cfg=cfg, n_stages=M_, tp=tp,
+                          params=tree, batches=[batch], style=style,
+                          optimizer=opt, grad_dtype="float32",
+                          return_state=False, reference=(after, mu_ref))
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        got = r0["metrics"][0]
+        worst = max(r["max_param_diff"] for r in ranks)
+        clear = max(r["max_param_diff_clear"] for r in ranks)
+        mu_rel = {}
+        for q in r0["mu_diff"]:
+            dq = max(r["mu_diff"][q][0] for r in ranks)
+            rq = max(r["mu_diff"][q][1] for r in ranks)
+            mu_rel[q] = dq / rq if rq else (0.0 if dq == 0 else math.inf)
+        over = {}
+        for r in ranks:
+            for q, o in r["param_over"].items():
+                w = over.setdefault(q, {"n": 0, "max_lr": 0.0, "g_eps": 0.0,
+                                        "g_eps_max": 0.0})
+                w["n"] += o["n"]
+                w["g_eps_max"] = max(w["g_eps_max"], o["g_eps_max"])
+                if o["max_lr"] > w["max_lr"]:
+                    w.update(max_lr=o["max_lr"], g_eps=o["g_eps"])
+        c = r0["collectives"][0]
+        out[style] = dict(
+            ms=1e3 * r0["step_s"][0], wall=wall, worst=worst, clear=clear,
+            mu_rel=max(mu_rel.values()), loss=got["loss"],
+            gnorm=got["grad_norm"], free_gb=free_gb,
+            peak_gb=[round(r["max_memory_allocated"] / 1e9, 2)
+                     for r in ranks],
+            rs=c.get("reduce-scatter[data]", {}).get("count", 0),
+            ag=c.get("all-gather[data]", {}).get("count", 0),
+            compare_s=max(r["compare_s"] for r in ranks))
+        o = out[style]
+        log(f"  (i) {style} across 8 ranks ({M_} stages x tp {tp}): loss "
+            f"{got['loss']:.6f} against {ref['loss']:.6f}, grad norm "
+            f"{got['grad_norm']:.6f} against {ref['grad_norm']:.6f}, "
+            f"first moment within {o['mu_rel']:.3g} of its leaf's max|ref| "
+            f"(bound 1e-4), parameters within {clear:.3g} where the "
+            f"one-process update is at least 0.99 lr ({worst:.3g} over "
+            f"all) of its; step {o['ms']:.1f} ms (the one-process step "
+            f"{one_ms:.1f} ms), {o['rs']} reduce-scatters and {o['ag']} "
+            f"all-gathers over data; max_memory_allocated a rank "
+            f"{o['peak_gb']} GB ({free_gb:.1f} GB of the card free as the "
+            f"job started); the world's run {wall:.1f} s, the ranks' "
+            f"comparison with the reference {o['compare_s']:.1f} s of it "
+            f"(setup: the weights, the one-process step and the copies "
+            f"{setup_s:.1f} s)")
+        log(f"  (i) {style} first moment by leaf (max|d| / max|ref|): "
+            + ", ".join(f"{q} {v:.3g}" for q, v in sorted(
+                mu_rel.items(), key=lambda kv: -kv[1])))
+        log(f"  (i) {style} parameters beyond 0.1 lr, by leaf (elements, "
+            f"the largest in lr, its one-process |g| and the largest |g| "
+            f"among them in eps): "
+            + (", ".join(f"{q} {w['n']} {w['max_lr']:.3g} lr "
+                         f"|g| {w['g_eps']:.3g} ({w['g_eps_max']:.3g}) eps"
+                         for q, w in over.items()) or "none"))
+        for k in ("loss", "grad_norm"):
+            if abs(got[k] - ref[k]) > 1e-5 * abs(ref[k]):
+                raise AssertionError(f"(i) {style} {k} {got[k]} against "
+                                     f"the one-process {ref[k]}")
+        far = {q: v for q, v in mu_rel.items() if v > 1e-4}
+        if far:
+            raise AssertionError(f"(i) {style}: first moment beyond 1e-4 "
+                                 f"of its leaf's max|ref|: {far}")
+        if clear > bound:
+            raise AssertionError(f"(i) {style}: parameters {clear} from the "
+                                 f"one-process step's where its update is "
+                                 f"at least 0.99 lr (bound 0.1 lr)")
+        if style == "zero1" and (c["reduce-scatter[data]"]["count"] != 1
+                                 or c["all-gather[data]"]["count"] != 1):
+            raise AssertionError(f"(i) zero1 collectives over data {c}")
+        del ranks
+    del tree, after, mu_ref
+    free_card(torch)
+    RANKS["i"] = dict(out, one_ms=one_ms, setup_s=setup_s)
 
 
 def share_bytecode():
@@ -6453,7 +6851,7 @@ def main() -> int:
     log(f"  main-path launches: {counts}")
     log(f"  phase 3 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 4: token parity, 4 layers full width f32")
+    log(f"== phase 4: token parity, {PARITY_LAYERS} layers full width f32")
     parity(torch, ops, serve)
     log(f"  phase 4 done at {time.perf_counter() - t_start:.0f} s")
 
@@ -6473,7 +6871,8 @@ def main() -> int:
     log(f"  main-path launches: {spec_counts}")
     log(f"  phase 7 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 8: spec parity, 4 layers full width f32")
+    log(f"== phase 8: spec parity, {SPEC_PARITY_LAYERS} layers full width "
+        f"f32")
     spec_parity(torch, ops, serve)
     log(f"  phase 8 done at {time.perf_counter() - t_start:.0f} s")
 
@@ -6483,7 +6882,7 @@ def main() -> int:
     log(f"  main-path launches: {ssm_counts}")
     log(f"  phase 9 done at {time.perf_counter() - t_start:.0f} s")
 
-    log("== phase 10: ssm parity, 4 layers full width f32")
+    log(f"== phase 10: ssm parity, {PARITY_LAYERS} layers full width f32")
     ssm_parity(torch, ops, serve)
     log(f"  phase 10 done at {time.perf_counter() - t_start:.0f} s")
 
@@ -6514,7 +6913,8 @@ def main() -> int:
 
     log(f"== phase 15: the moe family: mixtral-8x7b q4 resident, streamed "
         f"and through the ring ({MOE_LAYERS} of 32 layers), bf16 paged "
-        f"({MOE_PAGED_LAYERS} layers), parity with phi3.5-moe (4 layers "
+        f"({MOE_PAGED_LAYERS} layers), parity with phi3.5-moe "
+        f"({PARITY_LAYERS} layers "
         f"f32), the card's profile")
     moe_counts = moe_streamed(torch, ops, serve)
     log(f"  main-path launches: {moe_counts}")
@@ -6550,7 +6950,9 @@ def main() -> int:
     log(f"== phase 18: the ring across ranks: 4 stages x tp 2 = 8 rank "
         f"processes on the card over gloo (qwen2.5-14b at full width and "
         f"depth from phase 5's q4 store, resident and streamed; parity at 4 "
-        f"layers f32; failover at {FAILOVER_LAYERS} layers)")
+        f"layers f32; the GSPMD layer at batch 1, {GSPMD_LAYERS} layers "
+        f"bf16, its parity in f32 and its fsdp and zero1 train steps; "
+        f"failover at {FAILOVER_LAYERS} layers)")
     from repro_torch.launch.mesh import RankWorld
     with RankWorld(RANK_STAGES * RANK_TP, device="cuda:0",
                    threads=1) as world:
@@ -6561,6 +6963,12 @@ def main() -> int:
         log(f"  (e) done at {time.perf_counter() - t_start:.0f} s")
         ranks_parity(torch, ops, serve, world)
         log(f"  (b), (g) done at {time.perf_counter() - t_start:.0f} s")
+        gspmd_counts = gspmd_full(torch, world)
+        for k, v in gspmd_parity(torch, ops, world).items():
+            gspmd_counts[k] += v
+        log(f"  (h) done at {time.perf_counter() - t_start:.0f} s")
+        gspmd_train(torch, world)
+        log(f"  (i) done at {time.perf_counter() - t_start:.0f} s")
         ranks_failover(torch, serve, world)
     shutil.rmtree(STORE_14B.pop("dir"), ignore_errors=True)
     report_ranks()
@@ -6578,6 +6986,8 @@ def main() -> int:
     counts["flash_verify_stats"] = rank_counts["flash_verify_stats"] \
         + stream_counts_18["flash_verify_stats"]
     counts["q4_matmul"] += stream_counts_18["q4_matmul"]
+    for k, v in gspmd_counts.items():
+        counts[k] += v
     for name, row in rows.items():
         row["launches"] = counts[name]
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s on")

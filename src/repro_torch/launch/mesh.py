@@ -10,6 +10,11 @@ on one card (each stage with its own rows of the layer bank and its own
 slice of the cache, the ring hop a hand-off between stages), so its
 layout is the stage count, tp = 1 and the device.
 
+``make_production_mesh`` and ``make_debug_mesh`` are the JAX package's
+meshes as the port's ordered ``{axis: size}`` dicts (16 x 16, or 2 x 16
+x 16 with pods; (n_stages, tp) for tests and the serve CLI): the specs of
+``runtime.sharding`` and the dry run read them.
+
 ``make_rank_layout`` is the ring across ranks: ``pods x n_stages x tp``
 processes, rank ``r`` at pod ``r // (n_stages tp)``, stage ``(r // tp) %
 n_stages``, member ``r % tp``, joined by ``torch.distributed`` over gloo
@@ -20,7 +25,13 @@ run instead of hanging it: the "model" group of its stage (the merges of
 the sequence-split attention, the sums after the split FFN and the
 vocab-sharded embed, the greedy argmax over the vocab shards) and the
 ring of its member (the ring hop, the final hiddens' sum over the
-stages). Nothing runs on the global default group.
+stages). Nothing runs on the global default group. The GSPMD layer
+(``runtime.gspmd``) runs on the same world: its "data" axis (FSDP, the
+batch) is the ring of a member, its "model" axis the stage's group, and
+a third group, ``pod``, joins the ranks of one stage and member across
+the pods (the batch's other axis, over which gradients also sum).
+``dry_rank_layout`` is one rank's layout with no process groups: the dry
+run's (``runtime.collectives.dry_axis``).
 
 ``RankWorld`` starts the ranks (``torch.multiprocessing``, start method
 ``forkserver``: the server imports torch and the ring's modules once and
@@ -58,15 +69,36 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from ..runtime.collectives import Axis
+from ..runtime.collectives import Axis, dry_axis
 from ..runtime.telemetry import clock
 
 #: seconds a collective waits for its peers before the rank fails
 RANK_TIMEOUT_S = 300.0
+#: a rank hands its CUDA cache back to the card (which the ranks share)
+#: after a job that left more than this unused in it
+EMPTY_CACHE_BYTES = 1 << 30
 #: what the fork server imports before it forks a rank (none of them
 #: touches CUDA at import, so each rank starts its own CUDA context)
 PRELOAD = ("torch", "numpy", "repro_torch.launch.mesh",
-           "repro_torch.runtime.serve", "repro_torch.runtime.failover")
+           "repro_torch.runtime.serve", "repro_torch.runtime.failover",
+           "repro_torch.runtime.gspmd", "repro_torch.runtime.train")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """16 x 16 = 256 chips a pod; the multi-pod mesh adds a leading
+    2-pod data-parallel axis (512 chips)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def make_debug_mesh(n_stages: int = 4, tp: int = 2, *,
+                    multi_pod: bool = False) -> Dict[str, int]:
+    """A small mesh: (n_stages, tp), with 2 pods in front for
+    ``multi_pod``."""
+    mesh = {"pod": 2} if multi_pod else {}
+    mesh.update(data=n_stages, model=tp)
+    return mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,8 +131,10 @@ def make_ring_layout(n_stages: int = 4, tp: int = 1,
 @dataclasses.dataclass
 class RankLayout:
     """One rank of a ``pods x n_stages x tp`` ring: its coordinates, its
-    device and its two groups (``model``: its stage's members, in member
-    order; ``ring``: its member's stages in its pod, in stage order)."""
+    device and its groups (``model``: its stage's members, in member
+    order; ``ring``: its member's stages in its pod, in stage order;
+    ``pods_axis``: its stage's member across the pods, in pod order, an
+    axis of one member in a one-pod world)."""
     pods: int
     n_stages: int
     tp: int
@@ -111,6 +145,7 @@ class RankLayout:
     device: torch.device
     model: Axis
     ring: Axis
+    pods_axis: Axis
 
     @property
     def world(self) -> int:
@@ -129,8 +164,8 @@ class RankLayout:
 
     def set_tracer(self, tracer) -> None:
         """Record this rank's collectives on ``tracer``'s ``comm`` track."""
-        self.model.tracer = tracer
-        self.ring.tracer = tracer
+        for ax in (self.model, self.ring, self.pods_axis):
+            ax.tracer = tracer
 
 
 def rank_coords(rank: int, n_stages: int, tp: int):
@@ -183,16 +218,38 @@ def make_rank_layout(n_stages: int, tp: int, pods: int = 1, *, rank: int,
                    for p in range(pods) for m in range(n_stages)]
     ring_ranks = [[p * n_stages * tp + m * tp + i for m in range(n_stages)]
                   for p in range(pods) for i in range(tp)]
+    pod_ranks = [[p * n_stages * tp + m * tp + i for p in range(pods)]
+                 for m in range(n_stages) for i in range(tp)] \
+        if pods > 1 else []
     groups = {tuple(r): _group(r, timeout_s)
-              for r in model_ranks + ring_ranks}
+              for r in model_ranks + ring_ranks + pod_ranks}
     pod, stage, member = rank_coords(rank, n_stages, tp)
     mine = model_ranks[pod * n_stages + stage]
     ring = ring_ranks[pod * tp + member]
+    across = Axis("pod", None, (rank,), 0)
+    if pods > 1:
+        r = pod_ranks[stage * tp + member]
+        across = Axis("pod", groups[tuple(r)], tuple(r), pod)
     return RankLayout(
         pods=pods, n_stages=n_stages, tp=tp, rank=rank, pod=pod,
         stage=stage, member=member, device=torch.device(device),
         model=Axis("model", groups[tuple(mine)], tuple(mine), member),
-        ring=Axis("data", groups[tuple(ring)], tuple(ring), stage))
+        ring=Axis("data", groups[tuple(ring)], tuple(ring), stage),
+        pods_axis=across)
+
+
+def dry_rank_layout(mesh: Dict[str, int], rank: int = 0,
+                    device="meta") -> RankLayout:
+    """Rank ``rank``'s place in ``mesh`` with dry axes: no world, no
+    process group (``runtime.collectives.dry_axis``)."""
+    pods, n_stages, tp = mesh.get("pod", 1), mesh["data"], mesh["model"]
+    pod, stage, member = rank_coords(rank, n_stages, tp)
+    return RankLayout(
+        pods=pods, n_stages=n_stages, tp=tp, rank=rank, pod=pod,
+        stage=stage, member=member, device=torch.device(device),
+        model=dry_axis("model", tp, member),
+        ring=dry_axis("data", n_stages, stage),
+        pods_axis=dry_axis("pod", pods, pod))
 
 
 @dataclasses.dataclass
@@ -246,11 +303,21 @@ def _rank_main(rank: int, world: int, store_path: str, device: str,
         if job is None:
             break
         jid, fn, kwargs = job
+        del job
         try:
-            out = _resolve(fn)(ctx, **kwargs)
-            results.put((jid, rank, True, out))
+            out, ok = _resolve(fn)(ctx, **kwargs), True
         except BaseException as e:              # noqa: BLE001
-            results.put((jid, rank, False, _raised(e)))
+            out, ok = _raised(e), False
+        # the job's arguments go before its result does (CUDA tensors the
+        # parent handed over stay allocated in the parent while a rank
+        # holds them), and a large job's freed memory goes back to the
+        # card
+        del kwargs
+        if dev.type == "cuda" and torch.cuda.memory_reserved(dev) \
+                - torch.cuda.memory_allocated(dev) > EMPTY_CACHE_BYTES:
+            torch.cuda.empty_cache()
+        results.put((jid, rank, ok, out))
+        out = None
     import torch.distributed as dist
 
     dist.destroy_process_group()

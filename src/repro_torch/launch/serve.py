@@ -17,7 +17,13 @@ decode: ``--batch`` prompts of ``--prompt-len`` tokens (``RequestGenerator``
   bf16 on the card allows near-tie splits only; a rank that fails, dies or
   outlasts ``launch.mesh.RANK_TIMEOUT_S`` exits nonzero). ``--verify-tokens T`` also
   times a T-token verify pass on the ranks. Where ``ring_supported`` says
-  no (or ``--stages 1``) the steps decode on one device. ``--tp`` also
+  no (the hybrid and audio families; a batch the stages do not split,
+  batch 1 included) the steps decode through the GSPMD layer across the
+  same ranks (``runtime.gspmd.rank_gspmd_job``: each rank holds its FSDP
+  part of every weight and its part of the cache, as the JAX driver's
+  ``gspmd_decode_step`` shards them), checked against the one-device
+  decode as the ring is; only ``--stages 1`` decodes on one device.
+  ``--mesh prod`` is the JAX driver's 16 stages x tp 16. ``--tp`` also
   picks the q4 groups of the store (``quantize_ring_params``) and pads the
   vocab.
 
@@ -68,19 +74,20 @@ chaos: ``--chaos transient`` decodes the batch again from the store (the
   no token is lost and the tokens after recovery (the re-plan, the
   survivors re-spawned as a smaller world that replays the history) equal
   a clean run on that survivor world fed the same history; ``--chaos
-  rank`` makes the last rank of the decode section's ring across ranks
-  raise at its
-  second step, and the driver exits nonzero. ``--io-retries``,
+  rank`` makes the last rank of the decode section (the ring's or the
+  GSPMD layer's) raise at its second step, and the run exits
+  nonzero. ``--io-retries``,
   ``--io-backoff-ms`` and ``--io-deadline-s`` set the ``IOPolicy`` of every
   store read and tier copy.
 
 Families, as in the JAX driver: MLA (``minicpm3-4b``) and vlm
 (``qwen2-vl-2b``) run every section (MLA refuses int8 pages:
 ``--kv-quant-kernel`` skips its paged section with the JAX driver's
-message); the hybrid family (``recurrentgemma-9b``) decodes on one device
-and skips the stream, paged and chaos sections (no store and no pages for
-its recurrent state); ``--arch whisper-tiny`` is an argument error: its
-prefill needs audio frames, which neither driver makes.
+message); the hybrid family (``recurrentgemma-9b``) decodes through the
+GSPMD layer across ranks and skips the stream, paged and chaos sections
+(no store and no pages for its recurrent state); ``--arch whisper-tiny``
+is an argument error: its prefill needs audio frames, which neither
+driver makes.
 
 Observability, as in the JAX driver: ``--trace OUT.json`` attaches a
 ``runtime.telemetry.Tracer`` to the decode steps and the served engines
@@ -190,8 +197,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(sequence-split KV, split FFN, vocab-sharded "
                          "head); it also picks the store's q4 groups and "
                          "the vocab padding")
-    ap.add_argument("--mesh", choices=("debug",), default="debug",
-                    help="the JAX driver's mesh: (--stages, --tp) ranks")
+    ap.add_argument("--mesh", choices=("debug", "prod"), default="debug",
+                    help="the JAX driver's mesh: debug is (--stages, --tp) "
+                         "ranks; prod is 16 stages x tp 16, the production "
+                         "mesh (256 rank processes)")
     ap.add_argument("--chaos", choices=("none", "transient", "failover",
                                         "rank"),
                     default="none",
@@ -286,11 +295,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     args.paged_kv = bool(args.paged_kv or args.check_dense
                          or args.prefill_chunk or args.kv_quant_kernel
                          or tiered)
+    if args.mesh == "prod":
+        args.stages, args.tp = 16, 16
     if args.stages < 1 or args.ring_k < 1 or args.tp < 1:
         ap.error("--stages, --ring-k and --tp must be >= 1")
     if args.chaos == "rank" and args.stages < 2:
-        ap.error("--chaos rank fails a rank of the ring across ranks: it "
-                 "needs --stages > 1")
+        ap.error("--chaos rank fails a rank of the decode section across "
+                 "ranks: it needs --stages > 1")
     if args.device_budget < 0 or args.host_budget < 0:
         ap.error("budgets must be >= 0 MB")
     return args
@@ -931,11 +942,14 @@ def rank_tokens(rank: Dict) -> np.ndarray:
     return rank["tokens"].transpose(1, 0, 2)
 
 
-def save_ring_cache(cache: Dict, path: str) -> str:
-    """A one-device cache to a ``torch.save`` file the ranks map."""
-    torch.save({"len": cache["len"].cpu(),
-                "layers": {n: a.cpu() for n, a in cache["layers"].items()}},
-               path)
+def save_tree(tree: Dict, path: str) -> str:
+    """A tree of tensors (a one-device cache of any family, a parameter
+    tree) to a ``torch.save`` file the ranks map."""
+    def host(t):
+        if isinstance(t, dict):
+            return {k: host(v) for k, v in t.items()}
+        return t.detach().cpu()
+    torch.save(host(tree), path)
     return path
 
 
@@ -959,7 +973,7 @@ def ring_ranks(weights, cfg, args: argparse.Namespace, cache: Dict,
         tree = weights if isinstance(weights, dict) \
             else tree_from_params(weights)
         store = save_param_store(tree, cfg, os.path.join(work, "store"))
-        path = save_ring_cache(cache, os.path.join(work, "cache.pt"))
+        path = save_tree(cache, os.path.join(work, "cache.pt"))
         if card:
             _build.build()
         t0 = clock()
@@ -1084,8 +1098,7 @@ def stream_ring(sdir: str, tree, cfg, args: argparse.Namespace, world
     try:
         kw = dict(cfg=cfg, n_stages=args.stages, tp=args.tp, k=args.ring_k,
                   store=sdir, first=nxt.cpu().numpy(),
-                  cache=save_ring_cache(cache, os.path.join(work,
-                                                            "cache.pt")),
+                  cache=save_tree(cache, os.path.join(work, "cache.pt")),
                   steps=args.new_tokens, keep_logits=True)
         del cache
         ref = world.run("repro_torch.runtime.serve:rank_ring_job", **kw)
@@ -1225,12 +1238,116 @@ def serve_failover(sdir: str, cfg, args: argparse.Namespace, *,
             "fired": list(inj.fired) if inj is not None else []}
 
 
+def serve_gspmd(weights, cfg, args: argparse.Namespace, world, *,
+                metrics=None) -> Dict:
+    """The decode section where the ring does not apply (the JAX driver's
+    ``gspmd_decode_step`` branch): prefill on the one-device path, then
+    ``--new-tokens`` greedy steps through the GSPMD layer across
+    ``world``'s ``--stages x --tp`` ranks (``runtime.gspmd.
+    rank_gspmd_job``: the weights and the prefilled cache written to
+    files in a temporary directory, each rank cutting its FSDP part of
+    every weight and its part of the cache; the kernels built first), and
+    through the one-device step from the same cache; exit nonzero unless
+    their tokens are equal (bf16 on the card: near-tie splits only), the
+    ranks that share rows took the same tokens and no rank failed
+    (``--chaos rank``: the last rank raises at its second step). Returns
+    the tokens (B, new_tokens, 1), the first tokens and what rank 0
+    measured."""
+    from ..kernels import _build
+    from ..launch.mesh import RankFailure
+
+    device = torch.device(args.device)
+    card = device.type == "cuda"
+    B, Mst = args.batch, args.stages
+    prompts, cache, nxt, ttft = ring_prefill(weights, cfg, args)
+    print(f"prefill: {B}x{prompts.shape[1]} tokens in {ttft * 1e3:.0f} ms")
+    if metrics is not None:
+        metrics.observe("request/ttft_s", ttft)
+    near_ties = card and args.dtype != "f32"
+    work = tempfile.mkdtemp(prefix="rank_gspmd_")
+    try:
+        tree = weights if isinstance(weights, dict) \
+            else tree_from_params(weights)
+        ppath = save_tree(tree, os.path.join(work, "params.pt"))
+        cpath = save_tree(cache, os.path.join(work, "cache.pt"))
+        if card:
+            _build.build()
+        t0 = clock()
+        ranks = world.run(
+            "repro_torch.runtime.gspmd:rank_gspmd_job", cfg=cfg,
+            n_stages=Mst, tp=args.tp, params=ppath, cache=cpath,
+            first=nxt.cpu().numpy(), steps=args.new_tokens,
+            dtype=str(DTYPES[args.dtype]).replace("torch.", ""),
+            keep_logits=near_ties,
+            fail_rank=Mst * args.tp - 1 if args.chaos == "rank" else None)
+    except RankFailure as e:
+        raise SystemExit(f"gspmd decode across ranks FAILED: {e}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    toks = np.full((B, args.new_tokens), -1, np.int64)
+    logits: List = [None] * args.new_tokens
+    for r in ranks:
+        lo, hi = r["rows"]
+        if (toks[lo:hi] < 0).all():
+            toks[lo:hi] = r["tokens"].T
+        elif not np.array_equal(r["tokens"].T, toks[lo:hi]):
+            raise SystemExit("gspmd decode across ranks FAILED: ranks that "
+                             "hold the same rows took different tokens")
+        if near_ties and r["member"] == 0:
+            for t, lg in enumerate(r["logits"]):
+                if logits[t] is None:
+                    logits[t] = np.zeros((B,) + lg.shape[1:], np.float32)
+                logits[t][lo:hi] = lg
+    r0 = ranks[0]
+    dt = sum(r0["step_s"])
+    print(f"gspmd decode: {args.new_tokens} x {B} in {dt:.2f}s "
+          f"({float(np.median(r0['step_s'])) * 1e3:.1f} ms/token/batch, "
+          f"median step on rank 0 of {len(ranks)} rank processes over "
+          f"gloo, eager; ranks up and their parts loaded in "
+          f"{max(r['load_s'] for r in ranks):.2f} s, all done in "
+          f"{clock() - t0:.2f} s)")
+    for s in r0["step_s"]:
+        if metrics is not None:
+            metrics.observe("decode/step_s", s)
+            metrics.inc("tokens/generated", B)
+    gs = {"tokens": toks[:, :, None],
+          "logits": [torch.from_numpy(lg).to(device) for lg in logits
+                     if lg is not None]}
+    one = greedy_steps(one_device_decode(weights, cfg, device), cache, nxt,
+                       args.new_tokens, device, keep=near_ties)
+    equal = bool(np.array_equal(gs["tokens"], one["tokens"]))
+    print(f"  one-device decode: {float(np.median(one['step_s'])) * 1e3:.1f}"
+          f" ms/token/batch; gspmd tokens equal to it: {equal}")
+    if not equal:
+        splits = ring_splits(gs, one) if near_ties else []
+        if not splits or any(gap > 2 * d for _, _, gap, d in splits):
+            raise SystemExit(f"gspmd vs one-device decode parity FAILED "
+                             f"(splits (row, step, top-2 gap, logit "
+                             f"difference): {splits or 'f32: none allowed'})")
+        print(f"  near-tie splits (row, step, top-2 gap, logit difference,"
+              f" over max|logit|): {splits}")
+    summed = {k: sum(r["launches"][k] for r in ranks)
+              for k in r0["launches"]}
+    print(f"  rank launches over the decode steps (rank 0): "
+          f"{r0['launches']}; summed over the {len(ranks)} ranks: {summed}")
+    return {"first": nxt.cpu().numpy(), "tokens": gs["tokens"],
+            "step_s": r0["step_s"], "one_device_tokens": one["tokens"],
+            "tokens_equal": equal, "prefill_s": ttft, "ranks": len(ranks),
+            "launches": r0["launches"], "summed_launches": summed,
+            "nbytes": [r["nbytes"] for r in ranks],
+            "comm_share": r0["comm_share"]}
+
+
 def serve_decode(params, cfg, args: argparse.Namespace, world, *,
                  tracer=None, metrics=None) -> Dict:
-    """The decode section: prefill the batch, then decode it through the
-    ring across ``world``'s ranks (``serve_ring``) where ``--stages`` > 1
-    and ``ring_supported`` holds, else on one device. Returns the tokens (B, new_tokens + 1),
-    the first one from the prefill, and the ring's result or None."""
+    """The decode section: prefill the batch, then decode it across
+    ``world``'s ranks where ``--stages`` > 1: through the ring
+    (``serve_ring``) where ``ring_supported`` holds, else through the
+    GSPMD layer (``serve_gspmd``), as the JAX driver decodes with
+    ``gspmd_decode_step`` on its mesh; with ``--stages 1`` on one device.
+    Returns the tokens (B, new_tokens + 1), the first one from the
+    prefill, and the ring's or the GSPMD layer's result (the other
+    None)."""
     device = torch.device(args.device)
     B, Mst = args.batch, args.stages
     if Mst > 1 and ring_supported(cfg, B, Mst):
@@ -1238,10 +1355,14 @@ def serve_decode(params, cfg, args: argparse.Namespace, world, *,
                           metrics=metrics)
         return {"tokens": np.concatenate([ring["first"],
                                           ring["tokens"][:, :, 0]], 1),
-                "ring": ring}
+                "ring": ring, "gspmd": None}
     if Mst > 1:
         print(f"{cfg.name}: ring unsupported for B={B}, M={Mst} "
-              f"(family={cfg.family}) -- decoding on one device")
+              f"(family={cfg.family}) -- GSPMD decode path")
+        gs = serve_gspmd(params, cfg, args, world, metrics=metrics)
+        return {"tokens": np.concatenate([gs["first"],
+                                          gs["tokens"][:, :, 0]], 1),
+                "ring": None, "gspmd": gs}
     prompts, cache, nxt, ttft = ring_prefill(params, cfg, args)
     print(f"prefill: {B}x{prompts.shape[1]} tokens in {ttft * 1e3:.0f} ms")
     if metrics is not None:
@@ -1254,7 +1375,7 @@ def serve_decode(params, cfg, args: argparse.Namespace, world, *,
           f"(median step)")
     return {"tokens": np.concatenate([nxt.cpu().numpy(),
                                       run["tokens"][:, :, 0]], 1),
-            "ring": None}
+            "ring": None, "gspmd": None}
 
 
 def serve_paged_section(params, cfg, args: argparse.Namespace, *,
@@ -1332,10 +1453,6 @@ def run_sections(params, cfg, base, args: argparse.Namespace, world,
                                            metrics=metrics)
     if args.chaos != "none" and not stacked:
         print(f"chaos: unsupported family {cfg.family} -- skipped")
-    elif args.chaos == "rank":
-        # reached only when the decode section ran on one device: a
-        # failed rank ends the run with the ring across ranks
-        print("chaos rank: no ring across ranks -- skipped")
     elif args.chaos == "transient":
         res["chaos"] = serve_chaos(params, base, args)
     elif args.chaos == "failover":

@@ -9,7 +9,9 @@ port's own builders on the meta device (``init_params``, ``init_cache``,
 ``runtime.serve.pad_vocab``, ``pad_and_permute`` and
 ``quantize_ring_params``): every op they use has a meta kernel, so no
 shape is derived by a rule of its own here. The JAX package's
-``jax.eval_shape`` plays the same part there.
+``jax.eval_shape`` plays the same part there. The dry run
+(``launch.dryrun``) is their user: it cuts them to a rank's part and
+runs the rank's step on them.
 """
 from __future__ import annotations
 

@@ -179,6 +179,10 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     scale = 1.0 / math.sqrt(D)
+    if q.device.type == "meta":
+        # the dry run: meta tensors store and compute nothing, and one
+        # tile has the same result shape as the loop's thousands
+        chunk = max(Sq, Sk, 1)
     qc = kc = chunk
     n_q = -(-Sq // qc)
     n_k = -(-Sk // kc)
@@ -453,6 +457,22 @@ def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
             else _full_attention(q, k, v)
         return out.reshape(B, S, -1) @ p.wo, cache
     q, k, v = attn_qkv(p, cfg, x, positions)
+    out, new_cache = attend(cfg, q, k, v, cache=cache, decode=decode,
+                            causal=causal)
+    o = qmm(out.reshape(B, S, -1), p.wo)
+    return o, new_cache
+
+
+def attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, *, cache: Optional[Dict] = None,
+           decode: bool = False, causal: bool = True
+           ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """``attn_block`` between its projections: q (B, S, H, hd), k and v
+    (B, S, h_kv, hd), rotated -> (the attention (B, S, H, hd), the cache
+    with ``len`` advanced), the cache written as ``attn_block`` says (the
+    heads are the tensors', so a tensor-parallel member passes its
+    own)."""
+    B, S = q.shape[:2]
     window = cfg.attn_window
     quantized = cache is not None and "k_scale" in cache
     new_cache = cache
@@ -469,7 +489,7 @@ def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
             v_wr, vsc = quantize_kv(v)
         else:
             k_wr, v_wr = k.to(kc.dtype), v.to(vc.dtype)
-        bidx = torch.arange(B, device=x.device)
+        bidx = torch.arange(B, device=q.device)
         for t in range(S):                       # small (draft block)
             slot = (ln + t) % window if rolling \
                 else torch.clamp(ln + t, max=Smax - 1)
@@ -514,8 +534,7 @@ def attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
                 cache["k"][:, :n] = kk.to(cache["k"].dtype)
                 cache["v"][:, :n] = vv.to(cache["v"].dtype)
             new_cache = {**cache, "len": cache["len"] + S}
-    o = qmm(out.reshape(B, S, -1), p.wo)
-    return o, new_cache
+    return out, new_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -706,6 +725,24 @@ def _mla_absorbed(p, cfg: ModelConfig, q_nope, q_rope, lines: torch.Tensor,
     return _einsum("bqhr,rhv->bqhv", o_lat.to(dtype), wv).reshape(B, S, -1)
 
 
+def mla_prefill_attention(p, cfg: ModelConfig, q_nope, q_rope, latent,
+                          lat_cat) -> torch.Tensor:
+    """MLA's causal attention over a prompt (``mla_project``'s outputs):
+    the latent expanded to per-head K and V (V zero-padded to dn + dr
+    for the chunked attention, then sliced). -> (B, S, H * dv)."""
+    B, S = latent.shape[:2]
+    H, r_kv = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    k_nope = _einsum("bsr,rhd->bshd", latent, p.wk_b.reshape(r_kv, H, dn))
+    vv = _einsum("bsr,rhv->bshv", latent, p.wv_b.reshape(r_kv, H, dv))
+    kk = torch.cat([k_nope, lat_cat[:, :, None, r_kv:].expand(
+        B, S, H, dr).to(k_nope.dtype)], -1)
+    qq = torch.cat([q_nope, q_rope], -1)
+    v_p = torch.nn.functional.pad(vv, (0, dn + dr - dv))
+    return chunked_causal_attention(qq, kk, v_p)[..., :dv].reshape(
+        B, S, H * dv)
+
+
 def mla_block(p, cfg: ModelConfig, x: torch.Tensor, positions, *,
               cache: Optional[Dict] = None, decode: bool = False
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -731,15 +768,7 @@ def mla_block(p, cfg: ModelConfig, x: torch.Tensor, positions, *,
         new_cache = {**cache, "len": ln + S}
         out = _mla_absorbed(p, cfg, q_nope, q_rope, lc, ln, x.dtype)
     else:
-        k_nope = _einsum("bsr,rhd->bshd", latent,
-                         p.wk_b.reshape(r_kv, H, dn))
-        vv = _einsum("bsr,rhv->bshv", latent, p.wv_b.reshape(r_kv, H, dv))
-        kk = torch.cat([k_nope, lat_cat[:, :, None, r_kv:].expand(
-            B, S, H, dr).to(k_nope.dtype)], -1)
-        qq = torch.cat([q_nope, q_rope], -1)
-        v_p = torch.nn.functional.pad(vv, (0, dn + dr - dv))
-        out = chunked_causal_attention(qq, kk, v_p)[..., :dv].reshape(
-            B, S, H * dv)
+        out = mla_prefill_attention(p, cfg, q_nope, q_rope, latent, lat_cat)
         if cache is not None:
             n = min(S, cache["latent"].shape[1])
             cache["latent"][:, :n] = lat_cat[:, :n].to(cache["latent"].dtype)
@@ -769,16 +798,27 @@ def mla_block_paged(p, cfg: ModelConfig, x: torch.Tensor, positions,
 
 def _tp_sum(y: torch.Tensor, tp) -> torch.Tensor:
     """The sum over a tensor-parallel axis after a split down projection
-    (``tp`` None: no split)."""
+    (``tp`` None: no split); under autograd the gradient passes as it is
+    (``collectives.tp_sum``)."""
     if tp is None:
         return y
-    from ..runtime.collectives import psum
-    return psum(y, tp)
+    from ..runtime.collectives import tp_sum
+    return tp_sum(y, tp)
+
+
+def _tp_enter(x: torch.Tensor, tp) -> torch.Tensor:
+    """``x`` entering a member's part of a split product: under autograd
+    its gradient sums over ``tp`` (``collectives.tp_enter``)."""
+    if tp is None:
+        return x
+    from ..runtime.collectives import tp_enter
+    return tp_enter(x, tp)
 
 
 def glu_ffn(p, x: torch.Tensor, tp=None) -> torch.Tensor:
     """The GLU FFN; ``tp`` (a ``runtime.collectives.Axis``): ``p`` holds
     this member's slice of d_ff, and the down projections sum over it."""
+    x = _tp_enter(x, tp)
     return _tp_sum(qmm(swish(qmm(x, p.w_gate)) * qmm(x, p.w_up), p.w_down),
                    tp)
 
@@ -842,7 +882,8 @@ def moe_route(router, cfg: ModelConfig, xt: torch.Tensor, *,
 
 
 def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
-            lossless: bool = False, tp=None) -> torch.Tensor:
+            lossless: bool = False, tp=None, ep: bool = False
+            ) -> torch.Tensor:
     """Top-k MoE with capacity-bounded dispatch (``repro.models.layers.
     moe_ffn``): routed rows scatter into one (E*C + 1, d) buffer (rows
     over capacity to the pad row E*C, which nothing reads), the experts
@@ -852,34 +893,50 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
     nothing reads a value back to the host, so a step stays graphable.
     ``tp`` (a ``runtime.collectives.Axis``): every expert's d_ff is split
     over it (TP inside each expert, as the JAX ring runs it) and the
-    combined output sums over it."""
+    combined output sums over it; with ``ep`` the experts are split
+    instead (expert parallelism: ``p``'s stacks hold this member's E/tp
+    experts, the others' rows stay zero here). The routing is repeated
+    on every member; under autograd the dispatched rows and the gates
+    enter the member's part through ``collectives.tp_enter``."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     n_chunks = max(-(-(B * S) // MOE_MAX_CHUNK), 1)
     if S % n_chunks == 0 and n_chunks > 1:
         xs = x.reshape(B, n_chunks, S // n_chunks, d).transpose(0, 1)
-        out = torch.stack([moe_ffn(p, cfg, xc, lossless=lossless, tp=tp)
+        out = torch.stack([moe_ffn(p, cfg, xc, lossless=lossless, tp=tp,
+                                   ep=ep)
                            for xc in xs])
         return out.transpose(0, 1).reshape(B, S, d)
     xt = x.reshape(B * S, d)
     gates, slot, C = moe_route(p.router, cfg, xt, lossless=lossless)
+    gates = _tp_enter(gates, tp)
     buf = x.new_zeros((E * C + 1, d))
-    buf.index_copy_(0, slot, xt.repeat_interleave(K, 0))
+    buf.index_copy_(0, slot, _tp_enter(xt, tp).repeat_interleave(K, 0))
     xe = buf[:E * C].reshape(E, C, d)
+    if ep and tp is not None:
+        n = E // tp.size
+        xe = xe[tp.index * n:(tp.index + 1) * n]
     h = swish(expert_mm(xe, p.w_gate)) * expert_mm(xe, p.w_up)
     ye = expert_mm(h, p.w_down)
-    ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
+    if ep and tp is not None:
+        # the member's experts' rows; the others' (and the pad row) zero
+        ye_flat = ye.new_zeros((E * C + 1, d))
+        ye_flat[tp.index * n * C:(tp.index + 1) * n * C] = \
+            ye.reshape(n * C, d)
+    else:
+        ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
     y = (ye_flat[slot].reshape(B * S, K, d)
          * gates.to(ye.dtype)[..., None]).sum(1)
     return _tp_sum(y.reshape(B, S, d), tp)
 
 
 def block_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
-              lossless: bool, tp=None) -> torch.Tensor:
+              lossless: bool, tp=None, ep: bool = False) -> torch.Tensor:
     """A dense block's FFN: ``moe_ffn`` over ``p.moe`` for the moe family,
-    else ``glu_ffn`` over ``p.ffn`` (``tp``: split over that axis)."""
+    else ``glu_ffn`` over ``p.ffn`` (``tp``: split over that axis; ``ep``:
+    the experts split over it)."""
     if cfg.n_experts:
-        return moe_ffn(p.moe, cfg, x, lossless=lossless, tp=tp)
+        return moe_ffn(p.moe, cfg, x, lossless=lossless, tp=tp, ep=ep)
     return glu_ffn(p.ffn, x, tp)
 
 
@@ -1027,12 +1084,24 @@ def ssd_block(p, cfg: ModelConfig, x: torch.Tensor, *,
     cache's state takes ``ssd_chunked`` with ``h0``; decode (S = 1) is the
     recurrence's one step in f32.
     """
+    return qmm(ssd_mix(p, cfg, qmm(x, p.in_proj), cache=cache,
+                       decode=decode, fresh=fresh, dtype=x.dtype),
+               p.out_proj)
+
+
+def ssd_mix(p, cfg: ModelConfig, zxbcdt: torch.Tensor, *,
+            cache: Optional[Dict] = None, decode: bool = False,
+            fresh: bool = False, dtype=None) -> torch.Tensor:
+    """``ssd_block`` between its two projections: the in-projection's
+    output (B, S, 2di + 2N + nh) -> the gated, normed SSD output (B, S,
+    di) (``dtype``: the block input's, which the output and the state
+    take; the projection's by default)."""
     from ..kernels import ops
 
-    B, S, d = x.shape
+    B, S, _ = zxbcdt.shape
+    dtype = dtype or zxbcdt.dtype
     di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     nh = di // P
-    zxbcdt = qmm(x, p.in_proj)
     z, xbc, dt = zxbcdt.split([di, di + 2 * N, nh], dim=-1)
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = _causal_conv1d(xbc, p.conv_w, conv_state)
@@ -1049,16 +1118,16 @@ def ssd_block(p, cfg: ModelConfig, x: torch.Tensor, *,
                            Bmat[:, 0].float())
         h = cache["state"].float() * dA[:, :, None, None] + dBx
         y = torch.einsum("bn,bhpn->bhp", Cmat[:, 0].float(), h)
-        y = y[:, None].to(x.dtype)
-        h_fin = h.to(x.dtype)
+        y = y[:, None].to(dtype)
+        h_fin = h.to(dtype)
     elif cache is None or fresh:
         y, h_fin = ops.ssd_scan(xh, dt, A, Bmat, Cmat)
     else:
         y, h_fin = ssd_chunked(xh, dt, A, Bmat, Cmat, h0=cache["state"])
-    y = y + xh * p.d_skip.to(x.dtype)[None, None, :, None]
+    y = y + xh * p.d_skip.to(dtype)[None, None, :, None]
     y = y.reshape(B, S, di)
     y = rms_norm(y * swish(z), p.norm, cfg.norm_eps)
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(h_fin)
-    return qmm(y, p.out_proj)
+    return y

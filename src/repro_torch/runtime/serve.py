@@ -875,12 +875,23 @@ class _Shard:
 
 
 def _rank_gqa(cfg: ModelConfig, p, h, c, ln, pos, sh: _Shard):
-    """A GQA layer's attention on one rank: the new lines written where
-    they fall in its sequence shard, B5 with its stats over the shard
-    (``layers.shard_attention_stats``; the plain stats on the CPU), the
-    shards merged over the "model" group."""
+    """A GQA layer's attention on one rank: ``seq_attention`` of its q, k
+    and v, then the output projection."""
     mb, T = h.shape[0], h.shape[1]
     q, k, v = ll.attn_qkv(p, cfg, h, pos)
+    out = seq_attention(cfg, q, k, v, c, ln, sh)
+    return ll.qmm(out.reshape(mb, T, -1).to(h.dtype), p.wo)
+
+
+def seq_attention(cfg: ModelConfig, q, k, v, c, ln, sh: _Shard
+                  ) -> torch.Tensor:
+    """GQA attention over a cache split by sequence over ``sh.model``:
+    the new lines (k, v (mb, T, hk, hd)) written where they fall in this
+    member's shard ``c``, B5 with its stats over the shard
+    (``layers.shard_attention_stats``; the plain stats on the CPU), the
+    shards merged over the group. -> (mb, T, H, hd) f32, equal on every
+    member."""
+    T = q.shape[1]
     window = cfg.attn_window
     Smax = sh.s_len * sh.model.size
     rolling = window is not None and Smax == window
@@ -917,22 +928,35 @@ def _rank_gqa(cfg: ModelConfig, p, h, c, ln, pos, sh: _Shard):
                                           window=eff_window)
     out = ll.merge_attention_lse(o, lse, sh.model)      # (mb, T, H, hd)
     sh.seen("attention", out)
-    return ll.qmm(out.reshape(mb, T, -1).to(h.dtype), p.wo)
+    return out
 
 
 def _rank_mla(cfg: ModelConfig, p, h, c, ln, pos, sh: _Shard):
     """MLA's absorbed attention on one rank (the JAX ring's
-    ``_ring_mla_layer``, plain torch): the latent lines written where they
-    fall in its shard, the scores over its lines, the latent stats merged
-    over the "model" group."""
+    ``_ring_mla_layer``, plain torch): ``mla_seq_attention``, then W_UV
+    and the output projection."""
     mb, T = h.shape[0], h.shape[1]
     H, r_kv = cfg.n_heads, cfg.kv_lora_rank
     q_nope, q_rope, _, lat_cat = ll.mla_project(p, cfg, h, pos)
+    o_lat = mla_seq_attention(cfg, p, q_nope, q_rope, lat_cat, c, ln, sh,
+                              h.dtype)
+    wv = p.wv_b.reshape(r_kv, H, cfg.v_head_dim)
+    out = ll._einsum("bthr,rhv->bthv", o_lat.to(h.dtype), wv)
+    return ll.qmm(out.reshape(mb, T, -1), p.wo)
+
+
+def mla_seq_attention(cfg: ModelConfig, p, q_nope, q_rope, lat_cat, c, ln,
+                      sh: _Shard, dtype) -> torch.Tensor:
+    """MLA's absorbed attention over a latent cache split by sequence
+    over ``sh.model``: the new latent lines written where they fall in
+    this member's shard ``c``, the scores over its lines, the latent stats
+    merged over the group. -> (mb, T, H, r_kv) f32."""
+    T = q_nope.shape[1]
     lc = c["latent"]
     for t in range(T):
         masked_slot_update(lc, lat_cat[:, t], ln + t, sh.s_start, sh.s_len)
-    s_all, lat_all = ll._mla_scores(p, cfg, q_nope, q_rope, lc, h.dtype)
-    dev = h.device
+    s_all, lat_all = ll._mla_scores(p, cfg, q_nope, q_rope, lc, dtype)
+    dev = lc.device
     spos = torch.arange(sh.s_len, device=dev) + (
         sh.s_start if sh.offsets else 0)
     qpos = ln.long()[:, None] + torch.arange(T, device=dev)[None]
@@ -945,9 +969,7 @@ def _rank_mla(cfg: ModelConfig, p, h, c, ln, pos, sh: _Shard):
     o, lse = ll.stats_to_lse(acc, m, pr.sum(-1), torch.float32)
     o_lat = ll.merge_attention_lse(o, lse, sh.model)     # (mb, T, H, r)
     sh.seen("attention", o_lat)
-    wv = p.wv_b.reshape(r_kv, H, cfg.v_head_dim)
-    out = ll._einsum("bthr,rhv->bthv", o_lat.to(h.dtype), wv)
-    return ll.qmm(out.reshape(mb, T, -1), p.wo)
+    return o_lat
 
 
 def _rank_attn_layer(cfg: ModelConfig, blk, x, c, ln, sh: _Shard):

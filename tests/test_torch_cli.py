@@ -19,8 +19,12 @@ The JAX driver's tokens are recorded by wrapping the functions it calls
 (jax 0.9.0; CI pins 0.4.37), each case names:
 
 - the GSPMD decode where the batch does not split over the stages (the
-  ``--batch 2`` tier line): it raises a sharding error, so the JAX paged
-  section of that line is run through the driver's own ``_paged_smoke``;
+  ``--batch 2`` tier line, and the ``--batch 1`` case of the CI's first
+  smoke line here): it raises a sharding error, so the port's GSPMD
+  decode across the ranks (``res["decode"]["gspmd"]``) is held to the
+  JAX ``decode_step``'s greedy tokens from the JAX driver's own prefilled
+  cache, and the JAX paged section of that line is run through the
+  driver's own ``_paged_smoke``;
 - the streamed SPMD ring of the ``--stream-window`` lines: it raises
   XLA's aliased-buffer error after the layer-wise decode (ROADMAP,
   reference caveats); the port's streamed ring is held against its
@@ -119,6 +123,8 @@ class _Recorder:
         mp.setattr(JD, "prefill", self._prefill(JD.prefill))
         mp.setattr(JRS, "build_ring_serve_step",
                    self._ring(JRS.build_ring_serve_step))
+        mp.setattr(JRS, "gspmd_decode_step",
+                   self._gspmd(JRS.gspmd_decode_step))
         mp.setattr(JMODELS, "decode_step_layerwise",
                    self._layerwise(JMODELS.decode_step_layerwise))
         mp.setattr(JENG, "make_dense_engine",
@@ -170,6 +176,14 @@ class _Recorder:
                     return logits, cache
                 return run
             return make
+        return build
+
+    def _gspmd(self, fn):
+        def build(cfg, mesh, params, cache, **kw):
+            # the prefilled cache, kept before the step may consume it
+            self.at()["gspmd_from"] = (cfg, params,
+                                       jax.tree.map(jnp.copy, cache))
+            return fn(cfg, mesh, params, cache, **kw)
         return build
 
     def _layerwise(self, fn):
@@ -228,18 +242,39 @@ def run_both(argv, tmp_path, monkeypatch):
     return rec, error, res, tpaths, jpaths
 
 
+def jax_plain_decode(jdec, n_new):
+    """The JAX ``decode_step``'s greedy tokens (B, n_new) from the cache
+    the JAX driver prefilled and handed its GSPMD decode."""
+    cfg, params, cache = jdec["gspmd_from"]
+    tok = jnp.asarray(jdec["first"], jnp.int32)[:, None]
+    steps = []
+    for _ in range(n_new):
+        logits, cache = JMODELS.decode_step(params, cfg, cache, tok)
+        tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
+        steps.append(_tok(tok))
+    return np.stack(steps, 1)
+
+
 def check_decode(rec, error, res):
-    """The decode section's tokens, or the reason the reference has none:
-    its GSPMD decode fails on this box where the ring does not apply."""
+    """The decode section's tokens. Where the ring does not apply the
+    reference's GSPMD decode fails under jax 0.9.0: the port's GSPMD decode
+    across the ranks is held to the JAX ``decode_step`` from the same
+    prefilled cache instead. Returns whether the ring ran."""
     port = res["decode"]["tokens"]
     jdec = rec.at("decode")
     if "steps" not in jdec:
         assert error is not None and error[0] == "decode"
-        assert res["ring"] is None       # the port decoded on one device
         assert "sharding" in repr(error[1]).lower() \
             or "Sharding" in type(error[1]).__name__
+        assert res["ring"] is None
+        gspmd = res["decode"]["gspmd"]
+        assert gspmd["ranks"] == 8                    # the (4, 2) world
+        want = jax_plain_decode(jdec, port.shape[1] - 1)
+        np.testing.assert_array_equal(gspmd["tokens"][:, :, 0], want)
         np.testing.assert_array_equal(port[:, 0], jdec["first"])
+        np.testing.assert_array_equal(port[:, 1:], want)
         return False
+    assert res["decode"]["gspmd"] is None
     want = np.stack([jdec["first"]] + jdec["steps"], 1)
     np.testing.assert_array_equal(port, want)
     return True
@@ -295,3 +330,17 @@ def test_paged_lines_match_the_jax_driver(argv, tmp_path, monkeypatch):
                     "requests/finished", "kv/pages_active", "slots/active"])
         for validate in (validate_metrics_snapshot, j_validate):
             validate(tpaths["--metrics-out"], require=require)
+
+
+def test_batch_1_decodes_across_the_ranks(tmp_path, monkeypatch):
+    """The CI's first qwen2.5-14b ``--smoke`` line at ``--batch 1``: one
+    sequence does not split over 4 stages, so both drivers take the GSPMD
+    decode (the JAX driver's raises here, see the module docstring); the
+    port's runs across the 8 ranks."""
+    argv = next(a for _, a in ci_serve_lines() if "--paged-kv" in a)
+    argv = list(argv)
+    argv[argv.index("--batch") + 1] = "1"
+    rec, error, res, _, _ = run_both(argv, tmp_path, monkeypatch)
+    assert not check_decode(rec, error, res)
+    assert res["decode"]["tokens"].shape == (1, 5)
+    check_paged(rec, res)

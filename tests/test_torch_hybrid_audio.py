@@ -275,9 +275,9 @@ def test_whisper_needs_frames():
 def test_driver_smoke_hybrid_equals_jax_decode(capsys):
     """``--arch recurrentgemma-9b --smoke --paged-kv --chaos transient
     --device cpu``: the JAX driver's "ring unsupported" line, the batch
-    decoded on one device with the tokens of the JAX one-device decode,
-    and the paged and chaos sections skipped with the JAX driver's
-    messages."""
+    decoded through the GSPMD layer across the 8 ranks with the tokens of
+    the JAX one-device decode, and the paged and chaos sections skipped
+    with the JAX driver's messages."""
     from repro.data import RequestGenerator as JRequestGenerator
     from repro_torch.launch import serve as TS
 
@@ -293,6 +293,7 @@ def test_driver_smoke_hybrid_equals_jax_decode(capsys):
     assert "paged-kv: unsupported family hybrid" in out
     assert "chaos: unsupported family hybrid" in out
     assert res["ring"] is None and "paged" not in res
+    assert res["decode"]["gspmd"]["ranks"] == 8
     prompts = np.stack([r.prompt for r in JRequestGenerator(
         jcfg.vocab, seed=1, prompt_len=(16, 17)).generate(8)])
     cache = JM.init_cache(jcfg, 8, 64, dtype=jnp.float32)

@@ -81,7 +81,9 @@ def test_walk_covers_every_port_module():
     partition specs, the named-axis collectives; its streamed windows
     and its failover live in ``runtime/streaming.py``,
     ``runtime/serve.py``, ``runtime/failover.py`` and
-    ``launch/mesh.py``) included."""
+    ``launch/mesh.py``) and the GSPMD layer's (the rank model and its
+    serve steps, the dry run; its train step lives in
+    ``runtime/train.py``) included."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in FILES if p.name != "chip_smoke.py"}
     for want in ("quant/__init__.py", "quant/grouped.py",
@@ -102,5 +104,18 @@ def test_walk_covers_every_port_module():
                  "runtime/optim.py", "runtime/checkpoint.py",
                  "runtime/train.py", "launch/train.py", "launch/specs.py",
                  "kernels/ref.py", "runtime/sharding.py",
-                 "runtime/collectives.py"):
+                 "runtime/collectives.py", "runtime/gspmd.py",
+                 "launch/dryrun.py"):
         assert want in names
+
+
+def test_dryrun_entry_point_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.launch.dryrun, "
+            "repro_torch.runtime.gspmd; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro imported'")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
